@@ -1,0 +1,270 @@
+"""Linear takum codec on torch tensors: the plain version of the codec.
+
+This is the integer dataflow of the takum decoder and encoder for the
+linear internal representation (S, e, f), written on int64 tensor lanes
+(see ``bitops``) so that it runs the same on the CPU and on the card. It
+is the plain version that the CUDA device functions in
+``csrc/takum.cuh`` are held against, bit for bit.
+
+* ``decode``/``decode_linear`` split an n-bit word into sign, the
+  characteristic (or exponent) and the mantissa field, left-aligned at
+  ``frac_width(n) = max(n, 12) - 5`` bits, plus the zero/NaR flags.
+* ``encode``/``encode_linear`` round (S, c, mant) to n-bit words:
+  round-to-nearest, ties to the even word, saturating (a finite nonzero
+  value never rounds onto the 0 or NaR words).
+* ``takum_to_float`` assembles the IEEE-754 float32 word directly:
+  sign | biased exponent | fraction, with RNE gradual underflow and
+  overflow to inf; NaR decodes to the quiet NaN 0x7FC00000.
+* ``float_to_takum`` disassembles the float32 word with shifts and masks.
+* ``takum_to_float_ref`` is the ldexp dataflow kept as the oracle of
+  ``takum_to_float``.
+
+Words travel in ``uint8``/``uint16`` storage; widths 6 <= n <= 16.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.bitops import (LANE, bit, floor_log2, floor_log2_u8,
+                                     lanes, mask, safe_shl, safe_shr,
+                                     to_words)
+
+__all__ = ["TakumDecoded", "decode", "decode_linear", "encode",
+           "encode_linear", "takum_to_float", "takum_to_float_ref",
+           "float_to_takum", "frac_width", "word_dtype", "nar_word"]
+
+F32_NAN_BITS = 0x7FC0_0000
+
+
+def frac_width(n: int) -> int:
+    """Width of the decoded mantissa field (= max(n, 12) - 5)."""
+    return max(n, 12) - 5
+
+
+def word_dtype(n: int) -> torch.dtype:
+    """Narrowest unsigned storage dtype for an n-bit word."""
+    _validate_n(n)
+    return torch.uint8 if n <= 8 else torch.uint16
+
+
+def nar_word(n: int) -> int:
+    """The NaR bit pattern of width n."""
+    return 1 << (n - 1)
+
+
+def _validate_n(n: int) -> None:
+    if not 6 <= n <= 16:
+        raise ValueError(f"the torch takum codec supports 6 <= n <= 16, "
+                         f"got {n}")
+
+
+class TakumDecoded(NamedTuple):
+    """Decoder output: sign, characteristic c (or exponent e), mantissa
+    field of width ``frac_width(n)``, and the special-word flags."""
+    s: torch.Tensor
+    val: torch.Tensor
+    mant: torch.Tensor
+    is_zero: torch.Tensor
+    is_nar: torch.Tensor
+
+
+def decode(words, n: int, *, output_exponent: bool = False) -> TakumDecoded:
+    """Decode n-bit takum words to (S, c|e, mant) and the special flags.
+
+    ``output_exponent`` folds the exponent ``e = (-1)^S (c + S)`` into
+    the decoder (the linear representation)."""
+    _validate_n(n)
+    w = lanes(words)
+    n12 = max(n, 12)
+    t = w << (n12 - n)                      # ghost bits: pad to >= 12
+    s = bit(t, n12 - 1)
+    d = bit(t, n12 - 2)
+    rbits = safe_shr(t, n12 - 5) & 7
+    r = torch.where(d == 0, 7 - rbits, rbits)
+    body = t & mask(n12 - 1)
+    is_special = body == 0
+    is_zero = is_special & (s == 0)
+    is_nar = is_special & (s == 1)
+    p12 = n12 - 5 - r                       # mantissa bits at 12+ width
+    uint_c = safe_shr(t, p12) & mask(r)
+    mant = safe_shl(t & mask(p12), r)       # left-aligned: uint(M) << r
+    one = torch.ones_like(r)
+    c = torch.where(d == 0, -(one << (r + 1)) + 1 + uint_c,
+                    (one << r) - 1 + uint_c)
+    if output_exponent:
+        c = torch.where(s == 1, -(c + 1), c)
+    return TakumDecoded(s=s, val=c, mant=mant, is_zero=is_zero,
+                        is_nar=is_nar)
+
+
+def decode_linear(words, n: int) -> TakumDecoded:
+    """Decode to the linear representation (S, e, f)."""
+    return decode(words, n, output_exponent=True)
+
+
+def encode(s, c, mant, n: int, *, wm: int, is_zero=None,
+           is_nar=None) -> torch.Tensor:
+    """Round (S, c, barred mantissa of ``wm`` bits) to n-bit takum words.
+
+    Out-of-range characteristics saturate to the largest or smallest
+    magnitude (never to 0 or NaR). Returns words in ``word_dtype(n)``."""
+    _validate_n(n)
+    if not 1 <= wm <= 27:
+        raise ValueError(f"wm={wm} out of range")
+    s = lanes(s)
+    c = lanes(c)
+    mant = lanes(mant)
+    over = c > 254
+    under = c < -255
+    c = torch.clamp(c, -255, 254)
+    mant = torch.where(over, torch.full_like(mant, mask(wm)),
+                       torch.where(under, torch.zeros_like(mant), mant))
+    sticky = over | under                    # saturation discards bits
+
+    d = (c >= 0).to(LANE)
+    cp = torch.where(d == 1, c, ~c) + 1      # in [1, 255]
+    r = floor_log2_u8(cp)
+    r3 = torch.where(d == 1, r, 7 - r)
+    cbits = torch.where(d == 1, cp, ~cp) & mask(r)
+    p = n - 5 - r                            # mantissa bits that fit
+
+    header = (s << (n - 1)) | (d << (n - 2)) | (r3 << (n - 5))
+    cut = wm - p
+    zero = torch.zeros_like(mant)
+    # case A (p >= 0): the cut lands inside or below the mantissa
+    m_top_a = torch.where(cut >= 0, safe_shr(mant, cut), safe_shl(mant, -cut))
+    body_a = safe_shl(cbits, p) | m_top_a
+    g_a = torch.where(cut >= 1, bit(mant, cut - 1), zero)
+    rest_a = torch.where(cut >= 2, mant & mask(cut - 1), zero)
+    # case B (p < 0, n < 12): the cut lands inside the characteristic
+    cut_c = -p
+    body_b = safe_shr(cbits, cut_c)
+    g_b = torch.where(cut_c >= 1, bit(cbits, cut_c - 1), zero)
+    rest_b_nz = (cbits & mask(cut_c - 1)) != 0
+    in_a = p >= 0
+    body = torch.where(in_a, body_a, body_b)
+    g = torch.where(in_a, g_a, g_b)
+    rest_nz = torch.where(in_a, rest_a != 0, rest_b_nz | (mant != 0)) | sticky
+
+    rd = header | body
+    ru = (rd + 1) & mask(n)
+    low = mask(n - 1)
+    underflow_down = (rd & low) == 0         # RD would be the 0/NaR word
+    overflow_up = (ru & low) == 0            # RU would wrap onto 0/NaR
+    round_up = underflow_down | (~overflow_up & (g == 1)
+                                 & (rest_nz | ((rd & 1) == 1)))
+    word = torch.where(round_up, ru, rd)
+    if is_zero is not None:
+        word = torch.where(torch.as_tensor(is_zero), zero, word)
+    if is_nar is not None:
+        word = torch.where(torch.as_tensor(is_nar),
+                           torch.full_like(word, nar_word(n)), word)
+    return to_words(word, word_dtype(n))
+
+
+def encode_linear(s, e, frac, n: int, *, wm: int, is_zero=None,
+                  is_nar=None) -> torch.Tensor:
+    """Encode from (S, e, f): c is e conditionally negated on S."""
+    s = lanes(s)
+    e = lanes(e)
+    c = torch.where(s == 1, ~e, e)
+    return encode(s, c, frac, n, wm=wm, is_zero=is_zero, is_nar=is_nar)
+
+
+def float_to_takum(x, n: int) -> torch.Tensor:
+    """Round float32 values to n-bit linear takum words (RNE, saturating).
+
+    NaN -> NaR, +-inf -> the largest magnitude of that sign, +-0 -> 0."""
+    _validate_n(n)
+    x = torch.as_tensor(x).to(torch.float32).contiguous()
+    bits = x.view(torch.int32).to(LANE) & mask(32)
+    s = bits >> 31
+    exp_f = (bits >> 23) & 0xFF
+    frac = bits & 0x7FFFFF
+    is_zero = (exp_f == 0) & (frac == 0)
+    is_nan = (exp_f == 255) & (frac != 0)
+    is_inf = (exp_f == 255) & (frac == 0)
+
+    # normalise subnormals: value = frac * 2^-149 = (1 + f') * 2^(b - 149)
+    b = floor_log2(torch.clamp(frac, min=1))
+    sub = exp_f == 0
+    big_e = torch.where(sub, b - 149, exp_f - 127)
+    mant23 = torch.where(sub, safe_shl(frac, 23 - b) & 0x7FFFFF, frac)
+    # negative values: the fraction field is two's-complemented and the
+    # exponent borrows when it is zero (the barred representation)
+    neg_borrow = (s == 1) & (mant23 == 0)
+    e = torch.where(neg_borrow, big_e - 1, big_e)
+    f_field = torch.where((s == 1) & (mant23 != 0),
+                          ((1 << 23) - mant23) & 0x7FFFFF, mant23)
+    e = torch.where(is_inf, torch.full_like(e, 10_000), e)
+    e = torch.where(is_nan | is_zero, torch.zeros_like(e), e)
+    return encode_linear(s, e, f_field, n, wm=23, is_zero=is_zero,
+                         is_nar=is_nan)
+
+
+def _unbar(dec: TakumDecoded, n: int):
+    """(mf, me) with magnitude = (1 + mf / 2^wf) * 2^me (S=1 un-barred)."""
+    wf = frac_width(n)
+    s, e, f = dec.s, dec.val, dec.mant
+    f_nz = f != 0
+    mf = torch.where((s == 1) & f_nz, (1 << wf) - f, f)
+    me = e + ((s == 1) & ~f_nz).to(LANE)
+    return mf, me
+
+
+def _rne_shr(v, sh):
+    """RNE(v / 2^sh) on 32-bit unsigned lanes, ``sh >= 1`` of any size."""
+    kept = safe_shr(v, sh)
+    g = bit(v, sh - 1)
+    rest_nz = (v & mask(sh - 1)) != 0
+    up = (g == 1) & (rest_nz | ((kept & 1) != 0))
+    return kept + up.to(LANE)
+
+
+def takum_to_float(words, n: int, dtype=torch.float32) -> torch.Tensor:
+    """Decode n-bit linear takum words to float by integer IEEE assembly.
+
+    Out-of-range magnitudes become inf or (through RNE gradual underflow)
+    subnormals and 0. Other float dtypes are computed in f32 and cast."""
+    _validate_n(n)
+    dec = decode_linear(words, n)
+    wf = frac_width(n)
+    mf, me = _unbar(dec, n)
+    # wf <= 23 for n <= 28: the fraction widens exactly, and mf < 2^wf
+    frac = mf << (23 - wf)
+    be = me + 127                              # biased exponent
+    sign = dec.s << 31
+    normal = sign | (torch.clamp(be, 0, 255) << 23) | frac
+    inf = sign | (255 << 23)
+    sub = sign | _rne_shr((1 << 23) | frac, 1 - be)
+    word = torch.where(be >= 255, inf, torch.where(be <= 0, sub, normal))
+    word = torch.where(dec.is_zero, torch.zeros_like(word), word)
+    word = torch.where(dec.is_nar, torch.full_like(word, F32_NAN_BITS), word)
+    word = torch.where(word >= (1 << 31), word - (1 << 32), word)
+    out = word.to(torch.int32).view(torch.float32)
+    return out if dtype == torch.float32 else out.to(dtype)
+
+
+_EXP_RANGE = {torch.float32: (-126, 128), torch.float64: (-1022, 1024)}
+
+
+def takum_to_float_ref(words, n: int, dtype=torch.float32) -> torch.Tensor:
+    """The ldexp reconstruction: the oracle of :func:`takum_to_float`.
+
+    Subnormal magnitudes scale through a normal intermediate (one exact
+    multiply, then one correctly rounded one)."""
+    _validate_n(n)
+    dec = decode_linear(words, n)
+    wf = frac_width(n)
+    mf, me = _unbar(dec, n)
+    mant = 1.0 + mf.to(dtype) / float(1 << wf)
+    minexp, maxexp = _EXP_RANGE[dtype]
+    e1 = torch.clamp(me, minexp, maxexp)
+    mag = torch.ldexp(torch.ldexp(mant, e1.to(dtype)), (me - e1).to(dtype))
+    out = torch.where(dec.s == 1, -mag, mag)
+    out = torch.where(dec.is_zero, torch.zeros_like(out), out)
+    out = torch.where(dec.is_nar, torch.full_like(out, float("nan")), out)
+    return out.to(dtype)

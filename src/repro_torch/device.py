@@ -1,0 +1,25 @@
+"""Where the port's public entry points put their tensors."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device", "check_generator"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device; no quiet CPU fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the GPU; "
+                               "pass device='cpu' to run its plain versions")
+        device = "cuda"
+    return torch.device(device)
+
+
+def check_generator(gen: torch.Generator, device: torch.device) -> None:
+    """Raise unless ``gen`` draws on ``device``'s type (torch cannot draw
+    CUDA tensors from a CPU generator, nor the reverse)."""
+    if gen.device.type != device.type:
+        raise ValueError(f"generator on {gen.device} cannot draw parameters "
+                         f"on {device}: pass a generator on that device")

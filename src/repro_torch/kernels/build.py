@@ -1,0 +1,121 @@
+"""Build the CUDA sources of ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled on first use into its own shared
+library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>-<hash>.so
+
+(no ``--use_fast_math``: it flushes subnormals, and the codec is
+bit-exact in the subnormal band). The file name carries a hash of the
+sources, so an edited kernel is rebuilt and a stale library is never
+loaded. :func:`build_all` starts one nvcc per source at once and waits for
+all of them. Every C entry point returns ``cudaGetLastError()``;
+:func:`check` raises on anything but 0.
+
+Nothing here runs at import time: the CPU tests import every module of
+the package on hosts with no nvcc and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "library", "check",
+           "BUILD_INFO", "stream_of"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("codec", "qmatmul", "attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# per source: {"path", "seconds", "log"} of the build that produced it
+BUILD_INFO: Dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or CUDA_HOME/bin): the CUDA "
+                       "kernels of repro_torch cannot be built on this host")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every source in ``names`` whose library is missing, one
+    nvcc process each, all started together. Raises on any failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _target(n) for n in names}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in todo.items():
+        if out.exists():
+            BUILD_INFO.setdefault(name, {"path": str(out), "seconds": 0.0,
+                                         "log": "(cached)"})
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_INFO[name] = {"path": str(out),
+                            "seconds": time.perf_counter() - t0, "log": log}
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return todo
+
+
+def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (building all sources on
+    first use), with ``argtypes`` set from ``signatures`` and every
+    ``restype`` an int (the ``cudaError_t`` the entry point returns)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_all()[name]
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,124 @@
+"""Public ops around the kernels: shapes, padding, layouts, dispatch.
+
+Every entry point resolves its format once here (a ``FormatSpec``, a
+registry name such as ``"takum8"``, or an int width meaning linear
+takum) and puts the tensors into the kernel's layout. The kernel
+wrappers of ``takum_codec``/``takum_matmul``/``takum_attention`` choose
+the path: CUDA tensors launch the hand-written kernel (or raise: there
+is no fallback), CPU tensors run the plain version of ``kernels/ref.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import formats
+from repro_torch.kernels import takum_attention as kattn
+from repro_torch.kernels import takum_codec, takum_matmul
+
+__all__ = ["takum_decode", "takum_encode", "quant_matmul", "takum_attention",
+           "paged_attention", "WireMatrix"]
+
+
+def takum_decode(words: torch.Tensor, fmt) -> torch.Tensor:
+    """Wire words (any shape) -> float32; zero word -> 0.0, NaR -> NaN."""
+    spec = formats.resolve(fmt)
+    if spec.is_identity:
+        return words.to(torch.float32)
+    return takum_codec.decode(words, spec)
+
+
+def takum_encode(x: torch.Tensor, fmt) -> torch.Tensor:
+    """Floats (any shape, cast to f32) -> wire words, RNE, saturating."""
+    return takum_codec.encode(x, formats.resolve_wire(fmt))
+
+
+def quant_matmul(x: torch.Tensor, w_words: torch.Tensor, fmt) -> torch.Tensor:
+    """x [..., K] @ decode(w_words [K, N]) -> [..., N] f32 (forward only);
+    rows of any leading shape are flattened into the kernel's M."""
+    spec = formats.resolve_wire(fmt)
+    out = takum_matmul.qmatmul(x.reshape(-1, x.shape[-1]), w_words, spec)
+    return out.reshape(*x.shape[:-1], w_words.shape[1])
+
+
+def _check_heads(h: int, hkv: int) -> None:
+    if h % hkv:
+        raise ValueError(f"n_heads {h} not a multiple of n_kv_heads {hkv}")
+
+
+def takum_attention(q, k_cache, v_cache, n=0, fmt="none", *, pos: int,
+                    start=None, window: int = 0, block=None) -> torch.Tensor:
+    """Attention of ``q [B, tq, H, hd]`` over a contiguous wire cache
+    ``[B, Tmax, Hkv, hd]``, words decoded inside the kernel. ``pos`` is
+    the position of ``q[:, 0]``, ``start [B]`` the first valid key,
+    ``window`` a sliding window (0 = full causal), ``block`` the KV tile
+    (default 256, clamped to Tmax rounded up to 8). Returns
+    ``[B, tq, H, hd]`` f32."""
+    spec = formats.resolve(fmt, n)
+    tq, h = q.shape[1], q.shape[2]
+    hkv = k_cache.shape[2]
+    _check_heads(h, hkv)
+    out4 = kattn.attention(kattn.to_rows(q, hkv), k_cache, v_cache, pos,
+                           start, spec=spec, tq=tq, bk=block, window=window)
+    return kattn.from_rows(out4, tq)
+
+
+def paged_attention(q, k_pool, v_pool, table, fmt="none", *, pos,
+                    start=None, window: int = 0) -> torch.Tensor:
+    """One decode step (``q [B, 1, H, hd]``) over a paged wire cache
+    ``[P, ps, Hkv, hd]`` through the block table ``[B, NP]``; ``pos`` and
+    ``start`` are per-sequence ``[B]`` vectors. Returns
+    ``[B, 1, H, hd]`` f32."""
+    spec = formats.resolve(fmt)
+    tq, h = q.shape[1], q.shape[2]
+    if tq != 1:
+        raise ValueError(
+            f"paged_attention is decode-only (tq == 1), got tq={tq}; "
+            "prefill runs on the contiguous cache and is scattered into "
+            "pages by the scheduler")
+    hkv = k_pool.shape[2]
+    _check_heads(h, hkv)
+    out4 = kattn.paged_attention(kattn.to_rows(q, hkv), k_pool, v_pool, pos,
+                                 start, table, spec=spec, window=window)
+    return kattn.from_rows(out4, 1)
+
+
+class WireMatrix:
+    """A [K, N] weight held as wire words and decoded inside the matmul.
+
+    Drop-in for a float matrix at ``x @ w`` sites: torch defers the
+    product to :meth:`__rmatmul__`, which routes it through
+    :func:`quant_matmul` (the wire-weight kernel on CUDA)."""
+
+    def __init__(self, words: torch.Tensor, n=None, *, fmt="linear"):
+        self.spec = formats.resolve_wire(fmt, n)
+        if words.dtype != self.spec.word_dtype or words.ndim != 2:
+            raise TypeError(f"WireMatrix takes 2D {self.spec.word_dtype} "
+                            f"words, got {words.dtype} {tuple(words.shape)}")
+        self.words = words
+
+    @classmethod
+    def encode(cls, w: torch.Tensor, n=None, *, fmt="linear") -> "WireMatrix":
+        spec = formats.resolve_wire(fmt, n)
+        return cls(takum_codec.encode(w.to(torch.float32), spec), fmt=spec)
+
+    @property
+    def shape(self):
+        return self.words.shape
+
+    @property
+    def dtype(self):   # decode target dtype, for callers probing params
+        return torch.float32
+
+    def to(self, device) -> "WireMatrix":
+        return WireMatrix(self.words.to(device), fmt=self.spec)
+
+    def decode(self, dtype=torch.float32) -> torch.Tensor:
+        return takum_decode(self.words, self.spec).to(dtype)
+
+    def __rmatmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return quant_matmul(x, self.words, self.spec).to(x.dtype)
+
+    def __repr__(self):
+        return (f"WireMatrix(shape={tuple(self.words.shape)}, "
+                f"spec={self.spec.name!r})")

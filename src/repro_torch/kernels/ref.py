@@ -1,0 +1,126 @@
+"""Plain PyTorch versions of every kernel in this package.
+
+Each CUDA kernel is held against the function here: the codec bit-exact,
+the matmul and attention to f32 summation-order tolerance. These are
+also what the kernel wrappers run when their tensors lie on the CPU.
+
+Every entry point resolves its format through ``repro_torch.formats``,
+so callers may pass a ``FormatSpec``, a registry name or an int width.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import formats
+from repro_torch.core.bitops import carrier
+
+__all__ = ["decode_ref", "encode_ref", "qmatmul_ref", "attention_ref",
+           "paged_attention_ref", "MASKED"]
+
+MASKED = -1e30   # finite mask value: all-masked rows stay finite
+
+
+def decode_ref(words, fmt, dtype=torch.float32) -> torch.Tensor:
+    """Wire words -> float."""
+    return formats.resolve(fmt).decode_tile(words, dtype=dtype)
+
+
+def encode_ref(x, fmt) -> torch.Tensor:
+    """float32 -> wire words (RNE, saturating)."""
+    return formats.resolve(fmt).encode_tile(x)
+
+
+def qmatmul_ref(x, w_words, fmt, out_dtype=torch.float32) -> torch.Tensor:
+    """x [M, K] float @ decode(w_words [K, N]) -> [M, N], f32 x f32 with
+    an f32 sum."""
+    w = formats.resolve(fmt).decode_tile(w_words, dtype=torch.float32)
+    return (x.to(torch.float32) @ w).to(out_dtype)
+
+
+def attention_ref(q, k_cache, v_cache, n, fmt="none", *, pos, start=None,
+                  window: int = 0, out_dtype=torch.float32) -> torch.Tensor:
+    """Decode-then-attend: the whole cache is decoded to f32 and dense
+    masked attention runs over it.
+
+    ``q [B, tq, H, hd]``, caches ``[B, Tmax, Hkv, hd]`` words (floats for
+    the identity codec); ``pos`` is the position of ``q[:, 0]``,
+    ``start [B]`` the first valid key, ``window`` a sliding window
+    (0 = full causal). All-masked query rows give a finite uniform
+    average; NaR words decode to NaN and poison the rows they reach."""
+    spec = formats.resolve(fmt, n)
+    if spec.is_identity:
+        k, v = k_cache, v_cache
+    else:
+        k = spec.decode_tile(k_cache, dtype=torch.float32)
+        v = spec.decode_tile(v_cache, dtype=torch.float32)
+    b, tq, h, hd = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    q5 = q.reshape(b, tq, hkv, g, hd)
+    if not spec.is_identity:
+        q5 = q5.to(torch.float32)
+    scores = (torch.einsum("bqkgd,bskd->bkgqs", q5, k).to(torch.float32)
+              * (hd ** -0.5))
+    dev = scores.device
+    qi = (torch.as_tensor(pos, device=dev)
+          + torch.arange(tq, device=dev))[None, None, None, :, None]
+    kj = torch.arange(tk, device=dev)[None, None, None, None, :]
+    m = kj <= qi
+    if window:
+        m = m & (kj > qi - window)
+    if start is not None:
+        st = torch.as_tensor(start, device=dev).reshape(b)
+        m = m & (kj >= st[:, None, None, None, None])
+    scores = torch.where(m, scores, torch.full_like(scores, MASKED))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(b, tq, h, hd).to(out_dtype)
+
+
+def paged_attention_ref(q, k_pool, v_pool, table, fmt="none", *, pos,
+                        start=None, window: int = 0,
+                        out_dtype=torch.float32) -> torch.Tensor:
+    """Gather-then-attend over the pages the paged kernels visit.
+
+    Sequence ``b`` reads pages ``first..last`` of its block table:
+    ``last = min(pos // ps, NP - 1)`` (an idle slot's stale ``pos`` is
+    clamped to the table), ``first`` the page of the window floor
+    ``pos - window + 1`` (0 without a window). Those pages are gathered
+    into a contiguous cache and :func:`attention_ref` runs on it at the
+    keys' absolute positions, with that sequence's own ``pos``/``start``.
+    Pages past ``pos`` hold stale words; the causal mask excludes them.
+    A sequence with no page in range (a stale ``pos`` whose window lies
+    past the table) gets 0, as the kernels' empty accumulator gives.
+
+    This is the reference Pallas kernel's result (its ``in_band`` test).
+    The JAX package's oracle gathers every page of the table instead; the
+    two differ only where a page outside the range would count: rows that
+    mask every key, and NaR words on such pages (see ROADMAP.md)."""
+    spec = formats.resolve(fmt)
+    b = q.shape[0]
+    ps, hkv, hd = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
+    dev = q.device
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=dev).expand(b)
+    start = (torch.zeros(b, dtype=torch.int64, device=dev) if start is None
+             else torch.as_tensor(start, dtype=torch.int64,
+                                  device=dev).expand(b))
+    table = torch.as_tensor(table, dtype=torch.int64, device=dev)
+    outs = []
+    for i in range(b):
+        p = int(pos[i])
+        last = min(p // ps, table.shape[1] - 1)
+        first = max((p - window + 1) // ps, 0) if window else 0
+        if first > last:
+            outs.append(torch.zeros((1,) + tuple(q.shape[1:]),
+                                    dtype=out_dtype, device=dev))
+            continue
+        pages = table[i, first:last + 1]
+        kc = carrier(k_pool)[pages].view(k_pool.dtype).reshape(-1, hkv, hd)
+        vc = carrier(v_pool)[pages].view(v_pool.dtype).reshape(-1, hkv, hd)
+        off = first * ps
+        outs.append(attention_ref(q[i:i + 1], kc[None], vc[None], spec.n,
+                                  spec, pos=p - off,
+                                  start=start[i:i + 1] - off, window=window,
+                                  out_dtype=out_dtype))
+    return torch.cat(outs, dim=0)

@@ -1,0 +1,251 @@
+"""Paged takum-wire KV pool: free-list allocator and per-slot block tables
+over the pooled cache of ``transformer.init_paged_cache``.
+
+The pool owns one ``[num_pages, page_size, Hkv, hd]`` word tensor per
+layer for K and for V and hands out *pages* of ``page_size`` positions.
+A sequence's pages are glued together by its row of the block table
+(``[batch_slots, max_pages]`` int32), which the paged attention kernel
+reads. Conventions, as in the JAX package:
+
+* page 0 is the reserved scratch page idle decode slots point at;
+* the allocator is host-side, strict and refcounted (``alloc`` at
+  refcount 1, ``ref`` adds an owner, ``unref`` drops one; the last unref
+  frees). Misuse raises :class:`PagePoolError`;
+* recycled pages are not zeroed: the causal mask excludes positions past
+  a sequence's ``pos``;
+* the host mirrors of ``table``/``pos``/``start`` are installed into the
+  device cache by :meth:`push_tables` when the active set changes; the
+  decode step advances the device ``pos`` itself.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import formats
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.bitops import carrier
+from repro_torch.models import model
+from repro_torch.models.layers import DTYPES, put_words
+
+__all__ = ["PagePool", "PagePoolError", "AdmissionError", "PageStats",
+           "pages_for"]
+
+
+class PagePoolError(RuntimeError):
+    """Allocator misuse: double free, foreign page, over-allocation."""
+
+
+class AdmissionError(PagePoolError):
+    """A request can never be admitted under the pool's page budget."""
+
+
+def pages_for(positions: int, page_size: int) -> int:
+    """Pages needed to hold ``positions`` KV positions."""
+    return -(-positions // page_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class PageStats:
+    """One snapshot of the allocator (``PagePool.stats()``)."""
+    num_pages: int          # total pages, scratch page included
+    page_size: int
+    free: int
+    in_use: int             # unique pages with refcount >= 1
+    peak_in_use: int
+    hbm_bytes: int          # whole pool, all layers, K and V
+    shared_pages: int       # pages with refcount > 1 (prefix dedup)
+    prefix_hit_tokens: int  # prompt tokens served from shared pages
+    quarantined: int        # always 0 here: quarantine is not ported yet
+
+
+class PagePool:
+    """Free-list page allocator and block tables over the pooled KV cache.
+
+    ``batch`` is the decode-batch width (scheduler slots), ``max_pages``
+    the block-table width. With ``alloc_device=False`` no tensors are
+    built and only the allocator and its accounting run."""
+
+    def __init__(self, cfg: ModelConfig, *, batch: int, num_pages: int,
+                 page_size: int, max_pages: int, device=None, dtype=None,
+                 alloc_device: bool = True):
+        if num_pages < 2:
+            raise ValueError(f"num_pages must be >= 2 (page 0 is the "
+                             f"reserved scratch page), got {num_pages}")
+        if page_size < 8 or page_size % 8:
+            raise ValueError(f"page_size must be a positive multiple of "
+                             f"8, got {page_size}")
+        self.cfg = cfg
+        self.spec = formats.resolve(cfg.kv_quant)
+        self.batch = batch
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.max_pages = max_pages
+        self._dtype = dtype
+        # LIFO free list: hot pages get reused first (page 0 reserved)
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._refs: Dict[int, int] = {}
+        self._peak = 0
+        self._prefix_hit_tokens = 0
+        self.table = np.zeros((batch, max_pages), np.int32)
+        self.pos = np.zeros((batch,), np.int32)
+        self.start = np.zeros((batch,), np.int32)
+        self.cache = None
+        if alloc_device:
+            self.cache = model.init_paged_cache(
+                cfg, batch, num_pages, page_size, max_pages, device=device,
+                dtype=dtype)
+
+    # -- allocator ---------------------------------------------------------
+
+    def pages_free(self) -> int:
+        return len(self._free)
+
+    def pages_in_use(self) -> int:
+        return len(self._refs)
+
+    def shared_pages(self) -> int:
+        return sum(1 for c in self._refs.values() if c > 1)
+
+    def alloc(self, n: int) -> Tuple[int, ...]:
+        """Take ``n`` pages off the free list at refcount 1 (strict)."""
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if n > len(self._free):
+            raise PagePoolError(
+                f"page pool exhausted: requested {n} pages with "
+                f"{len(self._free)} free (budget {self.num_pages - 1} x "
+                f"{self.page_size} {self.spec.name} KV positions)")
+        pages = tuple(self._free.pop() for _ in range(n))
+        for p in pages:
+            self._refs[p] = 1
+        self._peak = max(self._peak, len(self._refs))
+        return pages
+
+    def ref(self, page: int) -> None:
+        """Add an owner to an allocated page."""
+        if page not in self._refs:
+            raise PagePoolError(f"ref of page {page} which is not allocated")
+        self._refs[page] += 1
+
+    def unref(self, page: int) -> None:
+        """Drop one owner; the last owner's unref frees the page."""
+        if page not in self._refs:
+            raise PagePoolError(f"free of page {page} which is not allocated "
+                                "(double free, scratch page, or foreign id)")
+        self._refs[page] -= 1
+        if self._refs[page] == 0:
+            del self._refs[page]
+            self._free.append(page)
+
+    def note_prefix_hits(self, n_tokens: int) -> None:
+        self._prefix_hit_tokens += int(n_tokens)
+
+    # -- memory accounting -------------------------------------------------
+
+    def page_hbm_bytes(self) -> int:
+        """Bytes one page costs across all layers, K and V."""
+        cfg = self.cfg
+        dtype = self._dtype or DTYPES[cfg.dtype]
+        return (2 * self.page_size * cfg.n_kv_heads * cfg.hd * cfg.n_layers
+                * self.spec.bytes_per_elem(dtype))
+
+    def hbm_bytes(self) -> int:
+        return self.num_pages * self.page_hbm_bytes()
+
+    def stats(self) -> PageStats:
+        return PageStats(num_pages=self.num_pages, page_size=self.page_size,
+                         free=self.pages_free(), in_use=self.pages_in_use(),
+                         peak_in_use=self._peak, hbm_bytes=self.hbm_bytes(),
+                         shared_pages=self.shared_pages(),
+                         prefix_hit_tokens=self._prefix_hit_tokens,
+                         quarantined=0)
+
+    # -- block tables ------------------------------------------------------
+
+    def assign(self, slot: int, pages: Sequence[int], *, pos: int,
+               start: int = 0) -> None:
+        """Point decode slot ``slot`` at ``pages`` from position ``pos``."""
+        self.table[slot] = 0
+        self.table[slot, :len(pages)] = pages
+        self.pos[slot] = pos
+        self.start[slot] = start
+
+    def clear(self, slot: int) -> None:
+        """Idle a slot: scratch-page table row, pos/start 0."""
+        self.table[slot] = 0
+        self.pos[slot] = 0
+        self.start[slot] = 0
+
+    def advance(self, slots: Sequence[int]) -> None:
+        """Mirror one decode step on the host for the active slots."""
+        for s in slots:
+            self.pos[s] += 1
+
+    # -- device-cache plumbing ---------------------------------------------
+
+    def _require_cache(self):
+        if self.cache is None:
+            raise PagePoolError("pool built with alloc_device=False has no "
+                                "device cache")
+
+    def push_tables(self) -> None:
+        """Install the host ``table``/``pos``/``start`` into every
+        layer's cache (one shared tensor of each)."""
+        self._require_cache()
+        dev = self.cache[0]["k"].device
+        table = torch.from_numpy(self.table.copy()).to(dev)
+        pos = torch.from_numpy(self.pos.copy()).to(dev)
+        start = torch.from_numpy(self.start.copy()).to(dev)
+        for layer in self.cache:
+            layer["table"], layer["pos"], layer["start"] = table, pos, start
+
+    def scatter_prefill(self, contig_caches, pages: Sequence[int], *,
+                        first_page: int = 0) -> None:
+        """Copy contiguous pages ``[first_page, first_page + len(pages))``
+        of a batch-1 prefilled cache into pool pages ``pages``, every
+        layer, K and V (words copied as words)."""
+        self._require_cache()
+        ps, npg = self.page_size, len(pages)
+        if not npg:
+            return
+        dev = self.cache[0]["k"].device
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=dev)
+        lo, hi = first_page * ps, (first_page + npg) * ps
+        for pool_l, contig_l in zip(self.cache, contig_caches):
+            for key in ("k", "v"):
+                src = contig_l[key]
+                if src.shape[0] != 1 or src.shape[1] < hi:
+                    raise ValueError(
+                        f"scatter_prefill expects a batch-1 contiguous "
+                        f"cache of at least {hi} positions, got "
+                        f"{tuple(src.shape)}")
+                tiles = src[0, lo:hi].reshape((npg, ps) + src.shape[2:])
+                put_words(pool_l[key], idx, tiles)
+
+    def gather_prefix(self, contig_caches, pages: Sequence[int], *,
+                      pos: int) -> None:
+        """Copy pool ``pages`` into the head of a batch-1 contiguous cache
+        and set its ``pos`` (the prefix-hit seam: suffix chunks prefill on
+        top of the shared prefix KV). Bit-exact: words stay words."""
+        self._require_cache()
+        ps, npg = self.page_size, len(pages)
+        dev = self.cache[0]["k"].device
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=dev)
+        for pool_l, contig_l in zip(self.cache, contig_caches):
+            if npg:
+                for key in ("k", "v"):
+                    dst = contig_l[key]
+                    if dst.shape[0] != 1 or dst.shape[1] < npg * ps:
+                        raise ValueError(
+                            f"gather_prefix needs a batch-1 contiguous "
+                            f"cache of at least {npg * ps} positions, got "
+                            f"{tuple(dst.shape)}")
+                    span = carrier(pool_l[key])[idx].reshape(
+                        (npg * ps,) + dst.shape[2:])
+                    carrier(dst)[0, :npg * ps] = span
+            contig_l["pos"] = pos
