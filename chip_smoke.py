@@ -25,16 +25,45 @@ Phases, one summary line each; any failure exits non-zero:
    16 new tokens each through ``ServeEngine.submit``/``run``, with every
    kernel's launch count from that run;
 6. the reduced config served on the card and on the CPU (plain
-   versions): identical greedy tokens, logits within tolerance.
+   versions): identical greedy tokens, logits within tolerance;
+7. LNS codec: every lns-takum8/16 word through the LNS parts (read back
+   as the gauss LNS matmul's integer state, bit-exact) and the LNS decode
+   kernel (within 2 ulp: one expf), and >= 1M seeded and special floats
+   through the LNS encode kernel (the plain version's word or, at an
+   ell_bar rounding tie of logf, its neighbour; the neighbours' share is
+   reported and bounded);
+8. LNS matmul (``csrc/lns_matmul.cu``) against its plain version: each
+   product alone (K = 1, every lns-takum8 word pair) within 2 ulp;
+   linear accumulation at the eight projection shapes (M = 4 and 256)
+   within the worst-case f32 bound and a statistical one; controls in
+   the same run that must break each (products rounded to TF32 or bf16,
+   a rescaled exp2f); gauss accumulation at 4x5120x1280 and
+   64x5120x5120 with the integer state bit-exact, NaR poisoning exactly
+   its row and column; time, bound and plain time per shape;
+9. attention (contiguous and paged) over lns-takum8 KV words against
+   the plain versions, every row compared;
+10. serving at the full width of phi3-medium-14b with lns-takum8 wire
+    weights (every projection through the LNS matmul) and an lns-takum8
+    KV cache: requests of 100 and 200 prompt tokens, 8 new tokens each,
+    with every kernel's launch count from that run (the LNS matmul > 0,
+    the takum wire matmul 0);
+11. the reduced config with lns-takum16 weights and lns-takum8 / takum8
+    KV served on the card and on the CPU: identical greedy tokens; the
+    prefill logits within 1e-4 once the card's encodes replay the CPU
+    run's words, and free-running within a limit per KV format, with the
+    first word that differed located.
 
-Then the ``kernels`` line (each kernel's launches on the main path, its
-check, its time, the plain version's time and the bound) and, last,
+Then the ``kernels`` line (each kernel's launches on its serving path,
+its check, its time, the plain version's time and the bound) and, last,
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import dataclasses
+import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -53,8 +82,38 @@ U32 = 2.0 ** -24                 # f32 unit roundoff
 # 2^13 / (1.7 sqrt(K)) >= 35 of these units per element at K <= 17920
 C_STAT = 16.0
 ATTN_ATOL = 2e-5                 # the reference's attention tolerance
-
-
+# every projection shape of a phi3-medium-14b layer: decode (M = 4) and a
+# prefill chunk (M = 256) of wq/wo, wk/wv, wg/w1, w2
+MM_SHAPES = [(4, 5120, 5120), (4, 5120, 1280), (4, 5120, 17920),
+             (4, 17920, 5120), (256, 5120, 5120), (256, 5120, 1280),
+             (256, 5120, 17920), (256, 17920, 5120)]
+# the gauss LNS matmul: a decode step's and a prefill chunk's wk/wv and wq
+GAUSS_SHAPES = [(4, 5120, 1280), (64, 5120, 5120)]
+# LNS encode: share of words that are the plain version's neighbour (the
+# logf of kernel and plain version on either side of an ell_bar rounding
+# tie), bounded at the share measured between two f32 logs on the CPU
+# (tests/test_torch_lns.py: 1.0e-5)
+LNS_NEIGHBOUR_SHARE = 1.5e-5
+# reduced model with lns-takum16 weights, card against CPU. Forced (the
+# card's encodes replay the CPU run's words) the logits are held at 1e-4.
+# Free-running, an activation within an ulp of a rounding boundary of the
+# LNS grid takes the neighbouring word on one side, and later layers
+# spread the step: the logits are held per KV format at what was measured
+# on an H100 (NVIDIA H100 80GB HBM3, 700 W), and a difference over 1e-4 is
+# accepted only with the differing word located
+LNS_FREE_LOGITS_TOL = {"lns-takum8": 1e-4, "takum8": 5e-3}
+# the card's encode inputs against the CPU run's, once both encode the
+# same words upstream (f32 sums in another order)
+ENCODE_INPUT_ATOL = 1e-5
+# int32 operations per product of the Gauss-log fold, counted from the
+# steps of core/lns.py::gauss_add_parts on nonzero operands, each once:
+# the product (ell add, sign xor), the ordering (max, difference, base
+# sign select, same-sign test), the table address (index shift, remainder
+# mask, half select), the interpolation (slope subtract, multiply, shift,
+# add) and the result (add, clip as min and max); the two table reads
+# are shared-memory loads and not counted
+GAUSS_INT_OPS = 16
+LOG2E_F32 = 1.4426950408889634   # rounded to f32 where it is used
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -102,6 +161,544 @@ def codec_err(torch, got, want) -> float:
     return float(torch.nan_to_num(diff, nan=float("inf")).max())
 
 
+def smi(*fields) -> str:
+    """``nvidia-smi --query-gpu=<fields>`` of card 0, as printed."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={','.join(fields)}",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip()
+
+
+def ulps(torch, a, b):
+    """|a - b| in float32 units in the last place (+0 and -0 are one
+    value, and a sign change counts the steps through zero)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
+                     wrappers, seed=5):
+    """Serve phi3-medium-14b at full width (all 40 layers, random weights
+    from a seeded generator on the card, ``wfmt`` wire weights, a ``kv``
+    KV cache, page size 256, decode batch 4): one request per prompt
+    length, ``max_new`` new tokens each, through ``ServeEngine.submit``/
+    ``run``. Every wrapper's launch count is set to 0 just before the run
+    and read just after. Checks the output's shape and that the shortest
+    request's first token is the argmax of a fresh prefill."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model, transformer
+    from repro_torch.serve.engine import ServeEngine, quantize_weights
+    ps = 256
+    cfg = dataclasses.replace(get_arch("phi3-medium-14b").config,
+                              kv_quant=kv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=torch.bfloat16,
+                          device=dev)
+    params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
+    params["layers"] = []
+    for _ in range(cfg.n_layers):
+        layer = transformer.init_layer(gen, cfg, device=dev)
+        params["layers"].append(quantize_weights(layer, wfmt, mode="wire",
+                                                 verbose=False))
+        del layer
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    eng = ServeEngine(params, cfg, max_len=max_len, page_size=ps,
+                      decode_batch=4, device=dev)
+    sched = eng.scheduler()
+    walls = {"prefill": 0.0, "decode": 0.0}
+    steps = {"prefill": 0, "decode": 0}
+
+    def timed(fn, key, state):
+        def wrapped():
+            busy = sum(1 for s in sched._slots
+                       if s is not None and s.state == state)
+            if key == "decode":
+                busy = min(busy, 1)     # one packed step for all slots
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            events = list(fn())
+            torch.cuda.synchronize()
+            walls[key] += time.perf_counter() - t
+            steps[key] += busy
+            yield from events
+        return wrapped
+
+    # host clock around each scheduler phase, synchronised on both sides
+    sched._prefill_tick = timed(sched._prefill_tick, "prefill", "prefilling")
+    sched._decode_step = timed(sched._decode_step, "decode", "active")
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in plens]
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new) for p in prompts]
+    stamps = {r: [] for r in rids}       # host time of each streamed token
+    for ev in eng.run():
+        stamps[ev.rid].append(time.perf_counter() - t0)
+    n_events = sum(len(v) for v in stamps.values())
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    ttft = [round(stamps[r][0], 3) for r in rids]
+    gaps = sorted(b - a for r in rids
+                  for a, b in zip(stamps[r], stamps[r][1:]))
+    outs = [eng.result(r) for r in rids]
+    check(n_events == len(plens) * max_new,
+          f"{n_events} tokens streamed, wanted {len(plens) * max_new}")
+    for p, o in zip(prompts, outs):
+        check(o[:len(p)] == p and len(o) == len(p) + max_new
+              and all(0 <= t < cfg.vocab for t in o[len(p):]),
+              "served output has the wrong shape or tokens out of vocab")
+    # the first served token of the shortest request is the argmax of a
+    # fresh single-request prefill (serving is batch-invariant)
+    cache = model.init_cache(cfg, 1, 2 * ps, device=dev)
+    toks = torch.zeros((1, ps), dtype=torch.long)
+    toks[0, :plens[0]] = torch.as_tensor(prompts[0])
+    row, _ = model.prefill_chunk(eng.params, toks.to(dev), cfg, cache, pos=0,
+                                 last_idx=plens[0] - 1)
+    check(bool(torch.isfinite(row).all()), "prefill logits not finite")
+    check(int(row.argmax()) == outs[0][plens[0]],
+          "served first token differs from a fresh prefill's argmax")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    serve = {"weights": wfmt, "kv": kv, "layers": cfg.n_layers,
+             "d_model": cfg.d_model, "prompt_tokens": sum(plens),
+             "generated_tokens": n_events,
+             "weights_s": round(weights_s, 2), "serve_s": round(serve_s, 3),
+             "prefill_s": round(walls["prefill"], 3),
+             "prefill_chunks": steps["prefill"],
+             "decode_s": round(walls["decode"], 3),
+             "decode_steps": steps["decode"],
+             "decode_ms_per_step": round(1e3 * walls["decode"]
+                                         / max(steps["decode"], 1), 2),
+             "ttft_s": ttft,
+             "token_gap_ms_median": round(1e3 * gaps[len(gaps) // 2], 1),
+             "token_gap_ms_max": round(1e3 * gaps[-1], 1),
+             "peak_gb": round(peak_gb, 2), "launches": launches}
+    # the timing wrappers and the scheduler reference each other: collect
+    # the cycle so the model's memory is free before the next phase
+    del eng, sched, params, cache, row
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serve
+
+
+@contextlib.contextmanager
+def encode_tap(torch, replay=None):
+    """Every ``takum_codec.encode`` call of the port (the activations
+    entering each LNS matmul and the K/V of each layer), in call order.
+
+    Without ``replay``: yields the list of ``(format, input, words)`` on
+    the CPU. With ``replay`` (such a list from another run): each call
+    must match the recorded call's format and shape and its input must
+    lie within ENCODE_INPUT_ATOL of the recorded one; it returns the
+    recorded words. Yields a dict with the words encoded, the number that
+    differed from the recorded ones and the first that did."""
+    from repro_torch.core.bitops import carrier, to_words
+    from repro_torch.core.takum import frac_width
+    from repro_torch.kernels import takum_codec
+    orig = takum_codec.encode
+    calls = []
+    seen = {"words": 0, "differ": 0, "max_input_diff": 0.0, "first": None}
+    it = enumerate(replay or [])
+
+    def tap(x, spec):
+        own = orig(x, spec)
+        if replay is None:
+            calls.append((spec, x.detach().cpu().clone(), own.cpu()))
+            return own
+        i, (rspec, rx, rwords) = next(it)
+        check(rspec.name == spec.name and rwords.shape == own.shape,
+              f"forced run: encode call {i} is {spec.name} "
+              f"{tuple(own.shape)}, the recorded one {rspec.name} "
+              f"{tuple(rwords.shape)}")
+        xc = x.detach().cpu().reshape(own.shape).float()
+        dx = float((xc - rx.reshape(own.shape)).abs().max())
+        check(dx <= ENCODE_INPUT_ATOL, f"forced run: encode call {i} "
+              f"({spec.name}) input differs by {dx}")
+        differ = carrier(own.cpu()) != carrier(rwords)
+        nd = int(differ.sum())
+        seen["words"] += own.numel()
+        seen["differ"] += nd
+        seen["max_input_diff"] = max(seen["max_input_diff"], dx)
+        if nd and seen["first"] is None:
+            j = int(differ.reshape(-1).nonzero()[0])
+            xr, xd = float(rx.reshape(-1)[j]), float(xc.reshape(-1)[j])
+            wr = int(carrier(rwords).reshape(-1)[j])
+            wd = int(carrier(own.cpu()).reshape(-1)[j])
+            first = {"call": i, "format": spec.name, "index": j,
+                     "shape": list(own.shape), "x_cpu": xr, "x_card": xd,
+                     "word_cpu": wr, "word_card": wd}
+            if spec.has_lns_parts:   # 2 ln|x| against the words' ell_bar
+                ells, _ = spec.lns_parts(to_words(torch.tensor([wr, wd]),
+                                                  spec.word_dtype))
+                sc = 2.0 ** -frac_width(spec.n)
+                first.update(two_ln_abs_x_cpu=2 * math.log(abs(xr)),
+                             two_ln_abs_x_card=2 * math.log(abs(xd)),
+                             ell_cpu=int(ells[0]) * sc,
+                             ell_card=int(ells[1]) * sc)
+            seen["first"] = first
+        return rwords.to(own.device)
+
+    tap.launches = 0
+    takum_codec.encode = tap
+    try:
+        yield calls if replay is None else seen
+    finally:
+        takum_codec.encode = orig
+    if replay is not None:
+        check(next(it, None) is None, "forced run: the card encoded fewer "
+              "times than the CPU")
+
+
+def reduced_card_vs_cpu(torch, dev, *, wfmt, kv, free_tol=1e-4, tol=1e-4):
+    """The reduced config served on the card and on the CPU (plain
+    versions): identical greedy tokens (two generate calls: prefix tree
+    cold and warm), and the prefill logits of one prompt within ``tol``
+    once the card's encodes replay the CPU run's words (``encode_tap``),
+    and within ``free_tol`` free-running (a difference over 1e-4 is
+    accepted only where a differing word was located)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine, quantize_weights
+    rcfg = dataclasses.replace(get_arch("phi3-medium-14b").reduced,
+                               kv_quant=kv)
+    rparams = quantize_weights(model.init(torch.Generator().manual_seed(0),
+                                          rcfg, device="cpu"), wfmt,
+                               mode="wire", verbose=False)
+    rng = torch.Generator().manual_seed(3)
+    rprompts = [torch.randint(0, rcfg.vocab, (n,), generator=rng).tolist()
+                for n in (16, 9, 4, 13)]
+    t = torch.zeros((1, 16), dtype=torch.long)
+    t[0, :13] = torch.as_tensor(rprompts[3])
+    toks_by, engines = {}, {}
+    for d in ("cpu", dev):
+        e = ServeEngine(rparams, rcfg, max_len=48, page_size=16, device=d)
+        toks_by[str(d)] = (e.generate(rprompts, 8), e.generate(rprompts, 8))
+        engines[str(d)] = e
+
+    def prefill(d):
+        c = model.init_cache(rcfg, 1, 32, device=d)
+        row, _ = model.prefill_chunk(engines[str(d)].params, t.to(d), rcfg,
+                                     c, pos=0, last_idx=12)
+        return row.cpu()
+
+    with encode_tap(torch) as calls:
+        cpu_row = prefill("cpu")
+    card_free = prefill(dev)
+    with encode_tap(torch, replay=calls) as seen:
+        card_forced = prefill(dev)
+    same = toks_by["cpu"] == toks_by[str(dev)]
+    free_err = float((cpu_row - card_free).abs().max())
+    forced_err = float((cpu_row - card_forced).abs().max())
+    what = f"reduced model ({wfmt} weights, {kv} KV)"
+    check(same, f"{what}: card and CPU tokens differ")
+    check(forced_err <= tol, f"{what}: card and CPU logits differ by "
+          f"{forced_err} with the CPU's words forced")
+    check(free_err <= free_tol, f"{what}: card and CPU logits differ by "
+          f"{free_err} free-running")
+    check(free_err <= 1e-4 or seen["differ"] > 0, f"{what}: free-running "
+          f"logits differ by {free_err} and no encoded word differs")
+    return {"weights": wfmt, "kv": kv, "tokens_identical": same,
+            "logits_max_abs_err": free_err, "tolerance": free_tol,
+            "forced_logits_max_abs_err": forced_err, "forced_tolerance": tol,
+            "encoded_words": seen["words"], "words_differing": seen["differ"],
+            "max_encode_input_diff": seen["max_input_diff"],
+            "first_differing_word": seen["first"]}
+
+
+def lns_codec_phase(torch, dev):
+    """Every lns-takum8/16 word through the LNS parts (takum::lns_parts,
+    read back as the integer state of the gauss LNS matmul of the word
+    column by the word 1.0: one fold from the empty sum copies the
+    product's parts) and the decode kernel, and >= 1M seeded plus special
+    floats through the LNS encode kernel, against the plain torch codec on
+    the same card. Parts bit-exact, decoded values within 2 ulp (one
+    expf), encoded words equal or (at an ell_bar rounding tie of logf)
+    the neighbouring word."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import carrier, to_words
+    from repro_torch.kernels import lns_matmul as klns
+    from repro_torch.kernels import ref, takum_codec
+    out = {}
+    worst = 0.0
+    for name in ("lns-takum8", "lns-takum16"):
+        spec = formats.get(name)
+        words = to_words(torch.arange(2 ** spec.n, device=dev),
+                         spec.word_dtype)
+        one = takum_codec.encode(torch.ones((1, 1), device=dev), spec)
+        _, ell, flags = klns.lns_matmul(words[:, None], one, spec, "gauss",
+                                        state=True)
+        pell, pflags = spec.lns_parts(words)
+        check(torch.equal(ell[:, 0], pell) and torch.equal(flags[:, 0],
+                                                            pflags),
+              f"lns_parts on the card differs from the plain codec ({name})")
+        got = takum_codec.decode(words, spec)
+        want = ref.decode_ref(words, spec)
+        check(torch.equal(torch.isnan(got), torch.isnan(want)),
+              f"LNS decode NaNs differ ({name})")
+        fin = ~torch.isnan(want)
+        dec_ulps = int(ulps(torch, got[fin], want[fin]).max())
+        check(dec_ulps <= 2, f"LNS decode {dec_ulps} ulp off ({name})")
+        dec_err = codec_err(torch, got, want)
+        g = torch.Generator(device=dev).manual_seed(7)
+        x = torch.randn(1 << 20, generator=g, device=dev)
+        x = x * torch.pow(10.0, torch.randint(-45, 39, x.shape, device=dev,
+                                              generator=g).float())
+        sub = torch.randint(1, 2 ** 23, (1 << 16,), device=dev, generator=g,
+                            dtype=torch.int32).view(torch.float32)
+        # zero, infinities, NaN, the subnormal and normal f32 extremes
+        # (e^+-128, the edge of the lns-takum range, lies beyond f32: +-inf
+        # and the f32 extremes drive the saturating encode instead)
+        special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                                float("nan"), 1e-45, -1e-45, 1.1754944e-38,
+                                -1.1754944e-38, 3.4028235e38, -3.4028235e38,
+                                1.0, -1.0], device=dev)
+        xs = torch.cat([x, sub, -sub, special])
+        gw = takum_codec.encode(xs, spec)
+        ww = ref.encode_ref(xs, spec)
+        # 0: the same word; 1 or 2^n - 1: the neighbouring word
+        step = (carrier(gw).long() - carrier(ww).long()) % (1 << spec.n)
+        neighbour_only = bool(torch.isin(step, torch.tensor(
+            [0, 1, (1 << spec.n) - 1], device=dev)).all())
+        share = float((step != 0).double().mean())
+        check(neighbour_only, f"LNS encode: a word other than the plain "
+              f"version's or its neighbour ({name})")
+        check(share <= LNS_NEIGHBOUR_SHARE, f"LNS encode: neighbour share "
+              f"{share} over {LNS_NEIGHBOUR_SHARE} ({name})")
+        check(bool((step[-len(special):] == 0).all()),
+              f"LNS encode of the special floats differs ({name})")
+        enc_err = codec_err(torch, ref.decode_ref(gw, spec),
+                            ref.decode_ref(ww, spec))
+        worst = max(worst, dec_err, enc_err)
+        out[name] = {"words": 2 ** spec.n, "floats": xs.numel(),
+                     "lns_parts_bit_exact": True, "decode_max_ulps": dec_ulps,
+                     "decode_max_abs_err": dec_err,
+                     "encode_neighbour_words": int((step != 0).sum()),
+                     "encode_neighbour_share": share,
+                     "encode_max_abs_err": enc_err}
+    return out, worst
+
+
+def lns_matmul_phase(torch, dev, sm_clock_hz):
+    """The LNS matmul kernel against its plain version on the card.
+
+    Linear, K = 1 (each output one product): every lns-takum8 word pair
+    and every lns-takum16 word against 64 seeded words, within 2 ulp (one
+    expf each); controls that must break it: each product rounded to TF32
+    and to bf16, and exp2f of the argument rescaled by an f32 log2(e) (the
+    fast-exp route). Linear at all eight projection shapes of a
+    phi3-medium-14b layer (lns-takum8 operands, M = 4 and 256): within
+    the worst-case f32 bound (2K+4) u sum|p| and the statistical limit
+    C_STAT sqrt(K) u ||p||_2 elementwise; controls that must break the
+    latter: each product rounded to TF32 and to bf16. Gauss at 4x5120x1280
+    and 64x5120x5120: integer state bit-exact, the output within 2 ulp.
+    NaR in x and in w: NaN in exactly its row and its column. Times,
+    bounds and plain times per shape."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import to_words
+    from repro_torch.kernels import lns_matmul as klns
+    from repro_torch.kernels import ref, takum_codec
+    spec = formats.get("lns-takum8")
+    sfu_rate = 16 * 132 * sm_clock_hz           # expf per second
+    int_rate = 64 * 132 * sm_clock_hz           # int32 operations per second
+    log2e = torch.tensor(LOG2E_F32, dtype=torch.float32, device=dev)
+    controls = {"tf32_product": lambda a: round_mantissa(torch, a.exp(), 13),
+                "bf16_product": lambda a: round_mantissa(torch, a.exp(), 16),
+                "exp2f_rescaled": lambda a: torch.exp2(a * log2e)}
+
+    def operands(m, k, n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = takum_codec.encode(torch.randn((m, k), generator=g, device=dev),
+                               spec)
+        w = takum_codec.encode(torch.randn((k, n), generator=g, device=dev)
+                               / k ** 0.5, spec)
+        return x, w
+
+    def max_ulps(got, want):
+        check(torch.equal(torch.isnan(got), torch.isnan(want)),
+              "lns_matmul K = 1: NaNs differ")
+        fin = ~torch.isnan(want)
+        return int(ulps(torch, got[fin], want[fin]).max())
+
+    each_product = {}
+    for name in ("lns-takum8", "lns-takum16"):
+        sp = formats.get(name)
+        x = to_words(torch.arange(2 ** sp.n, device=dev), sp.word_dtype)
+        if sp.n == 8:
+            w = x[None, :]
+        else:
+            g = torch.Generator(device=dev).manual_seed(13)
+            w = takum_codec.encode(torch.randn((1, 64), generator=g,
+                                               device=dev), sp)
+        got = klns.lns_matmul(x[:, None], w, sp)
+        want = ref.lns_matmul_plain(x[:, None], w, sp)
+        row = {"products": got.numel(), "max_ulps": max_ulps(got, want)}
+        check(row["max_ulps"] <= 2, f"lns_matmul K = 1 ({name}): "
+              f"{row['max_ulps']} ulp off the plain version")
+        for key, fn in controls.items():
+            row[f"{key}_max_ulps"] = max_ulps(ref.lns_matmul_plain(
+                x[:, None], w, sp, exp=fn), want)
+            check(row[f"{key}_max_ulps"] > 2, f"lns_matmul K = 1 ({name}): "
+                  f"the {key} control passes 2 ulp")
+        each_product[name] = row
+        del x, w, got, want
+
+    linear = []
+    worst = 0.0
+    for m, k, n in MM_SHAPES:
+        x, w = operands(m, k, n, m + k + n)
+        got = klns.lns_matmul(x, w, spec)
+        want = ref.lns_matmul_plain(x, w, spec)
+        xd, wd = ref.decode_ref(x, spec), ref.decode_ref(w, spec)
+        tol = (2 * k + 4) * U32 * (xd.abs() @ wd.abs())
+        stat = C_STAT * k ** 0.5 * U32 * ((xd * xd) @ (wd * wd)).sqrt()
+        err = (got - want).abs()
+        check(bool(torch.isfinite(got).all()) and bool((err <= tol).all()),
+              f"lns_matmul linear {m}x{k}x{n}: error over the f32 bound")
+        r_kernel = float((err / stat).max())
+        check(r_kernel <= 1.0, f"lns_matmul linear {m}x{k}x{n}: error "
+              f"{r_kernel:.3g} x the statistical limit")
+        ctrl = {}
+        for key in ("tf32_product", "bf16_product"):
+            e = (ref.lns_matmul_plain(x, w, spec, exp=controls[key])
+                 - want).abs()
+            ctrl[key] = float((e / stat).max())
+            check(ctrl[key] > 1.0, f"lns_matmul linear {m}x{k}x{n}: the "
+                  f"{key} control passes the statistical limit")
+            del e
+        products = m * k * n
+        t_sfu = products / sfu_rate * 1e3
+        t_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+        iters = 5 if products > 5e9 else 20
+        row = {"m": m, "k": k, "n": n, "max_abs_err": float(err.max()),
+               "max_err_over_bound": float((err / tol).max()),
+               "max_err_over_stat_limit": r_kernel,
+               "control_max_err_over_stat_limit": ctrl,
+               "ms": cuda_ms(torch, lambda: klns.lns_matmul(x, w, spec),
+                             iters=iters),
+               "plain_ms": cuda_ms(torch, lambda: ref.lns_matmul_plain(
+                   x, w, spec), iters=1, warmup=1),
+               "bound_ms": max(t_sfu, t_bytes),
+               "bound_by": "operations" if t_sfu >= t_bytes else "bytes",
+               "bound_note": "products / (16 expf per SM per clock x 132 "
+                             "SMs x clocks.max.sm)"}
+        linear.append(row)
+        worst = max(worst, row["max_abs_err"])
+        del x, w, got, want, xd, wd, tol, stat, err
+    gauss = []
+    for m, k, n in GAUSS_SHAPES:
+        x, w = operands(m, k, n, 3 * m + k + n)
+        out, ell, flags = klns.lns_matmul(x, w, spec, "gauss", state=True)
+        pout, pell, pflags = ref.lns_matmul_plain(x, w, spec, "gauss",
+                                                  state=True)
+        check(torch.equal(ell, pell) and torch.equal(flags, pflags),
+              f"lns_matmul gauss {m}x{k}x{n}: integer state differs")
+        check(torch.equal(torch.isnan(out), torch.isnan(pout)),
+              f"lns_matmul gauss {m}x{k}x{n}: NaNs differ")
+        fin = ~torch.isnan(pout)
+        g_ulps = int(ulps(torch, out[fin], pout[fin]).max())
+        check(g_ulps <= 2, f"lns_matmul gauss {m}x{k}x{n}: {g_ulps} ulp off")
+        t0 = time.perf_counter()
+        ref.lns_matmul_plain(x, w, spec, "gauss")
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        products = m * k * n
+        t_int = products * GAUSS_INT_OPS / int_rate * 1e3
+        t_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+        gauss.append({"m": m, "k": k, "n": n, "state_bit_exact": True,
+                      "max_ulps": g_ulps,
+                      "ms": cuda_ms(torch, lambda: klns.lns_matmul(
+                          x, w, spec, "gauss"), iters=3, warmup=1),
+                      "plain_ms": plain_ms,
+                      "bound_ms": max(t_int, t_bytes),
+                      "bound_by": "operations" if t_int >= t_bytes
+                      else "bytes",
+                      "bound_note": f"products x {GAUSS_INT_OPS} int32 "
+                                    "operations (the steps of "
+                                    "gauss_add_parts) / (64 per SM per "
+                                    "clock x 132 SMs x clocks.max.sm)"})
+        del x, w, out, ell, flags, pout, pell, pflags
+    # NaR words poison exactly their row (x) and column (w)
+    nar = {}
+    for accum in ("linear", "gauss"):
+        m, k, n = 4, 5120, 1280
+        x, w = operands(m, k, n, 11)
+        x[2, 100] = spec.nar_word
+        w[4000, 333] = spec.nar_word
+        got = klns.lns_matmul(x, w, spec, accum)
+        isnan = torch.isnan(got)
+        exact = (bool(isnan[2].all()) and bool(isnan[:, 333].all())
+                 and int(isnan.sum()) == m + n - 1)
+        check(exact, f"lns_matmul {accum}: NaR does not poison exactly its "
+              "row and column")
+        nar[accum] = exact
+    return {"each_product": each_product, "linear": linear, "gauss": gauss,
+            "nar_row_column": nar, "max_abs_err": worst}
+
+
+def lns_attention_phase(torch, dev, spec):
+    """Contiguous and paged attention over ``spec`` (LNS) KV words against
+    their plain versions at the shapes of phase 4, every row compared (a
+    NaR K word poisoning exactly its rows), and their times."""
+    from repro_torch.core import takum
+    from repro_torch.kernels import ref, takum_codec
+    from repro_torch.kernels import takum_attention as kattn
+    hkv, grp, hd, tq, pos0, tcache = 10, 4, 128, 256, 768, 1280
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = torch.randn((1, tq, hkv * grp, hd), generator=g, device=dev)
+    qd = torch.randn((4, 1, hkv * grp, hd), generator=g, device=dev)
+    start0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    startp = torch.zeros(4, dtype=torch.int32, device=dev)
+    table = torch.tensor([[1, 2, 0, 0, 0], [3, 4, 5, 0, 0],
+                          [6, 7, 8, 9, 10], [0, 0, 0, 0, 0]],
+                         dtype=torch.int32, device=dev)
+    pos = torch.tensor([76, 520, 1023, 4000], dtype=torch.int32, device=dev)
+    kc = takum_codec.encode(torch.randn((1, tcache, hkv, hd), generator=g,
+                                        device=dev), spec)
+    vc = takum_codec.encode(torch.randn((1, tcache, hkv, hd), generator=g,
+                                        device=dev), spec)
+    q4 = kattn.to_rows(q, hkv).contiguous()
+    got = kattn.attention(q4, kc, vc, pos0, start0, spec=spec, bk=256, tq=tq)
+    want = kattn.to_rows(ref.attention_ref(q, kc, vc, spec.n, spec, pos=pos0,
+                                           start=start0), hkv)
+    attn_err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and attn_err <= ATTN_ATOL,
+          f"contiguous attention over {spec.name} KV off by {attn_err}")
+    kp = takum_codec.encode(torch.randn((24, 256, hkv, hd), generator=g,
+                                        device=dev), spec)
+    vp = takum_codec.encode(torch.randn((24, 256, hkv, hd), generator=g,
+                                        device=dev), spec)
+    kp[4, 10, 3, 7] = takum.nar_word(spec.n)   # seq 1, position 266, head 3
+    qd4 = kattn.to_rows(qd, hkv).contiguous()
+    gotp = kattn.paged_attention(qd4, kp, vp, pos, startp, table, spec=spec)
+    wantp = kattn.to_rows(ref.paged_attention_ref(qd, kp, vp, table, spec,
+                                                  pos=pos, start=startp), hkv)
+    nan_ok = torch.equal(torch.isnan(gotp), torch.isnan(wantp))
+    clean = (bool(torch.isnan(gotp[1, 3]).all())
+             and int(torch.isnan(gotp).sum()) == grp * hd)
+    fin = torch.isfinite(wantp)
+    paged_err = float((gotp[fin] - wantp[fin]).abs().max())
+    check(nan_ok and clean and paged_err <= ATTN_ATOL,
+          f"paged attention over {spec.name} KV: nan_ok={nan_ok} "
+          f"clean={clean} err={paged_err}")
+    res = {"contiguous_max_abs_err": attn_err, "paged_max_abs_err": paged_err,
+           "nar_rows_poisoned": clean, "tolerance": ATTN_ATOL,
+           "contiguous_ms": cuda_ms(torch, lambda: kattn.attention(
+               q4, kc, vc, pos0, start0, spec=spec, bk=256, tq=tq)),
+           "paged_ms": cuda_ms(torch, lambda: kattn.paged_attention(
+               qd4, kp, vp, pos, startp, table, spec=spec), iters=50)}
+    del kc, vc, kp, vp, got, want, gotp, wantp
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, sort_keys=False))
 
@@ -120,24 +717,20 @@ def main() -> int:
     t_start = time.perf_counter()
 
     from repro_torch import formats
-    from repro_torch.configs import get_arch
     from repro_torch.core import takum
     from repro_torch.core.bitops import carrier, to_words
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lns_matmul as klns
+    from repro_torch.kernels import ref
     from repro_torch.kernels import takum_attention as kattn
     from repro_torch.kernels import takum_codec, takum_matmul
-    from repro_torch.models import layers as L
-    from repro_torch.models import model, transformer
-    from repro_torch.serve.engine import ServeEngine, quantize_weights
 
     # -- 1. device and build ---------------------------------------------
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True, check=True)
-    card = smi.stdout.strip()
+    card = smi("name", "power.limit")
     print(card)
+    sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
     t0 = time.perf_counter()
     build.build_all()
     build_s = time.perf_counter() - t0
@@ -152,6 +745,7 @@ def main() -> int:
         builds[src] = {"kernels": len(regs), "max_registers": max(regs or [0]),
                        "spill_bytes": spills, "seconds": round(info["seconds"], 2)}
     phase(1, "device+build", device=name, count=count, card=card,
+          clocks_max_sm_mhz=sm_clock_mhz,
           torch=torch.__version__, cuda=torch.version.cuda,
           nvcc="-gencode arch=compute_90a,code=sm_90a -O3 (src/repro_torch/csrc)",
           build_seconds=round(build_s, 2), builds=builds)
@@ -197,9 +791,7 @@ def main() -> int:
     phase(2, "codec", **codec)
 
     # -- 3. wire matmul ---------------------------------------------------
-    shapes = [(4, 5120, 5120), (4, 5120, 1280), (4, 5120, 17920),
-              (4, 17920, 5120), (256, 5120, 5120), (256, 5120, 1280),
-              (256, 5120, 17920), (256, 17920, 5120)]
+    shapes = MM_SHAPES
     mm = []
     worst = 0.0
     ratio = {"kernel": 0.0, "tf32_x": float("inf"), "bf16_x": float("inf")}
@@ -303,11 +895,11 @@ def main() -> int:
     # here at one layer's K append of a prefill chunk); the decode kernel
     # is the standalone op, its device function inlined into the matmul
     # and attention kernels (timed at a weight-sized word tensor)
-    def codec_times(fn, plain, x, nbytes, iters):
+    def codec_times(fn, plain, x, nbytes, iters, spec=t8):
         b_ms, b_by = bound(nbytes, 0)
-        return {"shape": list(x.shape), "ms": cuda_ms(torch, lambda: fn(x, t8),
-                                                      iters=iters),
-                "plain_ms": cuda_ms(torch, lambda: plain(x, t8), iters=3,
+        return {"shape": list(x.shape),
+                "ms": cuda_ms(torch, lambda: fn(x, spec), iters=iters),
+                "plain_ms": cuda_ms(torch, lambda: plain(x, spec), iters=3,
                                     warmup=1),
                 "bound_ms": b_ms, "bound_by": b_by}
 
@@ -398,139 +990,128 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. serving at full width -----------------------------------------
-    cfg = dataclasses.replace(get_arch("phi3-medium-14b").config,
-                              kv_quant="takum8")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=torch.bfloat16,
-                          device=dev)
-    params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
-    params["layers"] = []
-    for _ in range(cfg.n_layers):
-        layer = transformer.init_layer(gen, cfg, device=dev)
-        params["layers"].append(quantize_weights(layer, "takum8",
-                                                 mode="wire", verbose=False))
-        del layer
-    torch.cuda.synchronize()
-    weights_s = time.perf_counter() - t0
-    eng = ServeEngine(params, cfg, max_len=1280, page_size=ps,
-                      decode_batch=4, device=dev)
-    sched = eng.scheduler()
-    walls = {"prefill": 0.0, "decode": 0.0}
-    steps = {"prefill": 0, "decode": 0}
-
-    def timed(fn, key, state):
-        def wrapped():
-            busy = sum(1 for s in sched._slots
-                       if s is not None and s.state == state)
-            if key == "decode":
-                busy = min(busy, 1)     # one packed step for all slots
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            events = list(fn())
-            torch.cuda.synchronize()
-            walls[key] += time.perf_counter() - t
-            steps[key] += busy
-            yield from events
-        return wrapped
-
-    # host clock around each scheduler phase, synchronised on both sides
-    sched._prefill_tick = timed(sched._prefill_tick, "prefill", "prefilling")
-    sched._decode_step = timed(sched._decode_step, "decode", "active")
-    g = torch.Generator().manual_seed(5)
-    plens = (77, 300, 520, 1024)
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
-               for n in plens]
     wrappers = {"takum_decode": takum_codec.decode,
                 "takum_encode": takum_codec.encode,
                 "qmatmul": takum_matmul.qmatmul,
+                "lns_matmul": klns.lns_matmul,
                 "attention": kattn.attention,
                 "paged_attention": kattn.paged_attention}
     entry_of = {"takum_decode": "takum_codec", "takum_encode": "takum_codec"}
-    for fn in wrappers.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, 16) for p in prompts]
-    stamps = {r: [] for r in rids}       # host time of each streamed token
-    for ev in eng.run():
-        stamps[ev.rid].append(time.perf_counter() - t0)
-    n_events = sum(len(v) for v in stamps.values())
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    ttft = [round(stamps[r][0], 3) for r in rids]
-    gaps = sorted(b - a for r in rids
-                  for a, b in zip(stamps[r], stamps[r][1:]))
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    outs = [eng.result(r) for r in rids]
-    check(n_events == 64, f"{n_events} tokens streamed, wanted 64")
-    for p, o in zip(prompts, outs):
-        check(o[:len(p)] == p and len(o) == len(p) + 16
-              and all(0 <= t < cfg.vocab for t in o[len(p):]),
-              "served output has the wrong shape or tokens out of vocab")
+    serve = serve_full_width(torch, dev, wfmt="takum8", kv="takum8",
+                             plens=(77, 300, 520, 1024), max_new=16,
+                             max_len=1280, wrappers=wrappers)
+    serve["card"] = card
+    launches = serve["launches"]
     for k in wrappers:
-        entry = kernels[entry_of.get(k, k)]
-        entry["launches"] = entry.get("launches", 0) + launches[k]
+        if entry_of.get(k, k) in kernels:
+            entry = kernels[entry_of.get(k, k)]
+            entry["launches"] = entry.get("launches", 0) + launches[k]
     for k, entry in kernels.items():
         check(entry["launches"] > 0, f"kernel {k} was not launched by the "
               "serving run")
-    # the first served token of the shortest request is the argmax of a
-    # fresh single-request prefill (serving is batch-invariant)
-    cache = model.init_cache(cfg, 1, 2 * ps, device=dev)
-    toks = torch.zeros((1, ps), dtype=torch.long)
-    toks[0, :plens[0]] = torch.as_tensor(prompts[0])
-    row, _ = model.prefill_chunk(eng.params, toks.to(dev), cfg, cache, pos=0,
-                                 last_idx=plens[0] - 1)
-    check(bool(torch.isfinite(row).all()), "prefill logits not finite")
-    check(int(row.argmax()) == outs[0][plens[0]],
-          "served first token differs from a fresh prefill's argmax")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    serve = {"layers": cfg.n_layers, "d_model": cfg.d_model,
-             "prompt_tokens": sum(plens), "generated_tokens": n_events,
-             "weights_s": round(weights_s, 2), "serve_s": round(serve_s, 3),
-             "prefill_s": round(walls["prefill"], 3),
-             "prefill_chunks": steps["prefill"],
-             "decode_s": round(walls["decode"], 3),
-             "decode_steps": steps["decode"],
-             "decode_ms_per_step": round(1e3 * walls["decode"]
-                                         / max(steps["decode"], 1), 2),
-             "ttft_s": ttft,
-             "token_gap_ms_median": round(1e3 * gaps[len(gaps) // 2], 1),
-             "token_gap_ms_max": round(1e3 * gaps[-1], 1),
-             "peak_gb": round(peak_gb, 2), "launches": launches, "card": card}
     phase(5, "serving phi3-medium-14b full width", **serve)
     detail["serving"] = serve
-    del eng, sched, params, cache
-    torch.cuda.empty_cache()
 
     # -- 6. reduced model, card against CPU --------------------------------
-    rcfg = dataclasses.replace(get_arch("phi3-medium-14b").reduced,
-                               kv_quant="takum8")
-    rparams = quantize_weights(model.init(torch.Generator().manual_seed(0),
-                                          rcfg, device="cpu"), "takum8",
-                               mode="wire", verbose=False)
-    rng = torch.Generator().manual_seed(3)
-    rprompts = [torch.randint(0, rcfg.vocab, (n,), generator=rng).tolist()
-                for n in (16, 9, 4, 13)]
-    toks_by = {}
-    rows = {}
-    for d in ("cpu", dev):
-        e = ServeEngine(rparams, rcfg, max_len=48, page_size=16, device=d)
-        toks_by[str(d)] = (e.generate(rprompts, 8), e.generate(rprompts, 8))
-        c = model.init_cache(rcfg, 1, 32, device=d)
-        t = torch.zeros((1, 16), dtype=torch.long)
-        t[0, :13] = torch.as_tensor(rprompts[3])
-        rows[str(d)], _ = model.prefill_chunk(e.params, t.to(d), rcfg, c,
-                                              pos=0, last_idx=12)
-    same = toks_by["cpu"] == toks_by[str(dev)]
-    lerr = float((rows["cpu"] - rows[str(dev)].cpu()).abs().max())
-    check(same, "reduced model: card and CPU tokens differ")
-    check(lerr <= 1e-4, f"reduced model: card and CPU logits differ by {lerr}")
-    phase(6, "reduced model card vs cpu", tokens_identical=same,
-          logits_max_abs_err=lerr, tolerance=1e-4)
+    red = reduced_card_vs_cpu(torch, dev, wfmt="takum8", kv="takum8")
+    phase(6, "reduced model card vs cpu", **red)
+
+    # -- 7. LNS codec ------------------------------------------------------
+    lns_codec, lns_codec_worst = lns_codec_phase(torch, dev)
+    phase(7, "lns codec", **lns_codec,
+          tolerance="lns_parts bit-exact; decode within 2 ulp (expf); "
+                    "encode equal or neighbour words (logf at an ell_bar "
+                    f"rounding tie), share <= {LNS_NEIGHBOUR_SHARE:g}")
+    detail["lns_codec"] = lns_codec
+    lns8 = formats.get("lns-takum8")
+    kv_prefill = torch.randn((1, 256, 10, 128), device=dev)
+    x_prefill = torch.randn((256, 17920), device=dev)
+    w_lns8 = takum_codec.encode(torch.randn((5120, 17920), device=dev), lns8)
+    lns_codec_t = {
+        "encode_kv_prefill_chunk": codec_times(
+            takum_codec.encode, ref.encode_ref, kv_prefill,
+            kv_prefill.numel() * 5, 200, lns8),
+        "encode_activations_prefill_w2": codec_times(
+            takum_codec.encode, ref.encode_ref, x_prefill,
+            x_prefill.numel() * 5, 50, lns8),
+        "decode_weights": codec_times(
+            takum_codec.decode, ref.decode_ref, w_lns8, w_lns8.numel() * 5,
+            20, lns8)}
+    del kv_prefill, x_prefill, w_lns8
+    kernels["takum_codec"]["lns"] = dict(
+        lns_codec_t, max_abs_err=lns_codec_worst,
+        decode_max_ulps=max(v["decode_max_ulps"] for v in lns_codec.values()),
+        encode_neighbour_share=max(v["encode_neighbour_share"]
+                                   for v in lns_codec.values()))
+
+    # -- 8. LNS matmul -----------------------------------------------------
+    lmm = lns_matmul_phase(torch, dev, sm_clock_mhz * 1e6)
+    phase(8, "lns matmul", each_product=lmm["each_product"],
+          linear_shapes=len(lmm["linear"]),
+          linear_max_abs_err=lmm["max_abs_err"],
+          linear_max_err_over_bound=max(r["max_err_over_bound"]
+                                        for r in lmm["linear"]),
+          kernel_max_over_stat_limit=max(r["max_err_over_stat_limit"]
+                                         for r in lmm["linear"]),
+          control_min_over_stat_limit={
+              key: min(r["control_max_err_over_stat_limit"][key]
+                       for r in lmm["linear"])
+              for key in ("tf32_product", "bf16_product")},
+          gauss=[{k: r[k] for k in ("m", "k", "n", "state_bit_exact",
+                                    "max_ulps")} for r in lmm["gauss"]],
+          nar_row_column=lmm["nar_row_column"],
+          ms={f"{a} {r['m']}x{r['k']}x{r['n']}": r["ms"]
+              for a in ("linear", "gauss") for r in lmm[a]},
+          tolerance="linear K = 1: 2 ulp (one expf per product); linear: "
+                    "(2K+4)*2^-24*(|x|@|w|) (worst case) and "
+                    f"{C_STAT:g}*sqrt(K)*2^-24*sqrt((x*x)@(w*w)) "
+                    "(statistical) elementwise; gauss: integer state "
+                    "bit-exact, output within 2 ulp")
+    detail["lns_matmul"] = lmm
+    rep = next(r for r in lmm["linear"]
+               if (r["m"], r["k"], r["n"]) == (4, 5120, 17920))
+    kernels["lns_matmul"] = dict(
+        route="cuda", source="src/repro_torch/csrc/lns_matmul.cu",
+        replaces="src/repro/kernels/lns_matmul.py:246",
+        max_abs_err=lmm["max_abs_err"], shape=[4, 5120, 17920],
+        ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+        bound_by=rep["bound_by"], library_ms=None,
+        library_call="none: no PyTorch call computes an ell_bar-sum product")
+
+    # -- 9. attention over LNS KV -------------------------------------------
+    lattn = lns_attention_phase(torch, dev, lns8)
+    phase(9, "attention over lns-takum8 kv", **lattn)
+    kernels["attention"]["lns_ms"] = lattn["contiguous_ms"]
+    kernels["paged_attention"]["lns_ms"] = lattn["paged_ms"]
+
+    # -- 10. LNS serving at full width ----------------------------------------
+    lserve = serve_full_width(torch, dev, wfmt="lns-takum8", kv="lns-takum8",
+                              plens=(100, 200), max_new=8, max_len=512,
+                              wrappers=wrappers)
+    lserve["card"] = card
+    ll = lserve["launches"]
+    lpath = {"takum_codec": ll["takum_decode"] + ll["takum_encode"],
+             "lns_matmul": ll["lns_matmul"], "attention": ll["attention"],
+             "paged_attention": ll["paged_attention"]}
+    for k, v in lpath.items():
+        check(v > 0, f"kernel {k} was not launched by the LNS serving run")
+    check(ll["qmatmul"] == 0, "the LNS serving run launched the takum "
+          "wire matmul")
+    kernels["lns_matmul"]["launches"] = lpath["lns_matmul"]
+    for k in ("takum_codec", "attention", "paged_attention"):
+        kernels[k]["launches_lns_serving"] = lpath[k]
+    phase(10, "serving phi3-medium-14b full width, lns-takum8", **lserve)
+    detail["serving_lns"] = lserve
+
+    # -- 11. reduced model with LNS weights, card against CPU ---------------
+    lred = [reduced_card_vs_cpu(torch, dev, wfmt="lns-takum16", kv=kv,
+                                free_tol=LNS_FREE_LOGITS_TOL[kv])
+            for kv in ("lns-takum8", "takum8")]
+    phase(11, "reduced model lns-takum16 weights card vs cpu", cases=lred)
 
     # -- the kernels line and the last line --------------------------------
-    order = ["takum_codec", "qmatmul", "attention", "paged_attention"]
+    order = ["takum_codec", "qmatmul", "lns_matmul", "attention",
+             "paged_attention"]
     line = {"kernels": [dict(name=k, **kernels[k]) for k in order]}
     detail.update(kernels=line["kernels"], card=card, device=name,
                   seconds=time.perf_counter() - t_start)

@@ -19,6 +19,19 @@ is the plain version that the CUDA device functions in
 * ``takum_to_float_ref`` is the ldexp dataflow kept as the oracle of
   ``takum_to_float``.
 
+The logarithmic half (representation (10), the barred ``(S, ell_bar)``):
+
+* ``decode_lns`` concatenates the characteristic and the mantissa field
+  into the fixed-point ``ell_bar`` (``frac_width(n)`` fraction bits);
+  ``decode_lns_parts`` gives the ``(ell, flags)`` lanes of the LNS matmul
+  (un-barred ``ell``; flags bit 0 = S, bit 1 = zero, bit 2 = NaR);
+* ``encode_lns`` rounds a fixed-point ``ell_bar`` to words (floor
+  characteristic, fractional remainder as the mantissa);
+* ``lns_takum_to_float`` pays one ``exp``; ``float_to_lns_takum`` one
+  ``log``, then RNE in ``ell_bar`` space. These two are the only
+  transcendental steps of the codec: they agree with other
+  implementations to an ulp or two of ``exp``/``log``, not bit for bit.
+
 Words travel in ``uint8``/``uint16`` storage; widths 6 <= n <= 16.
 """
 
@@ -34,7 +47,9 @@ from repro_torch.core.bitops import (LANE, bit, floor_log2, floor_log2_u8,
 
 __all__ = ["TakumDecoded", "decode", "decode_linear", "encode",
            "encode_linear", "takum_to_float", "takum_to_float_ref",
-           "float_to_takum", "frac_width", "word_dtype", "nar_word"]
+           "float_to_takum", "frac_width", "word_dtype", "nar_word",
+           "LnsDecoded", "decode_lns", "decode_lns_parts", "encode_lns",
+           "lns_takum_to_float", "float_to_lns_takum"]
 
 F32_NAN_BITS = 0x7FC0_0000
 
@@ -268,3 +283,84 @@ def takum_to_float_ref(words, n: int, dtype=torch.float32) -> torch.Tensor:
     out = torch.where(dec.is_zero, torch.zeros_like(out), out)
     out = torch.where(dec.is_nar, torch.full_like(out, float("nan")), out)
     return out.to(dtype)
+
+
+# -- logarithmic representation (S, ell_bar) ---------------------------------
+
+
+class LnsDecoded(NamedTuple):
+    """LNS decoder output: sign, fixed-point ``ell_bar`` (signed,
+    ``frac_width(n)`` fraction bits) and the special-word flags."""
+    s: torch.Tensor
+    ell_bar: torch.Tensor
+    is_zero: torch.Tensor
+    is_nar: torch.Tensor
+
+
+def decode_lns(words, n: int) -> LnsDecoded:
+    """Decode to ``(S, ell_bar)``: ``ell_bar = c + m`` is the characteristic
+    and the mantissa field side by side, a fixed-point number with
+    ``frac_width(n)`` fraction bits (int64 lanes)."""
+    dec = decode(words, n)
+    ell = dec.val * (1 << frac_width(n)) + dec.mant   # (c << wf) | mant
+    return LnsDecoded(s=dec.s, ell_bar=ell, is_zero=dec.is_zero,
+                      is_nar=dec.is_nar)
+
+
+def decode_lns_parts(words, n: int):
+    """``(ell, flags)`` int32 lanes: the un-barred ``ell = (-1)^S ell_bar``
+    and ``flags`` = S | is_zero << 1 | is_nar << 2.
+
+    A product of two values is one int32 add of their ``ell`` lanes and
+    one XOR of their sign bits; the zero and NaR words keep the ``ell``
+    their bits decode to (the kernels and the reference compute it the
+    same way)."""
+    dec = decode_lns(words, n)
+    ell = torch.where(dec.s == 1, -dec.ell_bar, dec.ell_bar)
+    flags = (dec.s | (dec.is_zero.to(LANE) << 1)
+             | (dec.is_nar.to(LANE) << 2))
+    return ell.to(torch.int32), flags.to(torch.int32)
+
+
+def encode_lns(s, ell_bar, n: int, *, wf: int, is_zero=None,
+               is_nar=None) -> torch.Tensor:
+    """Round ``(S, ell_bar)`` (signed fixed point, ``wf`` fraction bits)
+    to n-bit words: the characteristic is the floor of ``ell_bar`` and
+    the mantissa its fractional remainder, both monotone in ``ell_bar``."""
+    ell = lanes(ell_bar)
+    return encode(s, ell >> wf, ell & mask(wf), n, wm=wf, is_zero=is_zero,
+                  is_nar=is_nar)
+
+
+def lns_takum_to_float(words, n: int, dtype=torch.float32) -> torch.Tensor:
+    """``(-1)^S sqrt(e)^((-1)^S ell_bar)``: one ``exp`` (f32 for other
+    float dtypes, then cast). Zero -> 0.0, NaR -> NaN."""
+    dec = decode_lns(words, n)
+    cdt = dtype if dtype in (torch.float32, torch.float64) else torch.float32
+    ell_bar = dec.ell_bar.to(cdt) / float(1 << frac_width(n))
+    ell = torch.where(dec.s == 1, -ell_bar, ell_bar)
+    mag = torch.exp(ell * 0.5)
+    out = torch.where(dec.s == 1, -mag, mag)
+    out = torch.where(dec.is_zero, torch.zeros_like(out), out)
+    out = torch.where(dec.is_nar, torch.full_like(out, float("nan")), out)
+    return out.to(dtype)
+
+
+def float_to_lns_takum(x, n: int, *, wf_fixed: int = 22) -> torch.Tensor:
+    """Round float32 values to n-bit logarithmic takum words:
+    ``ell = 2 ln|x|`` in f32, clipped to +-256, rounded (half to even) to
+    ``wf_fixed`` fraction bits, then RNE in ``ell_bar`` space, saturating.
+
+    NaN -> NaR, +-0 -> 0, +-inf -> the largest magnitude of that sign."""
+    if wf_fixed > 22:
+        raise ValueError("wf_fixed > 22 overflows the int32 ell_bar lane")
+    x = torch.as_tensor(x).to(torch.float32)
+    s = (x < 0).to(LANE)
+    is_zero = x == 0
+    is_nan = torch.isnan(x)
+    safe = torch.where(is_zero | is_nan, torch.ones_like(x), x)
+    ell = 2.0 * torch.log(torch.abs(safe))
+    ell_bar = torch.clamp(torch.where(s == 1, -ell, ell), -256.0, 256.0)
+    ell_fixed = torch.round(ell_bar * float(1 << wf_fixed)).to(LANE)
+    return encode_lns(s, ell_fixed, n, wf=wf_fixed, is_zero=is_zero,
+                      is_nar=is_nan)

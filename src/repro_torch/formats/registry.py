@@ -7,9 +7,13 @@ linear takum) and then dispatches on the spec's attributes.
 
 Registered formats in this package: ``none`` (the identity codec: a
 float tensor with a cast for decode), ``takum8`` and ``takum16`` (linear
-takum). ``decode_tile``/``encode_tile`` are the plain torch codec; the
-CUDA kernels inline the same functions from ``csrc/takum.cuh`` and are
-held bit-exact against these.
+takum), ``lns-takum8`` and ``lns-takum16`` (logarithmic takum: decode
+pays one ``exp``, encode one ``log``; ``lns_parts`` gives the ``(ell,
+flags)`` int32 lanes of the LNS matmul). ``decode_tile``/``encode_tile``
+are the plain torch codec, dispatched on the kind; the CUDA kernels
+inline the same functions from ``csrc/takum.cuh`` and are held against
+these (bit-exact for the integer steps, to an ulp or two of ``exp``/
+``log`` for the LNS conversions).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 from repro_torch.core import takum
 
 __all__ = ["FormatSpec", "IDENTITY", "get", "resolve", "resolve_wire",
-           "names", "wire_names"]
+           "resolve_lns", "names", "wire_names"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +35,7 @@ class FormatSpec:
     """A wire number format: identity and codec behaviour, as a value."""
 
     name: str      # registry key, e.g. "takum16"
-    kind: str      # "linear" | "none"
+    kind: str      # "linear" | "lns" | "none"
     n: int         # word width in bits (0 = identity)
 
     @property
@@ -61,6 +65,8 @@ class FormatSpec:
         """Wire words -> float (NaR -> NaN); a cast for the identity."""
         if self.is_identity:
             return torch.as_tensor(words).to(dtype)
+        if self.kind == "lns":
+            return takum.lns_takum_to_float(words, self.n, dtype=dtype)
         return takum.takum_to_float(words, self.n, dtype=dtype)
 
     def encode_tile(self, x) -> torch.Tensor:
@@ -68,8 +74,24 @@ class FormatSpec:
         identity codec passes the input through."""
         if self.is_identity:
             return torch.as_tensor(x)
-        return takum.float_to_takum(torch.as_tensor(x).to(torch.float32),
-                                    self.n)
+        x = torch.as_tensor(x).to(torch.float32)
+        if self.kind == "lns":
+            return takum.float_to_lns_takum(x, self.n)
+        return takum.float_to_takum(x, self.n)
+
+    @property
+    def has_lns_parts(self) -> bool:
+        """Whether the format has the ell_bar datapath (the LNS matmul
+        takes only such words)."""
+        return self.kind == "lns"
+
+    def lns_parts(self, words):
+        """``(ell, flags)`` int32 lanes (``takum.decode_lns_parts``); only
+        for ``has_lns_parts`` specs."""
+        if not self.has_lns_parts:
+            raise ValueError(f"format {self.name!r} has no LNS ell_bar "
+                             "datapath (only the lns-takum formats do)")
+        return takum.decode_lns_parts(words, self.n)
 
 
 IDENTITY = FormatSpec(name="none", kind="none", n=0)
@@ -77,8 +99,11 @@ _REGISTRY: Dict[str, FormatSpec] = {
     "none": IDENTITY,
     "takum8": FormatSpec(name="takum8", kind="linear", n=8),
     "takum16": FormatSpec(name="takum16", kind="linear", n=16),
+    "lns-takum8": FormatSpec(name="lns-takum8", kind="lns", n=8),
+    "lns-takum16": FormatSpec(name="lns-takum16", kind="lns", n=16),
 }
-_NAME_RE = re.compile(r"takum(\d+)$")
+_NAME_RE = re.compile(r"(lns-)?takum(\d+)$")
+_KIND_NAME = {"linear": "takum{n}", "lns": "lns-takum{n}"}
 
 
 def names() -> Tuple[str, ...]:
@@ -96,8 +121,8 @@ def get(name: str) -> FormatSpec:
     return _REGISTRY[name]
 
 
-def _linear(n: int) -> FormatSpec:
-    key = f"takum{n}"
+def _kind(kind: str, n: int) -> FormatSpec:
+    key = _KIND_NAME[kind].format(n=n)
     if key not in _REGISTRY:
         raise ValueError(f"format {key!r} is not in this package "
                          f"(registered: {', '.join(names())})")
@@ -105,21 +130,23 @@ def _linear(n: int) -> FormatSpec:
 
 
 def resolve(fmt, n: Optional[int] = None) -> FormatSpec:
-    """Resolve a spec, a name, a ``("linear", n)`` pair or an int width.
+    """Resolve a spec, a name, a ``(kind, n)`` pair (``"linear"`` or
+    ``"lns"``) or an int width (linear takum).
 
     A width passed beside a format that carries its own must agree."""
     if isinstance(fmt, FormatSpec):
         spec = fmt
     elif isinstance(fmt, int) and not isinstance(fmt, bool):
-        spec = _linear(fmt)
-    elif fmt == "linear":
+        spec = _kind("linear", fmt)
+    elif isinstance(fmt, str) and fmt in _KIND_NAME:
         if not n:
-            raise ValueError("format kind 'linear' needs a word width n")
-        spec = _linear(int(n))
+            raise ValueError(f"format kind {fmt!r} needs a word width n")
+        spec = _kind(fmt, int(n))
     elif isinstance(fmt, str) and fmt in _REGISTRY:
         spec = _REGISTRY[fmt]
     elif isinstance(fmt, str) and _NAME_RE.fullmatch(fmt):
-        spec = _linear(int(_NAME_RE.fullmatch(fmt).group(1)))
+        m = _NAME_RE.fullmatch(fmt)
+        spec = _kind("lns" if m.group(1) else "linear", int(m.group(2)))
     else:
         raise ValueError(f"unknown format {fmt!r} "
                          f"(registered: {', '.join(names())})")
@@ -127,6 +154,14 @@ def resolve(fmt, n: Optional[int] = None) -> FormatSpec:
         raise ValueError(f"width mismatch: format {spec.name!r} "
                          f"(n={spec.n}) but n={n} was passed alongside")
     return spec
+
+
+def resolve_lns(fmt, n: Optional[int] = None) -> FormatSpec:
+    """Like :func:`resolve`, but a bare int width means the logarithmic
+    takum of that width (the default of the LNS matmul entry points)."""
+    if isinstance(fmt, int) and not isinstance(fmt, bool):
+        return _kind("lns", fmt)
+    return resolve(fmt, n)
 
 
 def resolve_wire(fmt, n: Optional[int] = None) -> FormatSpec:

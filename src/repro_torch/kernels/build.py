@@ -33,7 +33,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "library", "check",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("codec", "qmatmul", "attention")
+SOURCES = ("codec", "qmatmul", "attention", "lns_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,13 @@
 """Public ops around the kernels: shapes, padding, layouts, dispatch.
 
 Every entry point resolves its format once here (a ``FormatSpec``, a
-registry name such as ``"takum8"``, or an int width meaning linear
-takum) and puts the tensors into the kernel's layout. The kernel
-wrappers of ``takum_codec``/``takum_matmul``/``takum_attention`` choose
-the path: CUDA tensors launch the hand-written kernel (or raise: there
-is no fallback), CPU tensors run the plain version of ``kernels/ref.py``.
+registry name such as ``"takum8"`` or ``"lns-takum8"``, or an int width
+meaning linear takum, or LNS takum for :func:`lns_matmul`) and puts the
+tensors into the kernel's layout. The kernel wrappers of
+``takum_codec``/``takum_matmul``/``lns_matmul``/``takum_attention``
+choose the path: CUDA tensors launch the hand-written kernel (or raise:
+there is no fallback), CPU tensors run the plain version of
+``kernels/ref.py``.
 """
 
 from __future__ import annotations
@@ -13,11 +15,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch import formats
+from repro_torch.kernels import lns_matmul as klns
 from repro_torch.kernels import takum_attention as kattn
 from repro_torch.kernels import takum_codec, takum_matmul
 
-__all__ = ["takum_decode", "takum_encode", "quant_matmul", "takum_attention",
-           "paged_attention", "WireMatrix"]
+__all__ = ["takum_decode", "takum_encode", "quant_matmul", "lns_matmul",
+           "takum_attention", "paged_attention", "WireMatrix"]
 
 
 def takum_decode(words: torch.Tensor, fmt) -> torch.Tensor:
@@ -33,11 +36,48 @@ def takum_encode(x: torch.Tensor, fmt) -> torch.Tensor:
     return takum_codec.encode(x, formats.resolve_wire(fmt))
 
 
+def _dense_wire_spec(fmt):
+    """A float-decoding wire format; LNS words take :func:`lns_matmul`."""
+    spec = formats.resolve_wire(fmt)
+    if spec.has_lns_parts:
+        raise ValueError(f"format {spec.name!r} is on the LNS ℓ̄ datapath; "
+                         "use ops.lns_matmul for it")
+    return spec
+
+
+def _lns_wire_spec(fmt):
+    """An LNS wire format (a bare int width means lns-takum<n>)."""
+    spec = formats.resolve_lns(fmt)
+    if not spec.has_lns_parts:
+        raise ValueError(f"format {spec.name!r} has no LNS ℓ̄ datapath; "
+                         "use ops.quant_matmul for float-decoding wire "
+                         "formats")
+    return spec
+
+
 def quant_matmul(x: torch.Tensor, w_words: torch.Tensor, fmt) -> torch.Tensor:
     """x [..., K] @ decode(w_words [K, N]) -> [..., N] f32 (forward only);
-    rows of any leading shape are flattened into the kernel's M."""
-    spec = formats.resolve_wire(fmt)
+    rows of any leading shape are flattened into the kernel's M. Linear
+    takum words only: LNS words are refused (see :func:`lns_matmul`)."""
+    spec = _dense_wire_spec(fmt)
     out = takum_matmul.qmatmul(x.reshape(-1, x.shape[-1]), w_words, spec)
+    return out.reshape(*x.shape[:-1], w_words.shape[1])
+
+
+def lns_matmul(x: torch.Tensor, w_words: torch.Tensor, fmt,
+               accum: str = "linear") -> torch.Tensor:
+    """x [..., K] (x) decode(w_words [K, N]) -> [..., N] f32 on the LNS
+    ell_bar datapath (forward only).
+
+    ``w_words`` are logarithmic takum words; ``x`` (any float dtype) is
+    encoded to the same LNS grid on the way in (the codec's LNS encode
+    kernel on CUDA), so every product is one int32 add. ``accum="linear"``
+    converts each product and sums in f32; ``"gauss"`` folds the products
+    through the Gauss-log table and converts once per output. Linear takum
+    words are refused (see :func:`quant_matmul`)."""
+    spec = _lns_wire_spec(fmt)
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    out = klns.lns_matmul(takum_codec.encode(x2, spec), w_words, spec, accum)
     return out.reshape(*x.shape[:-1], w_words.shape[1])
 
 
@@ -88,7 +128,9 @@ class WireMatrix:
 
     Drop-in for a float matrix at ``x @ w`` sites: torch defers the
     product to :meth:`__rmatmul__`, which routes it through
-    :func:`quant_matmul` (the wire-weight kernel on CUDA)."""
+    :func:`lns_matmul` for LNS words (the ell_bar-datapath kernel on CUDA,
+    linear accumulation) and :func:`quant_matmul` otherwise (the
+    wire-weight kernel on CUDA)."""
 
     def __init__(self, words: torch.Tensor, n=None, *, fmt="linear"):
         self.spec = formats.resolve_wire(fmt, n)
@@ -117,7 +159,11 @@ class WireMatrix:
         return takum_decode(self.words, self.spec).to(dtype)
 
     def __rmatmul__(self, x: torch.Tensor) -> torch.Tensor:
-        return quant_matmul(x, self.words, self.spec).to(x.dtype)
+        if self.spec.has_lns_parts:
+            out = lns_matmul(x, self.words, self.spec, "linear")
+        else:
+            out = quant_matmul(x, self.words, self.spec)
+        return out.to(x.dtype)
 
     def __repr__(self):
         return (f"WireMatrix(shape={tuple(self.words.shape)}, "

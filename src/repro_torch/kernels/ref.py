@@ -1,8 +1,10 @@
 """Plain PyTorch versions of every kernel in this package.
 
-Each CUDA kernel is held against the function here: the codec bit-exact,
-the matmul and attention to f32 summation-order tolerance. These are
-also what the kernel wrappers run when their tensors lie on the CPU.
+Each CUDA kernel is held against the function here: the codec bit-exact
+(the LNS conversions to an ulp or two of exp/log), the matmuls and
+attention to f32 summation-order tolerance, the gauss LNS matmul's
+integer state bit-exact. These are also what the kernel wrappers run
+when their tensors lie on the CPU.
 
 Every entry point resolves its format through ``repro_torch.formats``,
 so callers may pass a ``FormatSpec``, a registry name or an int width.
@@ -13,10 +15,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch import formats
+from repro_torch.core import lns
 from repro_torch.core.bitops import carrier
+from repro_torch.core.takum import frac_width
 
-__all__ = ["decode_ref", "encode_ref", "qmatmul_ref", "attention_ref",
-           "paged_attention_ref", "MASKED"]
+__all__ = ["decode_ref", "encode_ref", "qmatmul_ref", "lns_qmatmul_ref",
+           "lns_matmul_plain", "attention_ref", "paged_attention_ref",
+           "MASKED"]
 
 MASKED = -1e30   # finite mask value: all-masked rows stay finite
 
@@ -36,6 +41,89 @@ def qmatmul_ref(x, w_words, fmt, out_dtype=torch.float32) -> torch.Tensor:
     an f32 sum."""
     w = formats.resolve(fmt).decode_tile(w_words, dtype=torch.float32)
     return (x.to(torch.float32) @ w).to(out_dtype)
+
+
+def lns_qmatmul_ref(x, w_words, fmt, out_dtype=torch.float32) -> torch.Tensor:
+    """The oracle of the LNS matmul: x quantised to the LNS grid, both
+    operands decoded to f32, one f32 product with an f32 sum. Against the
+    kernel (which exponentiates the ``ell`` sum) each product carries one
+    more f32 rounding, at most half an ulp."""
+    spec = formats.resolve_lns(fmt)
+    xq = spec.decode_tile(spec.encode_tile(x))
+    w = spec.decode_tile(w_words, dtype=torch.float32)
+    return (xq @ w).to(out_dtype)
+
+
+def _prod(xell, xflg, well, wflg):
+    """(s, ell, zero, nar) of the products x (x) w (broadcast): one add of
+    the ell lanes, an XOR of the signs, an OR of the zero/NaR flags."""
+    f = xflg | wflg
+    return (xflg ^ wflg) & 1, xell + well, (f >> 1) & 1, (f >> 2) & 1
+
+
+def _lns_to_f32(s, ell, zero, nar, wf: int, exp=torch.exp) -> torch.Tensor:
+    """sqrt(e)^ell with sign, zero and NaR (NaN) applied: one exp."""
+    mag = exp(ell.to(torch.float32) * (0.5 / (1 << wf)))
+    val = torch.where(zero == 1, torch.zeros_like(mag),
+                      torch.where(s == 1, -mag, mag))
+    return torch.where(nar == 1, torch.full_like(val, float("nan")), val)
+
+
+def lns_matmul_plain(x_words, w_words, fmt, accum: str = "linear", *,
+                     state: bool = False, chunk_elems: int = 1 << 24,
+                     exp=torch.exp):
+    """What the LNS matmul kernel computes, in plain PyTorch:
+    decode(x_words [M, K]) (x) decode(w_words [K, N]) -> f32 [M, N].
+
+    * ``"linear"``: each product's ``ell`` sum converted with one exp,
+      summed in f32 over K in chunks of at most ``chunk_elems`` products
+      (an ``[M, K, N]`` grid is never materialised);
+    * ``"gauss"``: a sequential fold over k = 0..K-1 with
+      ``lns.gauss_add_parts`` from the empty sum (the zero flag), NaR as a
+      sticky flag, one conversion at the end. ``state=True`` also returns
+      the final ``(ell, flags)`` int32 state (flags = S | zero << 1 |
+      NaR << 2).
+
+    NaR words become NaN. ``exp`` converts each scaled ``ell`` (a check
+    passes a less precise one as a control that its limit must reject)."""
+    spec = formats.resolve_lns(fmt)
+    if not spec.has_lns_parts:
+        raise ValueError(f"format {spec.name!r} has no LNS ell_bar datapath")
+    if accum not in ("linear", "gauss"):
+        raise ValueError(f"unknown accum {accum!r}")
+    wf = frac_width(spec.n)
+    xell, xflg = spec.lns_parts(x_words)
+    well, wflg = spec.lns_parts(w_words)
+    m, k = xell.shape
+    n = well.shape[1]
+    dev = xell.device
+    if accum == "linear":
+        if state:
+            raise ValueError("state=True returns the gauss accumulator's "
+                             "state")
+        out = torch.zeros((m, n), dtype=torch.float32, device=dev)
+        kc = max(1, chunk_elems // max(m * n, 1))
+        for k0 in range(0, k, kc):
+            sl = slice(k0, k0 + kc)
+            p = _prod(xell[:, sl, None], xflg[:, sl, None], well[None, sl],
+                      wflg[None, sl])
+            out += _lns_to_f32(*p, wf, exp).sum(dim=1)
+        return out
+    lut = lns.gauss_tables(wf, device=dev)
+    s = torch.zeros((m, n), dtype=torch.int32, device=dev)
+    ell = torch.zeros_like(s)
+    zero = torch.ones_like(s)
+    nar = torch.zeros_like(s)
+    for kk in range(k):
+        p_s, p_ell, p_zero, p_nar = _prod(xell[:, kk, None], xflg[:, kk, None],
+                                          well[None, kk], wflg[None, kk])
+        s, ell, zero = lns.gauss_add_parts(s, ell, zero, p_s, p_ell, p_zero,
+                                           lut, wf=wf)
+        nar = nar | p_nar
+    out = _lns_to_f32(s, ell, zero, nar, wf, exp)
+    if state:
+        return out, ell, s | (zero << 1) | (nar << 2)
+    return out
 
 
 def attention_ref(q, k_cache, v_cache, n, fmt="none", *, pos, start=None,

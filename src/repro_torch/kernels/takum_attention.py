@@ -3,7 +3,8 @@
 
 Replaces ``repro/kernels/takum_attention.py::attention_kernel_call``
 (contiguous cache: cached prefill chunks) and
-``::paged_attention_kernel_call`` (paged pool: decode steps). Prefill
+``::paged_attention_kernel_call`` (paged pool: decode steps), over
+takum8/16 and lns-takum8/16 KV words. Prefill
 chunks are bound by f32 FLOPs, decode steps by the KV words' bytes; see
 the source's header comment for the design and the semantics kept.
 
@@ -31,10 +32,10 @@ DEFAULT_BK = 256           # contiguous-cache KV tile (keys), as on the TPU
 HEAD_DIMS = (16, 32, 64, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "takum_attention": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _F, _P],
-    "takum_paged_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _F, _P],
+    "takum_attention": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _F, _P],
+    "takum_paged_attention": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -60,11 +61,12 @@ def from_rows(out4: torch.Tensor, tq: int) -> torch.Tensor:
             .reshape(b, tq, hkv * g, hd))
 
 
-def _check(q4, kw, vw, spec):
-    if spec.is_identity or spec.n not in (8, 16):
+def _check(q4, kw, vw, spec) -> int:
+    """Validate the inputs; returns the kernels' format flag (1 = LNS)."""
+    if spec.kind not in ("linear", "lns") or spec.n not in (8, 16):
         raise NotImplementedError(
-            f"the CUDA attention kernels read takum8/takum16 KV words; "
-            f"{spec.name!r} caches are not in this port yet")
+            f"the CUDA attention kernels read takum8/16 and lns-takum8/16 "
+            f"KV words; {spec.name!r} caches are not in this port yet")
     if kw.dtype != spec.word_dtype or vw.dtype != spec.word_dtype:
         raise TypeError(f"{spec.name} KV words must be {spec.word_dtype}")
     if q4.shape[-1] not in HEAD_DIMS:
@@ -72,6 +74,7 @@ def _check(q4, kw, vw, spec):
     for t in (kw, vw):
         if not t.is_cuda or t.device != q4.device:
             raise ValueError("q4 and the KV words must share a CUDA device")
+    return int(spec.kind == "lns")
 
 
 def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
@@ -85,7 +88,7 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         out = kref.attention_ref(from_rows(q4, tq), kw, vw, spec.n, spec,
                                  pos=pos, start=start, window=window)
         return to_rows(out, kw.shape[2])
-    _check(q4, kw, vw, spec)
+    lns = _check(q4, kw, vw, spec)
     b, hkv, rows, hd = q4.shape
     if kw.shape != vw.shape or kw.shape[0] != b or kw.shape[2:] != (hkv, hd):
         raise ValueError(f"cache shape {tuple(kw.shape)} does not match q4 "
@@ -101,7 +104,7 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
              .to(torch.int32).contiguous())
     out = torch.empty_like(q4)
     err = _lib().takum_attention(
-        spec.n, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
+        spec.n, lns, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
         out.data_ptr(), start.data_ptr(), b, hkv, rows, kw.shape[1],
         int(pos), tq, bk, window, hd ** -0.5, build.stream_of(q4))
     build.check(err, "takum_attention")
@@ -126,7 +129,7 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         out = kref.paged_attention_ref(from_rows(q4, 1), kw, vw, table, spec,
                                        pos=pos, start=start, window=window)
         return to_rows(out, kw.shape[2])
-    _check(q4, kw, vw, spec)
+    lns = _check(q4, kw, vw, spec)
     b, hkv, rows, hd = q4.shape
     if kw.shape != vw.shape or kw.shape[2:] != (hkv, hd):
         raise ValueError(f"pool shape {tuple(kw.shape)} does not match q4 "
@@ -141,7 +144,7 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     start = _per_seq(0 if start is None else start, b, dev)
     out = torch.empty_like(q4)
     err = _lib().takum_paged_attention(
-        spec.n, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
+        spec.n, lns, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
         out.data_ptr(), pos.data_ptr(), start.data_ptr(), table.data_ptr(),
         b, hkv, rows, kw.shape[1], table.shape[1], window, hd ** -0.5,
         build.stream_of(q4))

@@ -4,10 +4,11 @@ Replaces ``repro/kernels/takum_matmul.py::qmatmul_kernel_call``. Bound
 by the weight words' bytes at decode batch sizes and by f32 FMAs at
 prefill chunks; see the source's header comment for the design.
 
-``qmatmul`` launches the kernel for CUDA tensors (padding ``K`` and ``N``
-with zero words to the kernel's multiple of 64: zero words decode to
-0.0, so the padding is exact) and runs ``ref.qmatmul_ref`` for CPU
-tensors; ``qmatmul.launches`` counts launches.
+``qmatmul`` launches the kernel for CUDA tensors (ragged M, K and N are
+masked in the kernel) and runs ``ref.qmatmul_ref`` for CPU tensors;
+``qmatmul.launches`` counts launches. :func:`launch_plan` also plans the
+linear LNS matmul, which shares the kernel's tiled skeleton
+(``csrc/tiled_matmul.cuh``).
 """
 
 from __future__ import annotations
@@ -15,34 +16,35 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.core.bitops import carrier
 from repro_torch.formats import FormatSpec
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
-__all__ = ["qmatmul", "PAD", "launch_plan"]
+__all__ = ["qmatmul", "BLOCKS", "launch_plan"]
 
-PAD = 64          # K and N multiple the kernel takes
 SMS = 132         # H100 SXM streaming multiprocessors
+# (rows, columns, K tile) of a block, per variant of csrc/qmatmul.cu
+BLOCKS = {0: (16, 64, 64), 1: (64, 64, 16)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"takum_qmatmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _P]}
 
 
-def launch_plan(m: int, k: int, n: int):
-    """(variant, split, k-tiles per split) for an [m, k] @ [k, n] call.
+def launch_plan(m: int, k: int, n: int, blocks=BLOCKS):
+    """(variant, split, K tiles per split) for an [m, k] x [k, n] call of
+    a kernel on the tiled skeleton whose variants have ``blocks``.
 
-    Variant 0 holds up to 16 rows per block (decode batches: every weight
-    word decoded once), variant 1 64 rows (prefill chunks). K is split
-    across blocks when the (N, M) grid would leave the SMs idle."""
-    variant, bm, bk = (0, 16, 64) if m <= 16 else (1, 64, 16)
-    kt = k // bk
-    blocks = (n // 64) * -(-m // bm)
+    Variant 0 when its block holds all m rows (decode batches: every
+    weight word decoded once), else variant 1 (prefill chunks). K is
+    split across blocks when the (N, M) grid would leave the SMs idle."""
+    variant = 0 if m <= blocks[0][0] else 1
+    bm, bn, bk = blocks[variant]
+    kt = max(1, -(-k // bk))
+    grid = -(-n // bn) * -(-m // bm)
     split = 1
-    if blocks < 2 * SMS:
-        split = max(1, min(-(-2 * SMS // blocks), kt // 8))
+    if grid < 2 * SMS:
+        split = max(1, min(-(-2 * SMS // grid), kt // 8))
     per = -(-kt // split)
     return variant, -(-kt // per), per
 
@@ -57,30 +59,25 @@ def qmatmul(x: torch.Tensor, w_words: torch.Tensor,
     if k != k2:
         raise ValueError(f"qmatmul: x {tuple(x.shape)} @ w "
                          f"{tuple(w_words.shape)}")
-    if spec.is_identity or spec.n not in (8, 16) or w_words.dtype != spec.word_dtype:
+    if (spec.kind != "linear" or spec.n not in (8, 16)
+            or w_words.dtype != spec.word_dtype):
         raise TypeError(f"qmatmul takes takum8/takum16 words, got {spec.name} "
                         f"{w_words.dtype}")
     if not w_words.is_cuda or w_words.device != x.device:
         raise ValueError("x and w_words must be on the same CUDA device")
-    pk, pn = -k % PAD, -n % PAD
-    x = x.to(torch.float32)
-    if pk:
-        x = F.pad(x, (0, pk))
-    if pk or pn:
-        w_words = F.pad(carrier(w_words), (0, pn, 0, pk)).view(w_words.dtype)
-    x, w_words = x.contiguous(), w_words.contiguous()
-    kp, np_ = k + pk, n + pn
-    out = torch.empty((m, np_), dtype=torch.float32, device=x.device)
-    variant, split, per = launch_plan(m, kp, np_)
-    work = (torch.empty((split, m, np_), dtype=torch.float32, device=x.device)
+    x = x.to(torch.float32).contiguous()
+    w_words = w_words.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    variant, split, per = launch_plan(m, k, n)
+    work = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
             if split > 1 else out)
     err = _lib().takum_qmatmul(spec.n, variant, x.data_ptr(),
                                w_words.data_ptr(), out.data_ptr(),
-                               work.data_ptr(), m, kp, np_, split, per,
+                               work.data_ptr(), m, k, n, split, per,
                                build.stream_of(x))
     build.check(err, "takum_qmatmul")
     qmatmul.launches += 1
-    return out[:, :n] if pn else out
+    return out
 
 
 def _lib():

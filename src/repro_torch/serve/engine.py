@@ -5,8 +5,9 @@ fixed-width decode batch over a :class:`~repro_torch.serve.paged.PagePool`
 (``serve/scheduler.py``): admission as pages free up, chunked prefill
 interleaved with decode, pages released the step a sequence finishes.
 Weights come from :func:`quantize_weights` (``mode="wire"``: every
-projection a ``WireMatrix`` of takum words) and the KV cache holds
-``cfg.kv_quant`` words.
+projection a ``WireMatrix`` of takum or logarithmic-takum words) and the
+KV cache holds ``cfg.kv_quant`` words (``takum8``/``takum16`` or
+``lns-takum8``/``lns-takum16``).
 
 The engine runs on ``cuda`` unless it is given ``device="cpu"``, where
 every kernel wrapper runs its plain PyTorch version; it never moves to
@@ -51,8 +52,12 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
 
     ``mode="wire"`` replaces every 2D float leaf named ``wq``/``wk``/
     ``wv``/``wo``/``wg``/``w1``/``w2`` by a ``WireMatrix`` of its
-    takum words (encoded by the encode kernel on CUDA); names containing a
-    ``skip_substrings`` entry (embeddings, norms) stay as they are.
+    words in ``fmt`` (encoded by the encode kernel on CUDA); names
+    containing a ``skip_substrings`` entry (embeddings, norms) stay as they
+    are. ``"takum8"``/``"takum16"`` wire the projections through the
+    wire-weight matmul; ``"lns-takum8"``/``"lns-takum16"`` through the
+    ell_bar-datapath LNS matmul, which also encodes the incoming
+    activations to the LNS grid.
     ``mode="fake"`` (quantise-dequantise in place) is not ported yet and
     raises, as does a leaf that would need it."""
     if mode != "wire":

@@ -240,4 +240,5 @@ def test_registry_resolution_spellings():
         formats.resolve("takum8", 16)
     with pytest.raises(ValueError, match="unknown"):
         formats.resolve("posit8")
-    assert formats.names() == ("none", "takum16", "takum8")
+    assert formats.names() == ("none", "lns-takum16", "lns-takum8", "takum16",
+                               "takum8")

@@ -19,6 +19,8 @@ import torch
 from repro_torch import formats
 from repro_torch.configs import get_arch
 from repro_torch.core import takum
+from repro_torch.core.bitops import carrier
+from repro_torch.kernels import lns_matmul as klns
 from repro_torch.kernels import ops, ref, takum_attention, takum_codec
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ServeEngine, quantize_weights
@@ -26,6 +28,7 @@ from repro_torch.serve.engine import ServeEngine, quantize_weights
 pytestmark = pytest.mark.gpu
 
 SPECS = [formats.get("takum8"), formats.get("takum16")]
+LNS_SPECS = [formats.get("lns-takum8"), formats.get("lns-takum16")]
 
 
 @pytest.fixture(scope="module")
@@ -164,17 +167,20 @@ def test_wrappers_count_launches(dev):
     assert takum_attention.paged_attention.launches == n0 + 1
 
 
-def _reduced(kv):
+def _reduced(kv, wfmt=None):
     cfg = dataclasses.replace(get_arch("phi3-medium-14b").reduced,
                               kv_quant=kv)
     params = transformer.init(torch.Generator().manual_seed(0), cfg,
                               device="cpu")
-    return cfg, quantize_weights(params, kv, mode="wire", verbose=False)
+    return cfg, quantize_weights(params, wfmt or kv, mode="wire",
+                                 verbose=False)
 
 
-@pytest.mark.parametrize("kv", ["takum8", "takum16"])
-def test_reduced_serving_card_matches_cpu(dev, kv):
-    cfg, params = _reduced(kv)
+@pytest.mark.parametrize("kv,wfmt", [("takum8", None), ("takum16", None),
+                                     ("lns-takum8", "lns-takum16"),
+                                     ("takum8", "lns-takum16")])
+def test_reduced_serving_card_matches_cpu(dev, kv, wfmt):
+    cfg, params = _reduced(kv, wfmt)
     rng = np.random.default_rng(3)
     prompts = [list(rng.integers(0, cfg.vocab, n)) for n in (16, 9, 4, 13)]
     outs = {}
@@ -182,3 +188,160 @@ def test_reduced_serving_card_matches_cpu(dev, kv):
         eng = ServeEngine(params, cfg, max_len=48, page_size=16, device=d)
         outs[str(d)] = (eng.generate(prompts, 6), eng.generate(prompts, 6))
     assert outs["cpu"] == outs["cuda"]
+
+
+# -- logarithmic takum -----------------------------------------------------------
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of float32 (+0 and -0 are one
+    value, and a sign change counts the steps through zero)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("spec", LNS_SPECS, ids=lambda s: s.name)
+def test_lns_decode_every_word(dev, spec):
+    """lns_parts bit-exact (the device function, read back as the integer
+    state of the gauss LNS matmul by the word 1.0: one fold from the empty
+    sum copies the product's parts); the value (one expf) within 2 ulp."""
+    words = _words(spec)
+    one = takum.float_to_lns_takum(torch.ones((1, 1)), spec.n)
+    _, ell, flags = klns.lns_matmul(words[:, None].to(dev), one.to(dev),
+                                    spec, "gauss", state=True)
+    want_ell, want_flags = spec.lns_parts(words)
+    assert torch.equal(ell[:, 0].cpu(), want_ell)
+    assert torch.equal(flags[:, 0].cpu(), want_flags)
+    got = takum_codec.decode(words.to(dev), spec).cpu()
+    want = ref.decode_ref(words.to(dev), spec).cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert int(_ulps(got[fin], want[fin]).max()) <= 2
+
+
+@pytest.mark.parametrize("spec", LNS_SPECS, ids=lambda s: s.name)
+def test_lns_encode_equal_or_neighbour(dev, spec):
+    """One logf per value: the word equals the plain version's or, where
+    the log lands on a rounding tie, is its neighbour (rare)."""
+    x = torch.from_numpy(_floats(np.random.default_rng(1), 100_000))
+    got = takum_codec.encode(x.to(dev), spec).cpu()
+    want = ref.encode_ref(x.to(dev), spec).cpu()
+    mod = 1 << spec.n
+    step = (carrier(got).long() - carrier(want).long()) % mod
+    assert bool(torch.isin(step, torch.tensor([0, 1, mod - 1])).all())
+    assert float((step != 0).double().mean()) < 1e-4
+
+
+def _lns_operands(spec, m, k, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = takum.float_to_lns_takum(torch.randn((m, k), generator=g), spec.n)
+    w = takum.float_to_lns_takum(torch.randn((k, n), generator=g) / k ** 0.5,
+                                 spec.n)
+    return x, w
+
+
+@pytest.mark.parametrize("spec", LNS_SPECS, ids=lambda s: s.name)
+@pytest.mark.parametrize("mkn", [(4, 320, 192), (3, 100, 60), (37, 256, 130),
+                                 (256, 512, 64)])
+def test_lns_matmul_linear_matches_plain(dev, spec, mkn):
+    x, w = _lns_operands(spec, *mkn, seed=7)
+    got = klns.lns_matmul(x.to(dev), w.to(dev), spec).cpu()
+    want = ref.lns_matmul_plain(x.to(dev), w.to(dev), spec).cpu()
+    # f32 sums of the same products in another order, each product within
+    # 2 ulp of expf: at worst 2 K u sum|p| + 4 u sum|p| elementwise
+    # (u = 2^-24); statistically 16 sqrt(K) u ||p||_2, as chip_smoke.py
+    # phase 8 holds it (where products rounded to TF32 break it)
+    xd, wd = spec.decode_tile(x), spec.decode_tile(w)
+    tol = (2 * mkn[1] + 4) * 2.0 ** -24 * (xd.abs() @ wd.abs())
+    stat = 16 * mkn[1] ** 0.5 * 2.0 ** -24 * ((xd * xd) @ (wd * wd)).sqrt()
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert bool((err <= tol).all()) and bool((err <= stat).all())
+
+
+@pytest.mark.parametrize("spec", LNS_SPECS, ids=lambda s: s.name)
+def test_lns_matmul_each_product_within_2_ulp(dev, spec):
+    """K = 1: every output is one product, one expf, within 2 ulp of the
+    plain version; exp2f of an argument rescaled by an f32 log2(e) (the
+    fast-exp route) is not."""
+    x = _words(spec)[:, None]
+    g = torch.Generator().manual_seed(13)
+    w = takum.float_to_lns_takum(torch.randn((1, 64), generator=g), spec.n)
+    got = klns.lns_matmul(x.to(dev), w.to(dev), spec).cpu()
+    want = ref.lns_matmul_plain(x, w, spec)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert int(_ulps(got[fin], want[fin]).max()) <= 2
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    fast = ref.lns_matmul_plain(x, w, spec,
+                                exp=lambda a: torch.exp2(a * log2e))
+    assert int(_ulps(fast[fin], want[fin]).max()) > 2
+
+
+@pytest.mark.parametrize("spec", LNS_SPECS, ids=lambda s: s.name)
+@pytest.mark.parametrize("mkn", [(4, 300, 130), (9, 64, 70)])
+def test_lns_matmul_gauss_state_bit_exact(dev, spec, mkn):
+    x, w = _lns_operands(spec, *mkn, seed=8)
+    out, ell, flags = klns.lns_matmul(x.to(dev), w.to(dev), spec, "gauss",
+                                      state=True)
+    pout, pell, pflags = ref.lns_matmul_plain(x.to(dev), w.to(dev), spec,
+                                              "gauss", state=True)
+    assert torch.equal(ell.cpu(), pell.cpu())
+    assert torch.equal(flags.cpu(), pflags.cpu())
+    assert int(_ulps(out.cpu(), pout.cpu()).max()) <= 2
+
+
+@pytest.mark.parametrize("accum", ["linear", "gauss"])
+def test_lns_matmul_nar_poisons_its_row_and_column(dev, accum):
+    spec = formats.get("lns-takum16")
+    x, w = _lns_operands(spec, 6, 96, 70, seed=9)
+    x[2, 5] = takum.nar_word(16)
+    w[40, 33] = takum.nar_word(16)
+    got = klns.lns_matmul(x.to(dev), w.to(dev), spec, accum).cpu()
+    nan = torch.isnan(got)
+    assert nan[2].all() and nan[:, 33].all()
+    assert int(nan.sum()) == got.shape[1] + got.shape[0] - 1
+
+
+@pytest.mark.parametrize("spec", LNS_SPECS, ids=lambda s: s.name)
+def test_attention_over_lns_kv_matches_plain(dev, spec):
+    g = torch.Generator().manual_seed(10)
+    b, tq, hkv, grp, hd, tmax = 2, 9, 2, 3, 128, 72
+    q = torch.randn((b, tq, hkv * grp, hd), generator=g)
+    kw = takum.float_to_lns_takum(torch.randn((b, tmax, hkv, hd), generator=g),
+                                  spec.n)
+    vw = takum.float_to_lns_takum(torch.randn((b, tmax, hkv, hd), generator=g),
+                                  spec.n)
+    start = torch.tensor([0, 5], dtype=torch.int32)
+    got = ops.takum_attention(q.to(dev), kw.to(dev), vw.to(dev), 0, spec,
+                              pos=40, start=start, block=32).cpu()
+    want = ref.attention_ref(q.to(dev), kw.to(dev), vw.to(dev), 0, spec,
+                             pos=40, start=start.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    kp = takum.float_to_lns_takum(torch.randn((11, 16, 2, 16), generator=g),
+                                  spec.n)
+    vp = takum.float_to_lns_takum(torch.randn((11, 16, 2, 16), generator=g),
+                                  spec.n)
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 0, 0],
+                          [0, 0, 0, 0]], dtype=torch.int32)
+    pos = torch.tensor([63, 37, 20, 900], dtype=torch.int32)
+    qd = torch.randn((4, 1, 4, 16), generator=g)
+    got = ops.paged_attention(qd.to(dev), kp.to(dev), vp.to(dev),
+                              table.to(dev), spec, pos=pos.to(dev)).cpu()
+    want = ref.paged_attention_ref(qd.to(dev), kp.to(dev), vp.to(dev),
+                                   table.to(dev), spec, pos=pos.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+def test_lns_wrappers_count_launches(dev):
+    spec = formats.get("lns-takum8")
+    x, w = _lns_operands(spec, 4, 64, 64, seed=11)
+    n0, e0 = klns.lns_matmul.launches, takum_codec.encode.launches
+    out = ops.lns_matmul(spec.decode_tile(x).to(dev), w.to(dev), spec)
+    assert klns.lns_matmul.launches == n0 + 1
+    assert takum_codec.encode.launches == e0 + 1    # x onto the LNS grid
+    ops.lns_matmul(spec.decode_tile(x), w, spec)      # CPU: plain version
+    assert klns.lns_matmul.launches == n0 + 1
+    assert out.shape == (4, 64)
