@@ -51,7 +51,32 @@ Phases, one summary line each; any failure exits non-zero:
     KV served on the card and on the CPU: identical greedy tokens; the
     prefill logits within 1e-4 once the card's encodes replay the CPU
     run's words, and free-running within a limit per KV format, with the
-    first word that differed located.
+    first word that differed located;
+12. posit codec: every posit8 word (computed and through the
+    shared-memory table) and posit16 word through the decode kernel, and
+    >= 1M seeded, special and saturating floats through the encode
+    kernel, bit-exact against the plain codec; decode times at
+    [5120, 17920] words, table and computed;
+13. posit wire matmul at the eight projection shapes, posit8 (table and
+    computed) and posit16, under phase 3's worst-case and statistical
+    limits and its TF32/bf16 controls, with times beside takum8's;
+14. attention (contiguous and paged, phase 4's shapes, one NaR word) over
+    posit8 (table and computed) and posit16 KV words against the plain
+    versions, every row compared;
+15. serving at the full width of phi3-medium-14b with posit8 wire weights
+    and a posit8 KV cache: requests of 100 and 200 prompt tokens, 8 new
+    tokens each, with every kernel's launch count from that run (the wire
+    matmul > 0, the LNS matmul 0) and the posit8 decode it ran;
+16. the reduced config with posit16 weights and a posit8 KV cache served
+    on the card and on the CPU: identical greedy tokens, logits within
+    1e-4;
+17. fused fake-quant at [5120, 17920] (takum8 and takum16 scaled by
+    ``FormatSpec.fake_quant``, posit8 with and without the table,
+    posit16, lns-takum8 and lns-takum16; f32 and bf16 out) against the
+    plain version (bit-exact; LNS: the codec kernels' round trip bit for
+    bit and the plain version's words or their neighbours), times against
+    the byte bound; then ``quantize_weights(mode="fake")`` over one
+    full-width layer in posit8 (7 launches).
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound) and, last,
@@ -64,6 +89,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -176,6 +202,46 @@ def ulps(torch, a, b):
         i = t.contiguous().view(torch.int32).long()
         return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
     return (ordered(a) - ordered(b)).abs()
+
+
+def wire_matmul_check(torch, dev, spec, m, k, n):
+    """The wire matmul kernel at [m, k] x [k, n] against its plain version
+    on seeded operands (``spec`` words of N(0, 1/k) weights): within the
+    worst-case f32 bound and the statistical limit, with controls (x
+    rounded to TF32 and bf16) that must break the latter."""
+    from repro_torch.kernels import ref, takum_codec, takum_matmul
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = takum_codec.encode(torch.randn((k, n), generator=g,
+                                       device=dev) / k ** 0.5, spec)
+    wf = ref.decode_ref(w, spec)
+    got = takum_matmul.qmatmul(x, w, spec)
+    want = ref.qmatmul_ref(x, w, spec)
+    # worst case: two f32 sums of the same K products in any order
+    # differ by at most 2 K u sum|x_k w_k| (u = 2^-24), elementwise
+    tol = 2 * k * U32 * (x.abs() @ wf.abs())
+    # statistical: C_STAT sqrt(K) u ||x_i * w_j||_2 (see C_STAT)
+    stat = C_STAT * k ** 0.5 * U32 * ((x * x) @ (wf * wf)).sqrt()
+    err = (got - want).abs()
+    check(bool((err <= tol).all()),
+          f"qmatmul {spec.name} {m}x{k}x{n}: error over the f32 bound")
+    r_kernel = float((err / stat).max())
+    check(r_kernel <= 1.0, f"qmatmul {spec.name} {m}x{k}x{n}: error "
+          f"{r_kernel:.3g} x the statistical limit")
+    # controls: the plain product with x rounded to TF32 / bf16 must
+    # break the statistical limit, or the limit could not see them
+    ctrl = {}
+    for key, drop in (("tf32_x", 13), ("bf16_x", 16)):
+        xe = round_mantissa(torch, x, drop)
+        e = (ref.qmatmul_ref(xe, w, spec) - want).abs()
+        ctrl[key] = float((e / stat).max())
+        check(ctrl[key] > 1.0, f"qmatmul {spec.name} {m}x{k}x{n}: a "
+              f"{key} product passes the statistical limit")
+    return {"fmt": spec.name, "m": m, "k": k, "n": n,
+            "max_abs_err": float(err.max()),
+            "max_err_over_bound": float((err / tol).max()),
+            "max_err_over_stat_limit": r_kernel,
+            "control_max_err_over_stat_limit": ctrl}
 
 
 def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
@@ -643,10 +709,10 @@ def lns_matmul_phase(torch, dev, sm_clock_hz):
             "nar_row_column": nar, "max_abs_err": worst}
 
 
-def lns_attention_phase(torch, dev, spec):
-    """Contiguous and paged attention over ``spec`` (LNS) KV words against
-    their plain versions at the shapes of phase 4, every row compared (a
-    NaR K word poisoning exactly its rows), and their times."""
+def wire_attention_phase(torch, dev, spec):
+    """Contiguous and paged attention over ``spec`` KV words against their
+    plain versions at the shapes of phase 4, every row compared (a NaR K
+    word poisoning exactly its rows), and their times."""
     from repro_torch.core import takum
     from repro_torch.kernels import ref, takum_codec
     from repro_torch.kernels import takum_attention as kattn
@@ -699,6 +765,267 @@ def lns_attention_phase(torch, dev, spec):
     return res
 
 
+@contextlib.contextmanager
+def lut_switch(value: str):
+    """``REPRO_LUT_DECODE`` = ``value`` inside ("1": posit8 through its
+    shared-memory table, "0": the computed decode)."""
+    old = os.environ.get("REPRO_LUT_DECODE")
+    os.environ["REPRO_LUT_DECODE"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_LUT_DECODE")
+        else:
+            os.environ["REPRO_LUT_DECODE"] = old
+
+
+# the posit decodes held and timed: posit8 through the table and computed,
+# posit16 (no table)
+POSIT_VARIANTS = (("posit8", "1", "posit8 table"),
+                  ("posit8", "0", "posit8 computed"),
+                  ("posit16", "0", "posit16"))
+
+
+def same_floats(torch, a, b) -> bool:
+    """Bit-equal where not NaN, NaN in the same places (PyTorch's NaN bits
+    differ between its CPU and CUDA arithmetic)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    it = torch.int16 if a.element_size() == 2 else torch.int32
+    return (torch.equal(na, nb)
+            and torch.equal(a[~na].view(it), b[~nb].view(it)))
+
+
+def posit_floats(torch, dev, seed):
+    """>= 1M floats: seeded normals over the f32 range, raw bit patterns,
+    subnormals, powers of two around the posit8/16 saturation edges
+    (2^+-24, 2^+-56) and their neighbours, and the specials."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(1 << 20, generator=g, device=dev)
+    x = x * torch.pow(10.0, torch.randint(-45, 39, x.shape, device=dev,
+                                          generator=g).float())
+    raw = torch.randint(-2 ** 31, 2 ** 31, (1 << 18,), device=dev,
+                        generator=g, dtype=torch.int64).to(torch.int32)
+    sub = torch.randint(1, 2 ** 23, (1 << 16,), device=dev, generator=g,
+                        dtype=torch.int32).view(torch.float32)
+    edges = torch.pow(2.0, torch.arange(-64, 65, device=dev).float())
+    edges = torch.cat([edges, torch.nextafter(edges, torch.zeros_like(edges)),
+                       torch.nextafter(edges, torch.full_like(edges, 1e38))])
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1e-45, -1e-45, 1.1754942e-38,
+                            3.4028235e38, -3.4028235e38, 1.0, -1.0],
+                           device=dev)
+    return torch.cat([x, raw.view(torch.float32), sub, -sub, edges, -edges,
+                      special])
+
+
+def posit_codec_phase(torch, dev):
+    """Phase 12: every posit word through the decode kernel (posit8 with
+    and without the table, posit16), >= 1M floats through the encode
+    kernel, bit-exact against the plain codec on the card; the decode at
+    [5120, 17920] words timed against its byte bound and its plain
+    version, and the encode of one layer's K append of a prefill chunk."""
+    from repro_torch import formats
+    from repro_torch.core import posit
+    from repro_torch.core.bitops import carrier, to_words
+    from repro_torch.kernels import build, ref, takum_codec
+    res, times = {}, {}
+    g = torch.Generator(device=dev).manual_seed(21)
+    w_f32 = torch.randn((5120, 17920), generator=g, device=dev) / 5120 ** 0.5
+    kv_prefill = torch.randn((1, 256, 10, 128), generator=g, device=dev)
+    for name, lut, label in POSIT_VARIANTS:
+        spec = formats.get(name)
+        with lut_switch(lut):
+            table = build.format_code(spec, dev) == build.POSIT8_LUT
+            check(table == (lut == "1" and spec.has_lut),
+                  f"{label}: the kernels' format code ignores the switch")
+            words = to_words(torch.arange(2 ** spec.n, device=dev),
+                             spec.word_dtype)
+            got = takum_codec.decode(words, spec)
+            want = posit.posit_to_float(words, spec.n)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"{label}: decode kernel differs from the plain codec")
+            row = {"words": 2 ** spec.n, "decode_bit_exact": True,
+                   "decode_max_abs_err": codec_err(torch, got, want)}
+            if spec.has_lut:
+                plain_table = formats.posit8_lut_decode(words)
+                check(torch.equal(plain_table.view(torch.int32),
+                                  want.view(torch.int32)),
+                      "the plain posit8 table differs from the computed "
+                      "decode")
+            if lut == "0":
+                xs = posit_floats(torch, dev, 22 + spec.n)
+                gw = takum_codec.encode(xs, spec)
+                ww = posit.float_to_posit(xs, spec.n)
+                check(torch.equal(carrier(gw), carrier(ww)),
+                      f"{name}: encode kernel differs from the plain codec")
+                row.update(floats=xs.numel(), encode_bit_exact=True)
+                b_ms, _ = bound(kv_prefill.numel() * (4 + spec.n // 8), 0)
+                times[f"{name} encode_kv_prefill_chunk"] = {
+                    "shape": list(kv_prefill.shape),
+                    "ms": cuda_ms(torch, lambda: takum_codec.encode(
+                        kv_prefill, spec), iters=200),
+                    "plain_ms": cuda_ms(torch, lambda: ref.encode_ref(
+                        kv_prefill, spec), iters=3, warmup=1),
+                    "bound_ms": b_ms, "bound_by": "bytes"}
+                del xs, gw, ww
+            wt = takum_codec.encode(w_f32, spec)
+            b_ms, b_by = bound(wt.numel() * (4 + spec.n // 8), 0)
+            times[f"{label} decode_weights"] = {
+                "shape": list(wt.shape),
+                "ms": cuda_ms(torch, lambda: takum_codec.decode(wt, spec)),
+                "plain_ms": cuda_ms(torch, lambda: ref.decode_ref(wt, spec),
+                                    iters=3, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by}
+            res[label] = row
+            del wt
+    del w_f32, kv_prefill
+    torch.cuda.empty_cache()
+    return res, times
+
+
+def posit_matmul_phase(torch, dev):
+    """Phase 13: the wire matmul over posit8 (table and computed) and
+    posit16 weights at every projection shape, under phase 3's limits and
+    controls, and its time per shape (the bound as phase 3's)."""
+    from repro_torch import formats
+    from repro_torch.kernels import takum_codec, takum_matmul
+    rows, times = [], {}
+    ratio = {"kernel": 0.0, "tf32_x": float("inf"), "bf16_x": float("inf")}
+    for name, lut, label in POSIT_VARIANTS:
+        spec = formats.get(name)
+        with lut_switch(lut):
+            for m, k, n in MM_SHAPES:
+                row = wire_matmul_check(torch, dev, spec, m, k, n)
+                row["decode"] = label
+                ctrl = row["control_max_err_over_stat_limit"]
+                for key in ("tf32_x", "bf16_x"):
+                    ratio[key] = min(ratio[key], ctrl[key])
+                ratio["kernel"] = max(ratio["kernel"],
+                                      row["max_err_over_stat_limit"])
+                x = torch.randn((m, k), device=dev)
+                w = takum_codec.encode(torch.randn((k, n), device=dev)
+                                       / k ** 0.5, spec)
+                b_ms, b_by = bound(m * k * 4 + k * n * spec.n // 8
+                                   + m * n * 4, 2 * m * k * n)
+                row.update(ms=cuda_ms(torch, lambda: takum_matmul.qmatmul(
+                    x, w, spec)), bound_ms=b_ms, bound_by=b_by)
+                times[f"{label} {m}x{k}x{n}"] = row["ms"]
+                rows.append(row)
+                del x, w
+    return rows, times, ratio
+
+
+def fake_quant_phase(torch, dev):
+    """Phase 17: the fused fake-quant kernel at [5120, 17920] for every
+    wire format (linear takum scaled by FormatSpec.fake_quant's power of
+    two, posit8 with and without the table), f32 and bf16 out, against the
+    plain version on the card: bit-exact (NaNs by place), LNS the codec
+    kernels' round trip bit for bit and the plain version's words or
+    their neighbours; times against the byte bound."""
+    from repro_torch import formats
+    from repro_torch.core import quant
+    from repro_torch.core.bitops import carrier
+    from repro_torch.kernels import quantize, ref, takum_codec
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((5120, 17920), generator=g, device=dev) * 0.02
+    # specials; a per-tensor scale needs a finite absmax, so the scaled
+    # linear-takum rows see zeros and subnormals only
+    specials = torch.tensor([0.0, -0.0, 1e-40, -1e-40, float("inf"),
+                             -float("inf"), float("nan"), 3e38], device=dev)
+    variants = [("takum8", "0", "takum8 scaled"),
+                ("takum16", "0", "takum16 scaled"), *POSIT_VARIANTS,
+                ("lns-takum8", "0", "lns-takum8"),
+                ("lns-takum16", "0", "lns-takum16")]
+    rows = {}
+    for name, lut, label in variants:
+        spec = formats.get(name)
+        x[0, :8] = specials if spec.kind != "linear" else specials[:4].repeat(2)
+        k = (int(quant.scale_exponent(x, quant.QuantSpec(fmt="takum",
+                                                          n=spec.n)))
+             if spec.kind == "linear" else 0)
+        with lut_switch(lut):
+            for dtype in (torch.float32, torch.bfloat16):
+                got = spec.fake_quant(x, dtype=dtype)
+                key = f"{label} {str(dtype)[6:]}"
+                row = {"scale_exp": k}
+                if spec.kind == "lns":
+                    comp = takum_codec.decode(takum_codec.encode(x, spec),
+                                              spec).to(dtype)
+                    check(same_floats(torch, got, comp), f"fake_quant {key}: "
+                          "not the codec kernels' round trip")
+                    mod = 1 << spec.n
+                    step = (carrier(takum_codec.encode(x, spec)).long()
+                            - carrier(ref.encode_ref(x, spec)).long()) % mod
+                    check(bool(torch.isin(step, torch.tensor(
+                        [0, 1, mod - 1], device=dev)).all()),
+                        f"fake_quant {key}: a word other than the plain "
+                        "version's or its neighbour")
+                    share = float((step != 0).double().mean())
+                    check(share <= LNS_NEIGHBOUR_SHARE, f"fake_quant {key}: "
+                          f"neighbour share {share}")
+                    row["neighbour_share"] = share
+                    del comp, step
+                want = ref.fake_quant_ref(x, spec, dtype=dtype, scale_exp=k)
+                if spec.kind != "lns":
+                    check(same_floats(torch, got, want),
+                          f"fake_quant {key}: differs from the plain version")
+                    row["bit_exact"] = True
+                row["max_abs_err"] = codec_err(torch, got.float(),
+                                               want.float())
+                del want
+                nbytes = x.numel() * (4 + got.element_size())
+                b_ms, b_by = bound(nbytes, 0)
+                row.update(
+                    ms=cuda_ms(torch, lambda: quantize.fake_quant(
+                        x, spec, dtype=dtype, scale_exp=k)),
+                    plain_ms=cuda_ms(torch, lambda: ref.fake_quant_ref(
+                        x, spec, dtype=dtype, scale_exp=k), iters=2,
+                        warmup=1),
+                    bound_ms=b_ms, bound_by=b_by)
+                rows[key] = row
+                del got
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def quantize_layer_fake(torch, dev, fmt):
+    """``quantize_weights(layer, fmt, mode="fake")`` over one full-width
+    phi3-medium-14b layer (f32 weights from a seeded generator on the
+    card), the fake-quant kernel's launch count set to 0 just before and
+    read just after; every matrix against the plain version."""
+    from repro_torch import formats
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import quantize, ref
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import quantize_weights
+    cfg = get_arch("phi3-medium-14b").config
+    layer = transformer.init_layer(torch.Generator(device=dev).manual_seed(18),
+                                   cfg, device=dev)
+    spec = formats.get(fmt)
+    torch.cuda.synchronize()
+    quantize.fake_quant.launches = 0
+    t0 = time.perf_counter()
+    out = quantize_weights(layer, fmt, mode="fake", verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = quantize.fake_quant.launches
+    for part in ("attn", "mlp"):
+        for name, w in layer[part].items():
+            got = out[part][name]
+            check(got.dtype == w.dtype and got.shape == w.shape
+                  and same_floats(torch, got, ref.fake_quant_ref(w, spec)),
+                  f"quantize_weights fake {fmt}: {part}/{name} differs from "
+                  "the plain version")
+    elems = sum(w.numel() for part in ("attn", "mlp")
+                for w in layer[part].values())
+    del layer, out
+    torch.cuda.empty_cache()
+    return {"format": fmt, "matrices": 7, "elements": elems,
+            "launches": launches, "wall_s": wall}
+
+
 def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, sort_keys=False))
 
@@ -722,6 +1049,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import lns_matmul as klns
     from repro_torch.kernels import ref
+    from repro_torch.kernels import quantize as kquant
     from repro_torch.kernels import takum_attention as kattn
     from repro_torch.kernels import takum_codec, takum_matmul
 
@@ -744,6 +1072,12 @@ def main() -> int:
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", info["log"]))
         builds[src] = {"kernels": len(regs), "max_registers": max(regs or [0]),
                        "spill_bytes": spills, "seconds": round(info["seconds"], 2)}
+        # the (mangled) kernels that spill, for chip_smoke.json
+        spilling = re.findall(r"Function properties for (\S+)\s+\S.*?(\d+) "
+                              r"bytes spill stores, (\d+) bytes spill loads",
+                              info["log"])
+        detail.setdefault("spilling_kernels", {})[src] = [
+            k for k, a, b in spilling if int(a) + int(b)]
     phase(1, "device+build", device=name, count=count, card=card,
           clocks_max_sm_mhz=sm_clock_mhz,
           torch=torch.__version__, cuda=torch.version.cuda,
@@ -797,42 +1131,14 @@ def main() -> int:
     ratio = {"kernel": 0.0, "tf32_x": float("inf"), "bf16_x": float("inf")}
     for spec in (t8, t16):
         for m, k, n in shapes:
-            g = torch.Generator(device=dev).manual_seed(m + k + n)
-            x = torch.randn((m, k), generator=g, device=dev)
-            w = takum_codec.encode(torch.randn((k, n), generator=g,
-                                               device=dev) / k ** 0.5, spec)
-            wf = ref.decode_ref(w, spec)
-            got = takum_matmul.qmatmul(x, w, spec)
-            want = ref.qmatmul_ref(x, w, spec)
-            # worst case: two f32 sums of the same K products in any order
-            # differ by at most 2 K u sum|x_k w_k| (u = 2^-24), elementwise
-            tol = 2 * k * U32 * (x.abs() @ wf.abs())
-            # statistical: C_STAT sqrt(K) u ||x_i * w_j||_2 (see C_STAT)
-            stat = C_STAT * k ** 0.5 * U32 * ((x * x) @ (wf * wf)).sqrt()
-            err = (got - want).abs()
-            check(bool((err <= tol).all()),
-                  f"qmatmul {spec.name} {m}x{k}x{n}: error over the f32 bound")
-            r_kernel = float((err / stat).max())
-            check(r_kernel <= 1.0, f"qmatmul {spec.name} {m}x{k}x{n}: error "
-                  f"{r_kernel:.3g} x the statistical limit")
-            # controls: the plain product with x rounded to TF32 / bf16 must
-            # break the statistical limit, or the limit could not see them
-            ctrl = {}
-            for key, drop in (("tf32_x", 13), ("bf16_x", 16)):
-                xe = round_mantissa(torch, x, drop)
-                e = (ref.qmatmul_ref(xe, w, spec) - want).abs()
-                ctrl[key] = float((e / stat).max())
-                check(ctrl[key] > 1.0, f"qmatmul {spec.name} {m}x{k}x{n}: a "
-                      f"{key} product passes the statistical limit")
+            row = wire_matmul_check(torch, dev, spec, m, k, n)
+            ctrl = row["control_max_err_over_stat_limit"]
+            for key in ("tf32_x", "bf16_x"):
                 ratio[key] = min(ratio[key], ctrl[key])
-            ratio["kernel"] = max(ratio["kernel"], r_kernel)
-            worst = max(worst, float(err.max()))
-            mm.append({"fmt": spec.name, "m": m, "k": k, "n": n,
-                       "max_abs_err": float(err.max()),
-                       "max_err_over_bound": float((err / tol).max()),
-                       "max_err_over_stat_limit": r_kernel,
-                       "control_max_err_over_stat_limit": ctrl})
-            del x, w, wf, got, want, tol, stat, err
+            ratio["kernel"] = max(ratio["kernel"],
+                                  row["max_err_over_stat_limit"])
+            worst = max(worst, row["max_abs_err"])
+            mm.append(row)
     phase(3, "wire matmul", shapes=len(mm), max_abs_err=worst,
           tolerance="2*K*2^-24*(|x|@|w|) elementwise (worst case) and "
                     f"{C_STAT:g}*sqrt(K)*2^-24*sqrt((x*x)@(w*w)) (statistical): "
@@ -995,7 +1301,9 @@ def main() -> int:
                 "qmatmul": takum_matmul.qmatmul,
                 "lns_matmul": klns.lns_matmul,
                 "attention": kattn.attention,
-                "paged_attention": kattn.paged_attention}
+                "paged_attention": kattn.paged_attention,
+                "fake_quant": kquant.fake_quant,
+                "posit8_lut": build.posit8_lut}
     entry_of = {"takum_decode": "takum_codec", "takum_encode": "takum_codec"}
     serve = serve_full_width(torch, dev, wfmt="takum8", kv="takum8",
                              plens=(77, 300, 520, 1024), max_new=16,
@@ -1079,7 +1387,7 @@ def main() -> int:
         library_call="none: no PyTorch call computes an ell_bar-sum product")
 
     # -- 9. attention over LNS KV -------------------------------------------
-    lattn = lns_attention_phase(torch, dev, lns8)
+    lattn = wire_attention_phase(torch, dev, lns8)
     phase(9, "attention over lns-takum8 kv", **lattn)
     kernels["attention"]["lns_ms"] = lattn["contiguous_ms"]
     kernels["paged_attention"]["lns_ms"] = lattn["paged_ms"]
@@ -1109,9 +1417,118 @@ def main() -> int:
             for kv in ("lns-takum8", "takum8")]
     phase(11, "reduced model lns-takum16 weights card vs cpu", cases=lred)
 
+    # -- 12. posit codec ---------------------------------------------------
+    pcodec, pcodec_t = posit_codec_phase(torch, dev)
+    phase(12, "posit codec", **pcodec,
+          ms={k: v["ms"] for k, v in pcodec_t.items()},
+          tolerance="bit-exact (integer codec); the table equals the "
+                    "computed decode on every word")
+    detail["posit_codec"] = {"checks": pcodec, "times": pcodec_t}
+    kernels["takum_codec"]["posit"] = pcodec_t
+
+    # -- 13. posit wire matmul ---------------------------------------------
+    pmm, pmm_t, pratio = posit_matmul_phase(torch, dev)
+    t8_ms = {f"{r['m']}x{r['k']}x{r['n']}": r["ms"] for r in mm_times}
+    phase(13, "posit wire matmul", shapes=len(pmm),
+          max_abs_err=max(r["max_abs_err"] for r in pmm),
+          kernel_max_over_stat_limit=pratio["kernel"],
+          tf32_x_control_min_over_stat_limit=pratio["tf32_x"],
+          bf16_x_control_min_over_stat_limit=pratio["bf16_x"],
+          ms=pmm_t, takum8_ms=t8_ms,
+          tolerance="as phase 3: worst-case f32 bound and the statistical "
+                    "limit, TF32 and bf16 controls breaking it")
+    detail["posit_matmul"] = pmm
+    rep = "4x5120x17920"
+    kernels["qmatmul"]["posit_ms"] = {label: pmm_t[f"{label} {rep}"]
+                                      for _, _, label in POSIT_VARIANTS}
+
+    # -- 14. attention over posit KV -----------------------------------------
+    pattn = {}
+    for pname, lut, label in POSIT_VARIANTS:
+        with lut_switch(lut):
+            pattn[label] = wire_attention_phase(torch, dev,
+                                                formats.get(pname))
+    phase(14, "attention over posit kv", **pattn)
+    kernels["attention"]["posit_ms"] = {k: v["contiguous_ms"]
+                                        for k, v in pattn.items()}
+    kernels["paged_attention"]["posit_ms"] = {k: v["paged_ms"]
+                                              for k, v in pattn.items()}
+
+    # -- 15. posit serving at full width --------------------------------------
+    p8 = formats.get("posit8")
+    pserve = serve_full_width(torch, dev, wfmt="posit8", kv="posit8",
+                              plens=(100, 200), max_new=8, max_len=512,
+                              wrappers=wrappers)
+    pserve["card"] = card
+    pserve["posit8_decode"] = "table" if p8.lut_decode(dev) else "computed"
+    pl = pserve["launches"]
+    ppath = {"takum_codec": pl["takum_decode"] + pl["takum_encode"],
+             "qmatmul": pl["qmatmul"], "attention": pl["attention"],
+             "paged_attention": pl["paged_attention"],
+             "posit8_lut": pl["posit8_lut"]}
+    for k, v in ppath.items():
+        if k != "posit8_lut" or p8.lut_decode(dev):
+            check(v > 0, f"kernel {k} was not launched by the posit serving "
+                  "run")
+    check(pl["lns_matmul"] == 0, "the posit serving run launched the LNS "
+          "matmul")
+    for k in ("takum_codec", "qmatmul", "attention", "paged_attention"):
+        kernels[k]["launches_posit_serving"] = ppath[k]
+    phase(15, "serving phi3-medium-14b full width, posit8", **pserve)
+    detail["serving_posit"] = pserve
+
+    # -- 16. reduced model with posit weights, card against CPU ---------------
+    pred = reduced_card_vs_cpu(torch, dev, wfmt="posit16", kv="posit8")
+    phase(16, "reduced model posit16 weights card vs cpu", **pred)
+
+    # -- 17. fused fake-quant ----------------------------------------------
+    fq = fake_quant_phase(torch, dev)
+    fq_layer = quantize_layer_fake(torch, dev, "posit8")
+    check(fq_layer["launches"] == 7, f"quantize_weights(mode='fake') over "
+          f"one layer launched the fake-quant kernel {fq_layer['launches']} "
+          "times, not 7")
+    phase(17, "fake-quant", ms={k: v["ms"] for k, v in fq.items()},
+          bound_ms={k: v["bound_ms"] for k, v in fq.items()},
+          quantize_weights_layer=fq_layer,
+          tolerance="bit-exact against the plain version (NaNs by place); "
+                    "LNS: the codec kernels' round trip bit for bit, the "
+                    "plain version's words or their neighbours, share <= "
+                    f"{LNS_NEIGHBOUR_SHARE:g}")
+    detail["fake_quant"] = {"rows": fq, "quantize_weights_layer": fq_layer}
+    main_fq = fq["posit8 table float32"] if p8.lut_decode(dev) \
+        else fq["posit8 computed float32"]
+    kernels["fake_quant"] = dict(
+        route="cuda", source="src/repro_torch/csrc/fake_quant.cu",
+        replaces="src/repro/kernels/quantize.py:36",
+        max_abs_err=max(v["max_abs_err"] for v in fq.values()),
+        shape=[5120, 17920], ms=main_fq["ms"], plain_ms=main_fq["plain_ms"],
+        bound_ms=main_fq["bound_ms"], bound_by=main_fq["bound_by"],
+        library_ms=None,
+        library_call="none: no PyTorch call rounds to a takum or posit grid",
+        launches=fq_layer["launches"],
+        launches_path="quantize_weights(layer, 'posit8', mode='fake') over "
+                      "one full-width layer",
+        detail={k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms")}
+                for k, v in fq.items()})
+    lut_t = pcodec_t["posit8 table decode_weights"]
+    kernels["posit8_lut"] = dict(
+        route="cuda", source="src/repro_torch/csrc/wire.cuh",
+        replaces="src/repro/formats/registry.py:270",
+        max_abs_err=pcodec["posit8 table"]["decode_max_abs_err"],
+        shape=lut_t["shape"], ms=lut_t["ms"], plain_ms=lut_t["plain_ms"],
+        bound_ms=lut_t["bound_ms"], bound_by=lut_t["bound_by"],
+        library_ms=None,
+        library_call="none: no PyTorch call decodes posit words",
+        computed_ms=pcodec_t["posit8 computed decode_weights"]["ms"],
+        launches=ppath["posit8_lut"],
+        launches_path="the kernels of the posit8 serving run (phase 15) "
+                      "that decoded through the table",
+        note="a decode path inside the codec, wire-matmul, attention and "
+             "fake-quant kernels; timed in the codec's decode kernel")
+
     # -- the kernels line and the last line --------------------------------
-    order = ["takum_codec", "qmatmul", "lns_matmul", "attention",
-             "paged_attention"]
+    order = ["takum_codec", "qmatmul", "attention", "paged_attention",
+             "lns_matmul", "fake_quant", "posit8_lut"]
     line = {"kernels": [dict(name=k, **kernels[k]) for k in order]}
     detail.update(kernels=line["kernels"], card=card, device=name,
                   seconds=time.perf_counter() - t_start)

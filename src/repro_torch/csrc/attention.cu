@@ -36,13 +36,15 @@
 // Keys past the end of a contiguous cache (T not a multiple of bk) are the
 // zero words the Pallas wrapper pads with: decoded as 0.0 and masked.
 //
-// KV words are linear takum (decode<N>) or logarithmic takum
-// (lns_decode<N>, one expf per word), chosen by the LNS template argument,
-// as the Pallas tile bodies call the format's decode_tile. An LNS decode
-// step adds one expf per word it reads, which does not move the byte bound.
+// KV words are linear takum, logarithmic takum (one expf per word) or posit
+// (computed, or posit8 through the 256-entry table that each block builds in
+// shared memory at its start), chosen by the format-kind template argument
+// K of wire::Codec<N, K>, as the Pallas tile bodies call the format's
+// decode_tile. An LNS decode step adds one expf per word it reads, which
+// does not move the byte bound.
 #include <cuda_runtime.h>
 #include <math.h>
-#include "takum.cuh"
+#include "wire.cuh"
 
 namespace {
 
@@ -52,14 +54,7 @@ __device__ __forceinline__ float nanmax(float a, float b) {
     return (a != a || b != b) ? __uint_as_float(0x7FC00000u) : fmaxf(a, b);
 }
 
-// One KV word -> f32: linear takum or logarithmic takum (one expf).
-template <int N, bool LNS>
-__device__ __forceinline__ float decode_kv(uint32_t w) {
-    if constexpr (LNS) return takum::lns_decode<N>(w);
-    else return takum::decode<N>(w);
-}
-
-template <int N, bool LNS, int HD, int BQ, int TPR, int BKV, bool PAGED>
+template <int N, int K, int HD, int BQ, int TPR, int BKV, bool PAGED>
 __global__ void __launch_bounds__(BQ * TPR)
 attn_kernel(const float* __restrict__ q4, const takum::WordT<N>* __restrict__ kw,
             const takum::WordT<N>* __restrict__ vw, float* __restrict__ out,
@@ -76,8 +71,11 @@ attn_kernel(const float* __restrict__ q4, const takum::WordT<N>* __restrict__ kw
     float* ks = qs + BQ * QS;            // [BKV][QS]
     float* vs = ks + BKV * QS;           // [BKV][HD]
     float* ps_ = vs + BKV * HD;          // [BQ][PS]
+    using C = wire::Codec<N, K>;
+    __shared__ typename C::Tab tab;      // read after the first barrier
 
     const int tid = threadIdx.x;
+    tab.fill(tid, NT);
     const int rl = tid / TPR, cg = tid % TPR;
     const int row0 = blockIdx.x * BQ;
     const int h = blockIdx.y, b = blockIdx.z;
@@ -121,8 +119,8 @@ attn_kernel(const float* __restrict__ q4, const takum::WordT<N>* __restrict__ kw
                         idx = (((size_t)b * T + kpos) * Hkv + h) * HD + d;
                     }
                     if (present) {
-                        kv = decode_kv<N, LNS>(kw[idx]);
-                        vv = decode_kv<N, LNS>(vw[idx]);
+                        kv = C::decode(kw[idx], tab);
+                        vv = C::decode(vw[idx], tab);
                     }
                 }
                 ks[j * QS + d] = kv;
@@ -189,7 +187,7 @@ attn_kernel(const float* __restrict__ q4, const takum::WordT<N>* __restrict__ kw
     }
 }
 
-template <int N, bool LNS, int HD, int BQ, int TPR, int BKV, bool PAGED>
+template <int N, int K, int HD, int BQ, int TPR, int BKV, bool PAGED>
 int launch(const float* q4, const void* kw, const void* vw, float* out,
            const int* pos_v, const int* start_v, const int* table, int B,
            int Hkv, int rows, int T, int npg, int pos0, int tq, int tile,
@@ -197,7 +195,7 @@ int launch(const float* q4, const void* kw, const void* vw, float* out,
     constexpr int QS = HD + 1;
     const size_t smem = sizeof(float) *
         (BQ * QS + BKV * QS + BKV * HD + BQ * (BKV + 1));
-    auto kern = attn_kernel<N, LNS, HD, BQ, TPR, BKV, PAGED>;
+    auto kern = attn_kernel<N, K, HD, BQ, TPR, BKV, PAGED>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -211,7 +209,7 @@ int launch(const float* q4, const void* kw, const void* vw, float* out,
 
 // Contiguous prefill tiles: 64 rows x 4 threads per row.
 // Paged decode steps: 8 rows x min(32, hd) threads per row.
-template <int N, bool LNS, bool PAGED>
+template <int N, int K, bool PAGED>
 int dispatch_hd(int hd, const float* q4, const void* kw, const void* vw,
                 float* out, const int* pos_v, const int* start_v,
                 const int* table, int B, int Hkv, int rows, int T, int npg,
@@ -221,17 +219,17 @@ int dispatch_hd(int hd, const float* q4, const void* kw, const void* vw,
              pos0, tq, tile, window, scale, st
     if constexpr (PAGED) {
         switch (hd) {
-            case 16: return launch<N, LNS, 16, 8, 16, 32, PAGED>(ARGS);
-            case 32: return launch<N, LNS, 32, 8, 32, 32, PAGED>(ARGS);
-            case 64: return launch<N, LNS, 64, 8, 32, 32, PAGED>(ARGS);
-            case 128: return launch<N, LNS, 128, 8, 32, 32, PAGED>(ARGS);
+            case 16: return launch<N, K, 16, 8, 16, 32, PAGED>(ARGS);
+            case 32: return launch<N, K, 32, 8, 32, 32, PAGED>(ARGS);
+            case 64: return launch<N, K, 64, 8, 32, 32, PAGED>(ARGS);
+            case 128: return launch<N, K, 128, 8, 32, 32, PAGED>(ARGS);
         }
     } else {
         switch (hd) {
-            case 16: return launch<N, LNS, 16, 64, 4, 32, PAGED>(ARGS);
-            case 32: return launch<N, LNS, 32, 64, 4, 32, PAGED>(ARGS);
-            case 64: return launch<N, LNS, 64, 64, 4, 32, PAGED>(ARGS);
-            case 128: return launch<N, LNS, 128, 64, 4, 32, PAGED>(ARGS);
+            case 16: return launch<N, K, 16, 64, 4, 32, PAGED>(ARGS);
+            case 32: return launch<N, K, 32, 64, 4, 32, PAGED>(ARGS);
+            case 64: return launch<N, K, 64, 64, 4, 32, PAGED>(ARGS);
+            case 128: return launch<N, K, 128, 64, 4, 32, PAGED>(ARGS);
         }
     }
 #undef ARGS
@@ -239,40 +237,42 @@ int dispatch_hd(int hd, const float* q4, const void* kw, const void* vw,
 }
 
 template <bool PAGED>
-int dispatch(int n, int lns, int hd, const float* q4, const void* kw,
+int dispatch(int n, int kind, int hd, const float* q4, const void* kw,
              const void* vw, float* out, const int* pos_v,
              const int* start_v, const int* table, int B, int Hkv, int rows,
              int T, int npg, int pos0, int tq, int tile, int window,
              float scale, cudaStream_t st) {
-#define ARGS hd, q4, kw, vw, out, pos_v, start_v, table, B, Hkv, rows, T, \
-             npg, pos0, tq, tile, window, scale, st
-    if (n == 8 && !lns) return dispatch_hd<8, false, PAGED>(ARGS);
-    if (n == 16 && !lns) return dispatch_hd<16, false, PAGED>(ARGS);
-    if (n == 8 && lns) return dispatch_hd<8, true, PAGED>(ARGS);
-    if (n == 16 && lns) return dispatch_hd<16, true, PAGED>(ARGS);
-#undef ARGS
+#define CASE(NN, KK)                                                        \
+    if (n == NN && kind == KK)                                              \
+        return dispatch_hd<NN, KK, PAGED>(hd, q4, kw, vw, out, pos_v,       \
+                                          start_v, table, B, Hkv, rows, T,  \
+                                          npg, pos0, tq, tile, window,      \
+                                          scale, st);
+    WIRE_DECODE_FORMATS(CASE)
+#undef CASE
     return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// lns = 0: linear takum KV words; lns = 1: logarithmic takum KV words.
+// kind: the format code of wire.cuh (0 linear takum, 1 logarithmic takum,
+// 2 posit, 3 posit8 through the table); n: 8 or 16.
 // Contiguous cache: kw/vw [B, T, Hkv, hd]; pos0 = position of the first
 // query; tile = bk; start [B].
-extern "C" int takum_attention(int n, int lns, int hd, const float* q4,
+extern "C" int takum_attention(int n, int kind, int hd, const float* q4,
                                const void* kw, const void* vw, float* out,
                                const int* start, int B, int Hkv, int rows,
                                int T, int pos0, int tq, int bk, int window,
                                float scale, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (B <= 0 || rows <= 0) return (int)cudaGetLastError();
-    return dispatch<false>(n, lns, hd, q4, kw, vw, out, nullptr, start,
+    return dispatch<false>(n, kind, hd, q4, kw, vw, out, nullptr, start,
                            nullptr, B, Hkv, rows, T, 0, pos0, tq, bk, window,
                            scale, st);
 }
 
 // Paged pool: kw/vw [P, ps, Hkv, hd]; pos/start [B]; table [B, npg].
-extern "C" int takum_paged_attention(int n, int lns, int hd, const float* q4,
+extern "C" int takum_paged_attention(int n, int kind, int hd, const float* q4,
                                      const void* kw, const void* vw,
                                      float* out, const int* pos,
                                      const int* start, const int* table,
@@ -281,6 +281,6 @@ extern "C" int takum_paged_attention(int n, int lns, int hd, const float* q4,
                                      void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (B <= 0 || rows <= 0) return (int)cudaGetLastError();
-    return dispatch<true>(n, lns, hd, q4, kw, vw, out, pos, start, table, B,
+    return dispatch<true>(n, kind, hd, q4, kw, vw, out, pos, start, table, B,
                           Hkv, rows, ps, npg, 0, 1, ps, window, scale, st);
 }

@@ -73,10 +73,14 @@ struct LnsOp {
     using X = takum::WordT<N>;
     using W = takum::WordT<N>;
     using S = int;
+    struct Block {};                       // no per-block state
     static constexpr int PAD = ZERO_PART;
     static constexpr int WF = FRAC_WIDTH<N>;
+    __device__ static void init(Block&, int, int) {}
     __device__ static int load_x(X v) { return packed_parts<N>(v); }
-    __device__ static int load_w(W v) { return packed_parts<N>(v); }
+    __device__ static int load_w(W v, const Block&) {
+        return packed_parts<N>(v);
+    }
     __device__ static void mac(float& acc, int pa, int pb) {
         const int ell = (pa >> 3) + (pb >> 3);
         const int f = pa | pb;
@@ -141,9 +145,10 @@ lns_gauss_kernel(const takum::WordT<N>* __restrict__ x,
     const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
     for (int i = tid; i < 2 * LUT_SIZE; i += NT) lut[i] = lut_g[i];
     int s = 0, ell = 0, zero = 1, nar = 0;    // the empty sum
+    const typename LnsOp<N>::Block blk{};
     for (int k0 = 0; k0 < K; k0 += BK) {
-        tiled::load_tiles<LnsOp<N>, BM, BN, BK, NT>(x, w, xs, ws, m0, n0, k0,
-                                                    M, K, Ncols, tid);
+        tiled::load_tiles<LnsOp<N>, BM, BN, BK, NT>(x, w, xs, ws, blk, m0, n0,
+                                                    k0, M, K, Ncols, tid);
         __syncthreads();
         const int kn = min(BK, K - k0);
         for (int kr = 0; kr < kn; ++kr) {

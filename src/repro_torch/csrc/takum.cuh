@@ -47,6 +47,22 @@ __device__ __forceinline__ uint32_t rne_shr(uint32_t v, int sh) {
     return kept + ((g && (rest || (kept & 1u))) ? 1u : 0u);
 }
 
+// The IEEE-754 float32 of (-1)^s (1 + mf / 2^WF) 2^me, mf < 2^WF, WF <= 23:
+// sign | biased exponent | fraction, round-to-nearest-even gradual
+// underflow, overflow to inf. Shared by the takum and the posit decode.
+template <int WF>
+__device__ __forceinline__ float assemble_f32(uint32_t s, uint32_t mf,
+                                              int me) {
+    const uint32_t frac = mf << (23 - WF);
+    const int be = me + 127;
+    const uint32_t sign = s << 31;
+    uint32_t bits;
+    if (be >= 255) bits = sign | 0x7F800000u;
+    else if (be <= 0) bits = sign | rne_shr((1u << 23) | frac, 1 - be);
+    else bits = sign | ((uint32_t)be << 23) | frac;
+    return __uint_as_float(bits);
+}
+
 // N-bit takum word -> float32.
 template <int N>
 __device__ __forceinline__ float decode(uint32_t w) {
@@ -71,14 +87,7 @@ __device__ __forceinline__ float decode(uint32_t w) {
         if (mant != 0u) mf = (1u << WF) - mant;
         else me += 1;
     }
-    const uint32_t frac = mf << (23 - WF);
-    const int be = me + 127;
-    const uint32_t sign = s << 31;
-    uint32_t bits;
-    if (be >= 255) bits = sign | 0x7F800000u;
-    else if (be <= 0) bits = sign | rne_shr((1u << 23) | frac, 1 - be);
-    else bits = sign | ((uint32_t)be << 23) | frac;
-    return __uint_as_float(bits);
+    return assemble_f32<WF>(s, mf, me);
 }
 
 // (S, characteristic c, barred mantissa of WM bits) -> N-bit takum word

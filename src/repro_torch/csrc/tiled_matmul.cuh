@@ -6,8 +6,12 @@
 //
 //   using X, W;               // element types of x and w in global memory
 //   using S;                  // element type of a decoded tile entry
+//   using Block;              // per-block state in shared memory (a decode
+//                             // table; an empty struct where none is needed)
+//   static void init(Block&, int tid, int nt);  // fills it at block start
 //   static constexpr S PAD;   // an entry outside the matrix: adds nothing
-//   static S load_x(X), load_w(W);       // the decode, once per entry
+//   static S load_x(X);                  // the decodes, once per entry
+//   static S load_w(W, const Block&);
 //   static void mac(float& acc, S a, S b);  // acc += a (op) b
 //
 // Design (simple first):
@@ -34,13 +38,13 @@ template <class Op, int BM, int BN, int BK, int NT>
 __device__ __forceinline__ void load_tiles(
         const typename Op::X* __restrict__ x,
         const typename Op::W* __restrict__ w, typename Op::S (*xs)[BM + 1],
-        typename Op::S (*ws)[BN], int m0, int n0, int k0, int M, int K,
-        int Ncols, int tid) {
+        typename Op::S (*ws)[BN], const typename Op::Block& blk, int m0,
+        int n0, int k0, int M, int K, int Ncols, int tid) {
     for (int i = tid; i < BK * BN; i += NT) {
         const int kr = i / BN, nc = i % BN;
         const int k = k0 + kr, n = n0 + nc;
         ws[kr][nc] = (k < K && n < Ncols)
-            ? Op::load_w(w[(size_t)k * Ncols + n]) : Op::PAD;
+            ? Op::load_w(w[(size_t)k * Ncols + n], blk) : Op::PAD;
     }
     for (int i = tid; i < BM * BK; i += NT) {
         const int mr = i / BK, kr = i % BK;
@@ -59,7 +63,10 @@ matmul_kernel(const typename Op::X* __restrict__ x,
     using S = typename Op::S;
     __shared__ S xs[BK][BM + 1];
     __shared__ S ws[BK][BN];
+    __shared__ typename Op::Block blk;
     const int tid = threadIdx.x;
+    Op::init(blk, tid, NT);
+    __syncthreads();            // blk is filled before the first load_w
     const int tx = tid % TX, ty = tid / TX;
     const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
     const int kt_total = (K + BK - 1) / BK;
@@ -72,8 +79,8 @@ matmul_kernel(const typename Op::X* __restrict__ x,
         for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
     for (int kt = kt0; kt < kt1; ++kt) {
-        load_tiles<Op, BM, BN, BK, NT>(x, w, xs, ws, m0, n0, kt * BK, M, K,
-                                       Ncols, tid);
+        load_tiles<Op, BM, BN, BK, NT>(x, w, xs, ws, blk, m0, n0, kt * BK, M,
+                                       K, Ncols, tid);
         __syncthreads();
 #pragma unroll 4
         for (int kr = 0; kr < BK; ++kr) {

@@ -9,25 +9,59 @@ Registered formats in this package: ``none`` (the identity codec: a
 float tensor with a cast for decode), ``takum8`` and ``takum16`` (linear
 takum), ``lns-takum8`` and ``lns-takum16`` (logarithmic takum: decode
 pays one ``exp``, encode one ``log``; ``lns_parts`` gives the ``(ell,
-flags)`` int32 lanes of the LNS matmul). ``decode_tile``/``encode_tile``
-are the plain torch codec, dispatched on the kind; the CUDA kernels
-inline the same functions from ``csrc/takum.cuh`` and are held against
-these (bit-exact for the integer steps, to an ulp or two of ``exp``/
-``log`` for the LNS conversions).
+flags)`` int32 lanes of the LNS matmul), ``posit8`` and ``posit16`` (the
+paper's baseline, es = 2, FloPoCo-2C decode). ``decode_tile``/
+``encode_tile`` are the plain torch codec, dispatched on the kind; the
+CUDA kernels inline the same functions from ``csrc/takum.cuh`` and
+``csrc/posit.cuh`` and are held against these (bit-exact for the integer
+steps, to an ulp or two of ``exp``/``log`` for the LNS conversions).
+
+posit8 also decodes through a 256-entry table (``has_lut``): its plain
+version here builds the table with the computed decode and gathers once
+per word; the CUDA kernels keep the table in shared memory. Whether the
+table is used is :func:`lut_enabled`'s choice, read per call;
+``fake_quant`` is the quantise-dequantise policy of the serving path
+(power-of-two centring for linear takum, the unscaled round trip for the
+other formats).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import takum
+from repro_torch.core import posit, takum
 
 __all__ = ["FormatSpec", "IDENTITY", "get", "resolve", "resolve_wire",
-           "resolve_lns", "names", "wire_names"]
+           "resolve_lns", "names", "wire_names", "lut_enabled",
+           "posit8_lut_decode", "LUT_DEFAULT_CUDA"]
+
+# Whether posit8 decodes through its shared-memory table on the card when
+# REPRO_LUT_DECODE is unset: on. On an H100 the table beat the computed
+# decode in every kernel that decodes posit8 words (codec, wire matmul,
+# both attention kernels, fake-quant); chip_smoke.py phases 12-14 and 17
+# time both, and PERF.md records the times.
+LUT_DEFAULT_CUDA = True
+
+
+def lut_enabled(device=None) -> bool:
+    """Whether table decodes are on, for tensors on ``device``.
+
+    ``REPRO_LUT_DECODE=1`` forces the table on, ``0`` forces it off (read
+    per call, as the reference does). Unset: :data:`LUT_DEFAULT_CUDA` on
+    the card, off elsewhere (the reference's default off the TPU; on the
+    CPU the two paths give the same floats)."""
+    v = os.environ.get("REPRO_LUT_DECODE", "")
+    if v == "1":
+        return True
+    if v == "0":
+        return False
+    return (LUT_DEFAULT_CUDA and device is not None
+            and torch.device(device).type == "cuda")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +69,7 @@ class FormatSpec:
     """A wire number format: identity and codec behaviour, as a value."""
 
     name: str      # registry key, e.g. "takum16"
-    kind: str      # "linear" | "lns" | "none"
+    kind: str      # "linear" | "lns" | "posit" | "none"
     n: int         # word width in bits (0 = identity)
 
     @property
@@ -61,12 +95,28 @@ class FormatSpec:
         """The zero word, also the padding word: it decodes to 0.0."""
         return 0
 
+    @property
+    def has_lut(self) -> bool:
+        """Whether a table decode exists (posit8 only: 256 entries)."""
+        return self.kind == "posit" and self.n == 8
+
+    def lut_decode(self, device=None) -> bool:
+        """Whether decodes of words on ``device`` take the table now."""
+        return self.has_lut and lut_enabled(device)
+
     def decode_tile(self, words, dtype=torch.float32) -> torch.Tensor:
-        """Wire words -> float (NaR -> NaN); a cast for the identity."""
+        """Wire words -> float (NaR -> NaN); a cast for the identity.
+        posit8 takes the table when :meth:`lut_decode` says so (the same
+        floats, bit for bit)."""
         if self.is_identity:
             return torch.as_tensor(words).to(dtype)
         if self.kind == "lns":
             return takum.lns_takum_to_float(words, self.n, dtype=dtype)
+        if self.kind == "posit":
+            words = torch.as_tensor(words)
+            if self.lut_decode(words.device):
+                return posit8_lut_decode(words, dtype=dtype)
+            return posit.posit_to_float(words, self.n, dtype=dtype)
         return takum.takum_to_float(words, self.n, dtype=dtype)
 
     def encode_tile(self, x) -> torch.Tensor:
@@ -77,7 +127,33 @@ class FormatSpec:
         x = torch.as_tensor(x).to(torch.float32)
         if self.kind == "lns":
             return takum.float_to_lns_takum(x, self.n)
+        if self.kind == "posit":
+            return posit.float_to_posit(x, self.n)
         return takum.float_to_takum(x, self.n)
+
+    def fake_quant(self, x, dtype=torch.float32, *,
+                   scale_exp=None) -> torch.Tensor:
+        """Quantise-dequantise through this format's grid (the serving
+        policy of ``quantize_weights(mode="fake")``).
+
+        Linear takum scales by a power of two, 2^k (``scale_exp`` = k, by
+        default the per-tensor centring of ``core.quant``: precision peaks
+        at |x| ~ 1); the other wire formats round-trip unscaled. Runs the
+        fused fake-quant kernel for CUDA tensors and its plain version
+        for CPU tensors."""
+        from repro_torch.core import quant
+        from repro_torch.kernels import quantize
+        x = torch.as_tensor(x)
+        if self.is_identity:
+            return x.to(dtype)
+        if self.kind != "linear":
+            if scale_exp:
+                raise ValueError(f"{self.name} fake-quantises unscaled")
+            return quantize.fake_quant(x, self, dtype=dtype)
+        if scale_exp is None:
+            scale_exp = int(quant.scale_exponent(
+                x.to(torch.float32), quant.QuantSpec(fmt="takum", n=self.n)))
+        return quantize.fake_quant(x, self, dtype=dtype, scale_exp=scale_exp)
 
     @property
     def has_lns_parts(self) -> bool:
@@ -94,6 +170,18 @@ class FormatSpec:
         return takum.decode_lns_parts(words, self.n)
 
 
+def posit8_lut_decode(words, dtype=torch.float32) -> torch.Tensor:
+    """posit8 words -> float through the 256-entry table: the plain
+    version of the reference's ``_posit8_lut_decode``. The table is built
+    by the computed decode, then one gather per word."""
+    words = torch.as_tensor(words)
+    if words.dtype != torch.uint8:
+        raise TypeError(f"posit8 words must be uint8, got {words.dtype}")
+    idx = torch.arange(256, dtype=torch.int64, device=words.device)
+    tab = posit.posit_to_float(idx.to(torch.uint8), 8, dtype=dtype)
+    return tab[words.to(torch.int64)]
+
+
 IDENTITY = FormatSpec(name="none", kind="none", n=0)
 _REGISTRY: Dict[str, FormatSpec] = {
     "none": IDENTITY,
@@ -101,9 +189,12 @@ _REGISTRY: Dict[str, FormatSpec] = {
     "takum16": FormatSpec(name="takum16", kind="linear", n=16),
     "lns-takum8": FormatSpec(name="lns-takum8", kind="lns", n=8),
     "lns-takum16": FormatSpec(name="lns-takum16", kind="lns", n=16),
+    "posit8": FormatSpec(name="posit8", kind="posit", n=8),
+    "posit16": FormatSpec(name="posit16", kind="posit", n=16),
 }
-_NAME_RE = re.compile(r"(lns-)?takum(\d+)$")
-_KIND_NAME = {"linear": "takum{n}", "lns": "lns-takum{n}"}
+_NAME_RE = re.compile(r"(lns-)?takum(\d+)$|posit(\d+)$")
+_KIND_NAME = {"linear": "takum{n}", "lns": "lns-takum{n}",
+              "posit": "posit{n}"}
 
 
 def names() -> Tuple[str, ...]:
@@ -130,8 +221,8 @@ def _kind(kind: str, n: int) -> FormatSpec:
 
 
 def resolve(fmt, n: Optional[int] = None) -> FormatSpec:
-    """Resolve a spec, a name, a ``(kind, n)`` pair (``"linear"`` or
-    ``"lns"``) or an int width (linear takum).
+    """Resolve a spec, a name, a ``(kind, n)`` pair (``"linear"``,
+    ``"lns"`` or ``"posit"``) or an int width (linear takum).
 
     A width passed beside a format that carries its own must agree."""
     if isinstance(fmt, FormatSpec):
@@ -146,7 +237,10 @@ def resolve(fmt, n: Optional[int] = None) -> FormatSpec:
         spec = _REGISTRY[fmt]
     elif isinstance(fmt, str) and _NAME_RE.fullmatch(fmt):
         m = _NAME_RE.fullmatch(fmt)
-        spec = _kind("lns" if m.group(1) else "linear", int(m.group(2)))
+        if m.group(3) is not None:
+            spec = _kind("posit", int(m.group(3)))
+        else:
+            spec = _kind("lns" if m.group(1) else "linear", int(m.group(2)))
     else:
         raise ValueError(f"unknown format {fmt!r} "
                          f"(registered: {', '.join(names())})")

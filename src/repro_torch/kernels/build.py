@@ -29,11 +29,12 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "library", "check",
-           "BUILD_INFO", "stream_of"]
+           "BUILD_INFO", "stream_of", "format_code", "KIND_CODES",
+           "POSIT8_LUT", "launched", "posit8_lut"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("codec", "qmatmul", "attention", "lns_matmul")
+SOURCES = ("codec", "qmatmul", "attention", "lns_matmul", "fake_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -113,6 +114,43 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+# The C entry points' format codes (csrc/wire.cuh, ``Kind``): the kernels
+# are templated on the word width and on this code.
+KIND_CODES = {"linear": 0, "lns": 1, "posit": 2}
+POSIT8_LUT = 3          # posit8 through the shared-memory table
+
+
+def format_code(spec, device, kinds=("linear", "lns", "posit")) -> int:
+    """The format code a kernel is launched with for ``spec``'s words on
+    ``device``: posit8 takes the table code when
+    ``spec.lut_decode(device)``. Raises ``ValueError`` for a kind outside
+    ``kinds`` or a width other than 8 and 16."""
+    if spec.kind not in kinds or spec.n not in (8, 16):
+        raise ValueError(f"this CUDA kernel takes 8- and 16-bit words of "
+                         f"kind {' / '.join(kinds)}, got {spec.name!r}")
+    if spec.lut_decode(device):
+        return POSIT8_LUT
+    return KIND_CODES[spec.kind]
+
+
+def posit8_lut():
+    """The posit8 table decode of ``csrc/wire.cuh``: not a kernel of its
+    own but a decode path inside the codec, matmul, attention and
+    fake-quant kernels. ``posit8_lut.launches`` counts the launches of
+    those kernels that ran it (see :func:`launched`)."""
+
+
+posit8_lut.launches = 0
+
+
+def launched(fn, code: int) -> None:
+    """Count one launch of ``fn``'s kernel with format code ``code`` (and
+    one of :func:`posit8_lut` when the kernel decodes through the table)."""
+    fn.launches += 1
+    if code == POSIT8_LUT:
+        posit8_lut.launches += 1
 
 
 def stream_of(t) -> int:

@@ -1,13 +1,13 @@
 """Public ops around the kernels: shapes, padding, layouts, dispatch.
 
 Every entry point resolves its format once here (a ``FormatSpec``, a
-registry name such as ``"takum8"`` or ``"lns-takum8"``, or an int width
-meaning linear takum, or LNS takum for :func:`lns_matmul`) and puts the
-tensors into the kernel's layout. The kernel wrappers of
-``takum_codec``/``takum_matmul``/``lns_matmul``/``takum_attention``
-choose the path: CUDA tensors launch the hand-written kernel (or raise:
-there is no fallback), CPU tensors run the plain version of
-``kernels/ref.py``.
+registry name such as ``"takum8"``, ``"lns-takum8"`` or ``"posit8"``, or
+an int width meaning linear takum, or LNS takum for :func:`lns_matmul`)
+and puts the tensors into the kernel's layout. The kernel wrappers of
+``takum_codec``/``takum_matmul``/``lns_matmul``/``takum_attention``/
+``quantize`` choose the path: CUDA tensors launch the hand-written
+kernel (or raise: there is no fallback), CPU tensors run the plain
+version of ``kernels/ref.py``.
 """
 
 from __future__ import annotations
@@ -17,10 +17,11 @@ import torch
 from repro_torch import formats
 from repro_torch.kernels import lns_matmul as klns
 from repro_torch.kernels import takum_attention as kattn
-from repro_torch.kernels import takum_codec, takum_matmul
+from repro_torch.kernels import quantize, takum_codec, takum_matmul
 
-__all__ = ["takum_decode", "takum_encode", "quant_matmul", "lns_matmul",
-           "takum_attention", "paged_attention", "WireMatrix"]
+__all__ = ["takum_decode", "takum_encode", "fake_quant_fused",
+           "quant_matmul", "lns_matmul", "takum_attention", "paged_attention",
+           "WireMatrix"]
 
 
 def takum_decode(words: torch.Tensor, fmt) -> torch.Tensor:
@@ -34,6 +35,18 @@ def takum_decode(words: torch.Tensor, fmt) -> torch.Tensor:
 def takum_encode(x: torch.Tensor, fmt) -> torch.Tensor:
     """Floats (any shape, cast to f32) -> wire words, RNE, saturating."""
     return takum_codec.encode(x, formats.resolve_wire(fmt))
+
+
+def fake_quant_fused(x: torch.Tensor, n=None, *, dtype=torch.float32,
+                     fmt="linear") -> torch.Tensor:
+    """Quantise-dequantise through a wire format's grid in one pass (the
+    fused kernel on CUDA: one read and one write per element).
+
+    ``(fmt, n)`` resolve through the registry: ``"linear"``, ``"lns"`` or
+    ``"posit"`` with a width, or a name or spec on its own. No scaling
+    (that is ``FormatSpec.fake_quant``'s policy). Input of any shape is
+    cast to f32; the output has its shape in ``dtype`` (f32 or bf16)."""
+    return quantize.fake_quant(x, formats.resolve_wire(fmt, n), dtype=dtype)
 
 
 def _dense_wire_spec(fmt):
@@ -58,7 +71,7 @@ def _lns_wire_spec(fmt):
 def quant_matmul(x: torch.Tensor, w_words: torch.Tensor, fmt) -> torch.Tensor:
     """x [..., K] @ decode(w_words [K, N]) -> [..., N] f32 (forward only);
     rows of any leading shape are flattened into the kernel's M. Linear
-    takum words only: LNS words are refused (see :func:`lns_matmul`)."""
+    takum and posit words: LNS words are refused (see :func:`lns_matmul`)."""
     spec = _dense_wire_spec(fmt)
     out = takum_matmul.qmatmul(x.reshape(-1, x.shape[-1]), w_words, spec)
     return out.reshape(*x.shape[:-1], w_words.shape[1])
@@ -129,8 +142,8 @@ class WireMatrix:
     Drop-in for a float matrix at ``x @ w`` sites: torch defers the
     product to :meth:`__rmatmul__`, which routes it through
     :func:`lns_matmul` for LNS words (the ell_bar-datapath kernel on CUDA,
-    linear accumulation) and :func:`quant_matmul` otherwise (the
-    wire-weight kernel on CUDA)."""
+    linear accumulation) and :func:`quant_matmul` for linear takum and
+    posit words (the wire-weight kernel on CUDA)."""
 
     def __init__(self, words: torch.Tensor, n=None, *, fmt="linear"):
         self.spec = formats.resolve_wire(fmt, n)

@@ -1,0 +1,62 @@
+"""Fused fake-quantisation: the CUDA kernel of ``csrc/fake_quant.cu``.
+
+Replaces ``repro/kernels/quantize.py::fake_quant_kernel_call``: a round
+trip through a wire format's grid (encode, then decode) in one pass, f32
+in and f32 or bf16 out, for linear takum, logarithmic takum and posit
+(posit8 through its shared-memory table when ``spec.lut_decode``). Bound
+by bytes on the H100 (4 bytes in, 4 or 2 out per element); see the
+source's header comment for the design.
+
+``fake_quant`` launches the kernel for CUDA tensors and runs
+``ref.fake_quant_ref`` for CPU tensors; ``fake_quant.launches`` counts
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.quant import exp2i
+from repro_torch.formats import FormatSpec
+from repro_torch.kernels import build
+from repro_torch.kernels import ref as kref
+
+__all__ = ["fake_quant"]
+
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+_SIGNATURES = {"takum_fake_quant": [_I, _I, _I, _P, _P, _LL, _I, _F, _F,
+                                    _P]}
+
+
+def _lib():
+    return build.library("fake_quant", _SIGNATURES)
+
+
+def fake_quant(x: torch.Tensor, spec: FormatSpec, *, dtype=torch.float32,
+               scale_exp: int = 0) -> torch.Tensor:
+    """decode(encode(x * 2^k)) * 2^-k in ``dtype`` (f32 or bf16), any
+    shape; ``x`` of another float dtype is cast to f32 first; k =
+    ``scale_exp`` (0: the unscaled round trip)."""
+    if dtype not in OUT_DTYPES:
+        raise TypeError(f"fake_quant writes float32 or bfloat16, got {dtype}")
+    if not -127 <= scale_exp <= 127:
+        raise ValueError(f"scale_exp {scale_exp} outside [-127, 127]")
+    if not x.is_cuda:
+        return kref.fake_quant_ref(x, spec, dtype=dtype, scale_exp=scale_exp)
+    code = build.format_code(spec, x.device)
+    x = x.to(torch.float32).contiguous()
+    out = torch.empty(x.shape, dtype=dtype, device=x.device)
+    err = _lib().takum_fake_quant(
+        spec.n, code, int(scale_exp != 0), x.data_ptr(), out.data_ptr(),
+        x.numel(), int(dtype == torch.bfloat16), float(exp2i(scale_exp)),
+        float(exp2i(-scale_exp)), build.stream_of(x))
+    build.check(err, "takum_fake_quant")
+    build.launched(fake_quant, code)
+    return out
+
+
+fake_quant.launches = 0

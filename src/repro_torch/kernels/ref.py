@@ -17,11 +17,12 @@ import torch
 from repro_torch import formats
 from repro_torch.core import lns
 from repro_torch.core.bitops import carrier
+from repro_torch.core.quant import exp2i
 from repro_torch.core.takum import frac_width
 
-__all__ = ["decode_ref", "encode_ref", "qmatmul_ref", "lns_qmatmul_ref",
-           "lns_matmul_plain", "attention_ref", "paged_attention_ref",
-           "MASKED"]
+__all__ = ["decode_ref", "encode_ref", "fake_quant_ref", "fake_quant_lns_ref",
+           "qmatmul_ref", "lns_qmatmul_ref", "lns_matmul_plain",
+           "attention_ref", "paged_attention_ref", "MASKED"]
 
 MASKED = -1e30   # finite mask value: all-masked rows stay finite
 
@@ -34,6 +35,27 @@ def decode_ref(words, fmt, dtype=torch.float32) -> torch.Tensor:
 def encode_ref(x, fmt) -> torch.Tensor:
     """float32 -> wire words (RNE, saturating)."""
     return formats.resolve(fmt).encode_tile(x)
+
+
+def fake_quant_ref(x, fmt, dtype=torch.float32, *,
+                   scale_exp: int = 0) -> torch.Tensor:
+    """Round trip through ``fmt``'s grid: encode, then decode to f32, then
+    cast to ``dtype`` (round to nearest even). ``scale_exp`` = k scales by
+    2^k before the encode and by 2^-k after the decode (exact powers of
+    two: ``core.quant``'s centring, as ``dequantize(quantize(x))``)."""
+    spec = formats.resolve_wire(fmt)
+    x = torch.as_tensor(x).to(torch.float32)
+    if scale_exp:
+        x = x * exp2i(scale_exp).to(x.device)
+    y = spec.decode_tile(spec.encode_tile(x), dtype=torch.float32)
+    if scale_exp:
+        y = y * exp2i(-scale_exp).to(y.device)
+    return y.to(dtype)
+
+
+def fake_quant_lns_ref(x, n: int, dtype=torch.float32) -> torch.Tensor:
+    """:func:`fake_quant_ref` through the logarithmic takum of width n."""
+    return fake_quant_ref(x, formats.resolve("lns", n), dtype=dtype)
 
 
 def qmatmul_ref(x, w_words, fmt, out_dtype=torch.float32) -> torch.Tensor:

@@ -4,7 +4,8 @@
 Replaces ``repro/kernels/takum_attention.py::attention_kernel_call``
 (contiguous cache: cached prefill chunks) and
 ``::paged_attention_kernel_call`` (paged pool: decode steps), over
-takum8/16 and lns-takum8/16 KV words. Prefill
+takum8/16, lns-takum8/16 and posit8/16 KV words (posit8 through the
+shared-memory table when ``spec.lut_decode``). Prefill
 chunks are bound by f32 FLOPs, decode steps by the KV words' bytes; see
 the source's header comment for the design and the semantics kept.
 
@@ -62,11 +63,12 @@ def from_rows(out4: torch.Tensor, tq: int) -> torch.Tensor:
 
 
 def _check(q4, kw, vw, spec) -> int:
-    """Validate the inputs; returns the kernels' format flag (1 = LNS)."""
-    if spec.kind not in ("linear", "lns") or spec.n not in (8, 16):
+    """Validate the inputs; returns the kernels' format code."""
+    if spec.is_identity:
         raise NotImplementedError(
-            f"the CUDA attention kernels read takum8/16 and lns-takum8/16 "
-            f"KV words; {spec.name!r} caches are not in this port yet")
+            "the CUDA attention kernels read wire KV words; float ('none') "
+            "caches are not in this port yet")
+    code = build.format_code(spec, q4.device)
     if kw.dtype != spec.word_dtype or vw.dtype != spec.word_dtype:
         raise TypeError(f"{spec.name} KV words must be {spec.word_dtype}")
     if q4.shape[-1] not in HEAD_DIMS:
@@ -74,7 +76,7 @@ def _check(q4, kw, vw, spec) -> int:
     for t in (kw, vw):
         if not t.is_cuda or t.device != q4.device:
             raise ValueError("q4 and the KV words must share a CUDA device")
-    return int(spec.kind == "lns")
+    return code
 
 
 def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
@@ -88,7 +90,7 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         out = kref.attention_ref(from_rows(q4, tq), kw, vw, spec.n, spec,
                                  pos=pos, start=start, window=window)
         return to_rows(out, kw.shape[2])
-    lns = _check(q4, kw, vw, spec)
+    code = _check(q4, kw, vw, spec)
     b, hkv, rows, hd = q4.shape
     if kw.shape != vw.shape or kw.shape[0] != b or kw.shape[2:] != (hkv, hd):
         raise ValueError(f"cache shape {tuple(kw.shape)} does not match q4 "
@@ -104,11 +106,11 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
              .to(torch.int32).contiguous())
     out = torch.empty_like(q4)
     err = _lib().takum_attention(
-        spec.n, lns, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
+        spec.n, code, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
         out.data_ptr(), start.data_ptr(), b, hkv, rows, kw.shape[1],
         int(pos), tq, bk, window, hd ** -0.5, build.stream_of(q4))
     build.check(err, "takum_attention")
-    attention.launches += 1
+    build.launched(attention, code)
     return out
 
 
@@ -129,7 +131,7 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         out = kref.paged_attention_ref(from_rows(q4, 1), kw, vw, table, spec,
                                        pos=pos, start=start, window=window)
         return to_rows(out, kw.shape[2])
-    lns = _check(q4, kw, vw, spec)
+    code = _check(q4, kw, vw, spec)
     b, hkv, rows, hd = q4.shape
     if kw.shape != vw.shape or kw.shape[2:] != (hkv, hd):
         raise ValueError(f"pool shape {tuple(kw.shape)} does not match q4 "
@@ -144,12 +146,12 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     start = _per_seq(0 if start is None else start, b, dev)
     out = torch.empty_like(q4)
     err = _lib().takum_paged_attention(
-        spec.n, lns, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
+        spec.n, code, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
         out.data_ptr(), pos.data_ptr(), start.data_ptr(), table.data_ptr(),
         b, hkv, rows, kw.shape[1], table.shape[1], window, hd ** -0.5,
         build.stream_of(q4))
     build.check(err, "takum_paged_attention")
-    paged_attention.launches += 1
+    build.launched(paged_attention, code)
     return out
 
 

@@ -1,10 +1,11 @@
 """Elementwise takum codec: the CUDA kernels of ``csrc/codec.cu``.
 
 Replaces ``repro/kernels/takum_codec.py::decode_kernel_call`` and
-``::encode_kernel_call``, for linear takum (``takum8``/``takum16``) and
-logarithmic takum (``lns-takum8``/``lns-takum16``). Bound by bytes on the
-H100 (words plus f32 per element); see the source's header comment for
-the design.
+``::encode_kernel_call``, for linear takum (``takum8``/``takum16``),
+logarithmic takum (``lns-takum8``/``lns-takum16``) and posit
+(``posit8``/``posit16``; posit8 decodes through its shared-memory table
+when ``spec.lut_decode``). Bound by bytes on the H100 (words plus f32 per
+element); see the source's header comment for the design.
 
 ``decode``/``encode`` launch the kernel for CUDA tensors and run the
 plain torch codec (``ref.decode_ref``/``ref.encode_ref``) for CPU
@@ -34,26 +35,18 @@ def _lib():
     return build.library("codec", _SIGNATURES)
 
 
-def _wire_spec(spec: FormatSpec) -> int:
-    """The kernels' format flag (0 linear, 1 LNS); raises for others."""
-    if spec.kind not in ("linear", "lns") or spec.n not in (8, 16):
-        raise ValueError(f"the CUDA codec serves takum8/16 and "
-                         f"lns-takum8/16, got {spec.name!r}")
-    return int(spec.kind == "lns")
-
-
 def decode(words: torch.Tensor, spec: FormatSpec) -> torch.Tensor:
     """Wire words (any shape, ``spec.word_dtype``) -> float32."""
     if not words.is_cuda:
         return kref.decode_ref(words, spec)
-    lns = _wire_spec(spec)
+    code = build.format_code(spec, words.device)
     _check_words(words, spec)
     words = words.contiguous()
     out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
-    err = _lib().takum_decode(spec.n, lns, words.data_ptr(), out.data_ptr(),
+    err = _lib().takum_decode(spec.n, code, words.data_ptr(), out.data_ptr(),
                               words.numel(), build.stream_of(words))
     build.check(err, "takum_decode")
-    decode.launches += 1
+    build.launched(decode, code)
     return out
 
 
@@ -61,10 +54,10 @@ def encode(x: torch.Tensor, spec: FormatSpec) -> torch.Tensor:
     """float32 (any shape; other float dtypes are cast) -> wire words."""
     if not x.is_cuda:
         return kref.encode_ref(x, spec)
-    lns = _wire_spec(spec)
+    code = build.format_code(spec, x.device)
     x = x.to(torch.float32).contiguous()
     out = torch.empty(x.shape, dtype=spec.word_dtype, device=x.device)
-    err = _lib().takum_encode(spec.n, lns, x.data_ptr(), out.data_ptr(),
+    err = _lib().takum_encode(spec.n, code, x.data_ptr(), out.data_ptr(),
                               x.numel(), build.stream_of(x))
     build.check(err, "takum_encode")
     encode.launches += 1

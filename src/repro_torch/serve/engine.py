@@ -5,9 +5,11 @@ fixed-width decode batch over a :class:`~repro_torch.serve.paged.PagePool`
 (``serve/scheduler.py``): admission as pages free up, chunked prefill
 interleaved with decode, pages released the step a sequence finishes.
 Weights come from :func:`quantize_weights` (``mode="wire"``: every
-projection a ``WireMatrix`` of takum or logarithmic-takum words) and the
-KV cache holds ``cfg.kv_quant`` words (``takum8``/``takum16`` or
-``lns-takum8``/``lns-takum16``).
+projection a ``WireMatrix`` of takum, logarithmic-takum or posit words;
+``mode="fake"``: float weights rounded to the format's grid by the fused
+fake-quant kernel) and the KV cache holds ``cfg.kv_quant`` words
+(``takum8``/``takum16``, ``lns-takum8``/``lns-takum16`` or
+``posit8``/``posit16``).
 
 The engine runs on ``cuda`` unless it is given ``device="cpu"``, where
 every kernel wrapper runs its plain PyTorch version; it never moves to
@@ -18,8 +20,7 @@ threefry draws.
 
 Not in this package yet (``NotImplementedError`` where asked for):
 lockstep generation, preemption, deadlines and cancellation, NaR
-quarantine, fault injection, tracing, multi-device serving, fake-quant
-weights.
+quarantine, fault injection, tracing, multi-device serving.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch import formats
 from repro_torch.configs.base import ModelConfig, parse_kv_quant
+from repro_torch.core import quant
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.takum_attention import DEFAULT_BK
@@ -44,31 +46,79 @@ __all__ = ["ServeEngine", "quantize_weights", "sample_rows"]
 _DEFAULT_SKIP = ("embed", "unembed", "scale", "norm")
 # leaves consumed through a plain ``x @ w`` (the only ones wired)
 _WIRE_LEAVES = {"wq", "wk", "wv", "wo", "wg", "w1", "w2"}
+_PER_TENSOR = quant.QuantSpec(fmt="takum", scale="per_tensor")
 
 
 def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
                      skip_substrings=_DEFAULT_SKIP, verbose: bool = True):
-    """Quantise a served model's projection matrices to a wire format.
+    """Quantise a served model's weight matrices to a wire format.
 
     ``mode="wire"`` replaces every 2D float leaf named ``wq``/``wk``/
     ``wv``/``wo``/``wg``/``w1``/``w2`` by a ``WireMatrix`` of its
-    words in ``fmt`` (encoded by the encode kernel on CUDA); names
-    containing a ``skip_substrings`` entry (embeddings, norms) stay as they
-    are. ``"takum8"``/``"takum16"`` wire the projections through the
-    wire-weight matmul; ``"lns-takum8"``/``"lns-takum16"`` through the
-    ell_bar-datapath LNS matmul, which also encodes the incoming
-    activations to the LNS grid.
-    ``mode="fake"`` (quantise-dequantise in place) is not ported yet and
-    raises, as does a leaf that would need it."""
-    if mode != "wire":
-        raise NotImplementedError(f"quantize_weights(mode={mode!r}): only "
-                                  "mode='wire' is in the port")
+    words in ``fmt`` (encoded by the encode kernel on CUDA).
+    ``"takum8"``/``"takum16"`` and ``"posit8"``/``"posit16"`` wire the
+    projections through the wire-weight matmul; ``"lns-takum8"``/
+    ``"lns-takum16"`` through the ell_bar-datapath LNS matmul, which also
+    encodes the incoming activations to the LNS grid.
+
+    ``mode="fake"`` (the default) quantises and dequantises in place: the
+    model runs on float weights rounded to the format's grid, what
+    serving accuracy evaluations use. Every other matrix of ``mode="wire"``
+    takes that path too. The rounding is ``FormatSpec.fake_quant``, through
+    the fused fake-quant kernel on CUDA; a leaf keeps its dtype. Linear
+    takum scales by a power of two per tensor, and a leaf of the
+    ``params["layers"]`` list is one slice of the reference's layer stack,
+    so its scale is taken over that leaf in every layer (the largest
+    absmax), as the reference's over its stacked leaf. Names containing a
+    ``skip_substrings`` entry (embeddings, norms) and leaves below 2D stay
+    as they are."""
+    if mode not in ("fake", "wire"):
+        raise ValueError(f"unknown quantize_weights mode {mode!r}")
     try:
         spec = formats.resolve_wire(fmt)
     except ValueError:
         raise ValueError(f"unknown quantize_weights fmt {fmt!r} (expected "
                          f"one of {', '.join(formats.wire_names())})") from None
-    counts = {"wired": 0, "skipped": 0, "non_matrix": 0}
+
+    def action(path, leaf) -> str:
+        name = "/".join(path)
+        if any(s in name for s in skip_substrings):
+            return "skipped"
+        if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
+            return "non_matrix"
+        if mode == "wire" and path[-1] in _WIRE_LEAVES \
+                and leaf.is_floating_point():
+            if leaf.ndim != 2:
+                raise ValueError(
+                    f"quantize_weights(mode='wire'): {name!r} is on the wire "
+                    f"allowlist but has ndim={leaf.ndim}; the port wires 2D "
+                    "projections only")
+            return "wired"
+        return "fake"
+
+    def leaves(path, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(path + (str(k),), v)
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(path + (str(i),), v)
+        else:
+            yield path, tree
+
+    # linear takum: one scale per leaf name over the layer stack
+    stack_exp = {}
+    layers = params.get("layers") if isinstance(params, dict) else None
+    if spec.kind == "linear" and isinstance(layers, (list, tuple)):
+        absmax = {}
+        for path, leaf in leaves(("layers",), layers):
+            if action(path, leaf) == "fake":
+                m = quant.absmax(leaf.to(torch.float32), _PER_TENSOR)
+                absmax[path[2:]] = torch.maximum(absmax[path[2:]], m) \
+                    if path[2:] in absmax else m
+        stack_exp = {k: int(quant.exponent_of(m)) for k, m in absmax.items()}
+
+    counts = {"wired": 0, "fake": 0, "skipped": 0, "non_matrix": 0}
 
     def visit(path, leaf):
         if isinstance(leaf, dict):
@@ -76,26 +126,21 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
         if isinstance(leaf, (list, tuple)):
             return type(leaf)(visit(path + (str(i),), v)
                               for i, v in enumerate(leaf))
-        name = "/".join(path)
-        if any(s in name for s in skip_substrings):
-            counts["skipped"] += 1
-            return leaf
-        if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
-            counts["non_matrix"] += 1
-            return leaf
-        if path[-1] in _WIRE_LEAVES and leaf.ndim == 2 \
-                and leaf.is_floating_point():
-            counts["wired"] += 1
+        act = action(path, leaf)
+        counts[act] += 1
+        if act == "wired":
             return ops.WireMatrix.encode(leaf, fmt=spec)
-        raise NotImplementedError(
-            f"quantize_weights: {name!r} would need fake-quant, which is "
-            "not ported yet; add it to skip_substrings")
+        if act == "fake":
+            key = path[2:] if path[:1] == ("layers",) else None
+            return spec.fake_quant(leaf, dtype=leaf.dtype,
+                                   scale_exp=stack_exp.get(key))
+        return leaf
 
     out = visit((), params)
     if verbose:
         print(f"quantize_weights[{spec.name}/{mode}]: {counts['wired']} "
-              f"wired, 0 fake-quantised, {counts['skipped']} skipped, "
-              f"{counts['non_matrix']} non-matrix")
+              f"wired, {counts['fake']} fake-quantised, {counts['skipped']} "
+              f"skipped, {counts['non_matrix']} non-matrix")
     return out
 
 

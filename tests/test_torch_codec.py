@@ -238,7 +238,12 @@ def test_registry_resolution_spellings():
         formats.resolve_wire("none")
     with pytest.raises(ValueError, match="mismatch"):
         formats.resolve("takum8", 16)
+    # posit8 resolves as in the reference's registry, by name and by kind
+    p8, jp8 = formats.resolve("posit8"), jformats.resolve("posit8")
+    assert (p8.name, p8.kind, p8.n) == (jp8.name, jp8.kind, jp8.n)
+    assert formats.resolve("posit", 8) is p8
     with pytest.raises(ValueError, match="unknown"):
-        formats.resolve("posit8")
-    assert formats.names() == ("none", "lns-takum16", "lns-takum8", "takum16",
-                               "takum8")
+        formats.resolve("posit8x")
+    assert formats.names() == jformats.names() == (
+        "none", "lns-takum16", "lns-takum8", "posit16", "posit8", "takum16",
+        "takum8")

@@ -18,10 +18,12 @@ import torch
 
 from repro_torch import formats
 from repro_torch.configs import get_arch
-from repro_torch.core import takum
+from repro_torch.core import posit, quant, takum
 from repro_torch.core.bitops import carrier
+from repro_torch.kernels import build
 from repro_torch.kernels import lns_matmul as klns
-from repro_torch.kernels import ops, ref, takum_attention, takum_codec
+from repro_torch.kernels import (ops, quantize, ref, takum_attention,
+                                 takum_codec, takum_matmul)
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ServeEngine, quantize_weights
 
@@ -29,6 +31,10 @@ pytestmark = pytest.mark.gpu
 
 SPECS = [formats.get("takum8"), formats.get("takum16")]
 LNS_SPECS = [formats.get("lns-takum8"), formats.get("lns-takum16")]
+POSIT_SPECS = [formats.get("posit8"), formats.get("posit16")]
+# REPRO_LUT_DECODE: posit8 through its shared-memory table ("1") or the
+# computed decode ("0"); posit16 has no table and decodes computed in both
+LUT = ["0", "1"]
 
 
 @pytest.fixture(scope="module")
@@ -178,7 +184,9 @@ def _reduced(kv, wfmt=None):
 
 @pytest.mark.parametrize("kv,wfmt", [("takum8", None), ("takum16", None),
                                      ("lns-takum8", "lns-takum16"),
-                                     ("takum8", "lns-takum16")])
+                                     ("takum8", "lns-takum16"),
+                                     ("posit8", "posit16"),
+                                     ("posit8", None)])
 def test_reduced_serving_card_matches_cpu(dev, kv, wfmt):
     cfg, params = _reduced(kv, wfmt)
     rng = np.random.default_rng(3)
@@ -345,3 +353,193 @@ def test_lns_wrappers_count_launches(dev):
     ops.lns_matmul(spec.decode_tile(x), w, spec)      # CPU: plain version
     assert klns.lns_matmul.launches == n0 + 1
     assert out.shape == (4, 64)
+
+
+# -- posit ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lut", LUT)
+@pytest.mark.parametrize("spec", POSIT_SPECS, ids=lambda s: s.name)
+def test_posit_decode_every_word_bit_exact(dev, spec, lut, monkeypatch):
+    monkeypatch.setenv("REPRO_LUT_DECODE", lut)
+    assert build.format_code(spec, dev) == (
+        build.POSIT8_LUT if spec.n == 8 and lut == "1" else 2)
+    words = _words(spec)
+    got = takum_codec.decode(words.to(dev), spec).cpu()
+    want = posit.posit_to_float(words, spec.n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("spec", POSIT_SPECS, ids=lambda s: s.name)
+def test_posit_encode_bit_exact(dev, spec):
+    x = torch.from_numpy(_floats(np.random.default_rng(0), 100_000))
+    got = takum_codec.encode(x.to(dev), spec).cpu()
+    want = posit.float_to_posit(x, spec.n)
+    assert torch.equal(carrier(got), carrier(want))
+
+
+def test_posit8_table_equals_computed_decode(dev, monkeypatch):
+    spec = formats.get("posit8")
+    words = _words(spec).to(dev)
+    outs = {}
+    for lut in LUT:
+        monkeypatch.setenv("REPRO_LUT_DECODE", lut)
+        outs[lut] = takum_codec.decode(words, spec).cpu()
+    bits = {k: v.view(torch.int32) for k, v in outs.items()}
+    assert torch.equal(bits["0"], bits["1"])
+    plain = formats.posit8_lut_decode(words.cpu()).view(torch.int32)
+    assert torch.equal(bits["1"], plain)
+
+
+@pytest.mark.parametrize("lut", LUT)
+@pytest.mark.parametrize("spec", POSIT_SPECS, ids=lambda s: s.name)
+@pytest.mark.parametrize("mkn", [(4, 320, 192), (37, 256, 130), (3, 100, 60)])
+def test_qmatmul_posit_matches_plain(dev, spec, lut, mkn, monkeypatch):
+    monkeypatch.setenv("REPRO_LUT_DECODE", lut)
+    m, k, n = mkn
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((m, k), generator=g)
+    w = posit.float_to_posit(torch.randn((k, n), generator=g) / k ** 0.5,
+                             spec.n)
+    w[7, 3] = spec.nar_word                   # NaR: NaN in column 3 only
+    got = ops.quant_matmul(x.to(dev), w.to(dev), spec).cpu()
+    want = ref.qmatmul_ref(x, w, spec)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[:, 3]).all() and int(torch.isnan(got).sum()) == m
+    fin = ~torch.isnan(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("lut", LUT)
+@pytest.mark.parametrize("spec", POSIT_SPECS, ids=lambda s: s.name)
+def test_attention_over_posit_kv_matches_plain(dev, spec, lut, monkeypatch):
+    monkeypatch.setenv("REPRO_LUT_DECODE", lut)
+    g = torch.Generator().manual_seed(11)
+    b, tq, hkv, grp, hd, tmax = 2, 9, 2, 3, 128, 72
+    q = torch.randn((b, tq, hkv * grp, hd), generator=g)
+    kw = posit.float_to_posit(torch.randn((b, tmax, hkv, hd), generator=g),
+                              spec.n)
+    vw = posit.float_to_posit(torch.randn((b, tmax, hkv, hd), generator=g),
+                              spec.n)
+    start = torch.tensor([0, 5], dtype=torch.int32)
+    got = ops.takum_attention(q.to(dev), kw.to(dev), vw.to(dev), 0, spec,
+                              pos=40, start=start, block=32).cpu()
+    want = ref.attention_ref(q, kw, vw, 0, spec, pos=40, start=start)
+    valid = (40 + torch.arange(tq))[None, :] >= start[:, None].long()
+    torch.testing.assert_close(got[valid], want[valid], rtol=0, atol=2e-5)
+    kp, vp = (posit.float_to_posit(torch.randn((11, 16, 2, 16), generator=g),
+                                   spec.n) for _ in range(2))
+    kp[5, 8, 0, 0] = spec.nar_word            # seq 1, position 8, kv head 0
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 0, 0],
+                          [0, 0, 0, 0]], dtype=torch.int32)
+    pos = torch.tensor([63, 37, 20, 900], dtype=torch.int32)
+    qd = torch.randn((4, 1, 4, 16), generator=g)
+    got = ops.paged_attention(qd.to(dev), kp.to(dev), vp.to(dev),
+                              table.to(dev), spec, pos=pos.to(dev)).cpu()
+    want = ref.paged_attention_ref(qd, kp, vp, table, spec, pos=pos)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[1, 0, :2]).all()
+    assert int(torch.isnan(got).sum()) == 32
+    fin = ~torch.isnan(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=2e-5)
+
+
+# -- fused fake-quant ----------------------------------------------------------
+
+
+def _same_floats(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal where not NaN, NaN in the same places (PyTorch's NaN
+    bits differ between its CPU and CUDA arithmetic)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    bits = a.view(torch.int16 if a.element_size() == 2 else torch.int32)
+    bbits = b.view(bits.dtype)
+    return torch.equal(na, nb) and torch.equal(bits[~na], bbits[~nb])
+
+
+FQ_NAMES = ["takum8", "takum16", "posit8", "posit16", "lns-takum8",
+            "lns-takum16"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("lut", LUT)
+@pytest.mark.parametrize("name", FQ_NAMES)
+def test_fake_quant_matches_plain(dev, name, lut, dtype, monkeypatch):
+    """The fused kernel is the codec kernels' encode then decode, bit for
+    bit, in one pass; against the plain version it is bit-exact, the LNS
+    formats up to neighbour words (logf at an ell_bar tie, as the codec)."""
+    monkeypatch.setenv("REPRO_LUT_DECODE", lut)
+    spec = formats.get(name)
+    x = torch.from_numpy(_floats(np.random.default_rng(9), 50_000))
+    x = x[:x.numel() // 7 * 7].reshape(-1, 7)[:, :5]   # non-contiguous
+    xd = x.to(dev)
+    got = ops.fake_quant_fused(xd, fmt=spec, dtype=dtype)
+    assert got.dtype == dtype and got.shape == x.shape
+    composed = takum_codec.decode(takum_codec.encode(xd, spec), spec).to(dtype)
+    assert _same_floats(got, composed)
+    if spec.kind != "lns":
+        want = ref.fake_quant_ref(x, spec, dtype=dtype)
+        assert _same_floats(got.cpu(), want)
+        return
+    wk = takum_codec.encode(xd, spec).cpu()
+    wp = ref.encode_ref(xd, spec).cpu()
+    mod = 1 << spec.n
+    step = (carrier(wk).long() - carrier(wp).long()) % mod
+    assert bool(torch.isin(step, torch.tensor([0, 1, mod - 1])).all())
+    assert float((step != 0).double().mean()) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["takum8", "takum16"])
+def test_scaled_fake_quant_matches_quantize_dequantize(dev, name, dtype):
+    spec = formats.get(name)
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn((300, 70), generator=g) * 0.02
+    x[3, 4:7] = torch.tensor([0.0, -0.0, 1e-40])   # a finite absmax: scaled
+    got = spec.fake_quant(x.to(dev), dtype=dtype).cpu()
+    qs = quant.QuantSpec(fmt="takum", n=spec.n)
+    want = quant.dequantize(quant.quantize(x, qs)).to(dtype)
+    assert _same_floats(got, want)
+
+
+def test_quantize_weights_fake_card_matches_cpu(dev):
+    cfg = get_arch("phi3-medium-14b").reduced
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    layer = params["layers"][0]
+    for fmt in ("takum8", "posit16", "lns-takum8"):
+        n0 = quantize.fake_quant.launches
+        card = quantize_weights({k: {n: t.to(dev) for n, t in v.items()}
+                                 for k, v in layer.items()}, fmt,
+                                verbose=False)
+        assert quantize.fake_quant.launches == n0 + 7
+        cpu = quantize_weights(layer, fmt, verbose=False)
+        spec = formats.get(fmt)
+        steps = []
+        for k in ("attn", "mlp"):
+            for n, t in cpu[k].items():
+                assert card[k][n].dtype == t.dtype
+                if spec.kind != "lns":
+                    assert _same_floats(card[k][n].cpu(), t), (fmt, k, n)
+                    continue
+                # one logf on each side: the same word or its neighbour
+                wc = carrier(spec.encode_tile(card[k][n].cpu())).long()
+                wt = carrier(spec.encode_tile(t)).long()
+                steps.append((wc - wt).reshape(-1))
+        if steps:
+            step = torch.cat(steps) % (1 << spec.n)
+            assert bool(torch.isin(step, torch.tensor(
+                [0, 1, (1 << spec.n) - 1])).all())
+            assert float((step != 0).double().mean()) < 1e-4
+
+
+def test_posit_and_fake_quant_wrappers_count_launches(dev):
+    spec = formats.get("posit8")
+    n0, q0 = takum_matmul.qmatmul.launches, quantize.fake_quant.launches
+    w = posit.float_to_posit(torch.randn((64, 32)) / 8, 8)
+    ops.quant_matmul(torch.randn((4, 64), device=dev), w.to(dev), spec)
+    ops.fake_quant_fused(torch.randn(10, device=dev), 8, fmt="posit")
+    ops.fake_quant_fused(torch.randn(10), 8, fmt="posit")   # CPU: plain
+    assert takum_matmul.qmatmul.launches == n0 + 1
+    assert quantize.fake_quant.launches == q0 + 1

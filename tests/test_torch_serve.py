@@ -31,6 +31,7 @@ from repro.serve.engine import ServeEngine as JServeEngine
 from repro.serve.engine import quantize_weights as jquantize
 from repro.serve.paged import PagePool as JPagePool
 from repro.serve.prefix import PrefixCache as JPrefixCache
+from repro_torch import formats
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.device import check_generator
@@ -193,8 +194,19 @@ def test_quantize_weights_wires_the_projections():
     for name in ("wg", "w1", "w2"):
         assert layer["mlp"][name].words.dtype == torch.uint8
     assert wp["embed_tokens"] is params["embed_tokens"]
-    with pytest.raises(NotImplementedError, match="fake"):
-        quantize_weights(params, "takum8")
+    # mode="fake" (the default) rounds every projection in place through
+    # the format's grid (parity with the reference:
+    # tests/test_torch_fake_quant.py)
+    fq = quantize_weights(params, "posit8", verbose=False)
+    for part, names in (("attn", ("wq", "wk", "wv", "wo")),
+                        ("mlp", ("wg", "w1", "w2"))):
+        for name in names:
+            w = params["layers"][1][part][name]
+            got = fq["layers"][1][part][name]
+            assert got.dtype == w.dtype and got.shape == w.shape
+            assert torch.equal(got, formats.get("posit8").fake_quant(w))
+    norm = params["layers"][0]["ln1"]["scale"]
+    assert fq["layers"][0]["ln1"]["scale"] is norm
 
 
 def test_engine_refuses_what_is_not_ported(wired):
