@@ -6,19 +6,23 @@
 Phases, one summary line each; any failure exits non-zero:
 
 1. device and build: the card, its power limit, and the nvcc build of
-   every ``src/repro_torch/csrc/*.cu`` for sm_90a (registers and spills
-   from ``-Xptxas -v``);
+   every ``src/repro_torch/csrc/*.cu`` for sm_90a (six libraries, one nvcc
+   each, all started together; registers and spills from ``-Xptxas -v``);
 2. codec: the decode and encode kernels against the plain torch codec on
    the card, bit-exact, over every takum8/takum16 word and >= 1M floats
    (random, special, subnormal);
-3. wire matmul at phi3-medium-14b shapes (decode M = 4 and prefill
-   M = 256), takum8 and takum16, against decode + f32 matmul, within
-   the worst-case f32 bound and a statistical one tight enough to catch
-   x rounded to TF32 or bf16 (shown on control products in this run);
-4. attention: a 1024-row prefill chunk (contiguous cache) and a paged
-   decode step (B = 4, Hkv = 10, G = 4, hd = 128, page 256, varied pos,
-   an idle slot with a stale pos, one NaR word) against their plain
-   versions;
+3. wire matmul at phi3-medium-14b shapes (decode M = 4 through the
+   streaming kernel, prefill M = 256 through the split-TF32 tensor-core
+   kernel), takum8 and takum16, against decode + f32 matmul, within the
+   worst-case f32 bound and a statistical one tight enough to catch x
+   rounded to TF32 or bf16 (shown on control products in this run), and
+   the same bits from two calls; times per shape, takum8 and takum16;
+4. attention: a 1024-row prefill chunk (contiguous cache, the tensor-core
+   kernel; then with a NaR K word at a valid position and a NaR V word at
+   a masked position of a visited tile, NaN in the plain version's
+   places) and a paged decode step (B = 4, Hkv = 10, G = 4, hd = 128,
+   page 256, varied pos, an idle slot with a stale pos, one NaR word)
+   against their plain versions;
 5. serving at the full width of phi3-medium-14b (40 layers, takum8
    wire weights and KV, random weights from a seeded generator on the
    card): 4 requests of about 77, 300, 520 and 1024 prompt tokens and
@@ -60,7 +64,7 @@ Phases, one summary line each; any failure exits non-zero:
 13. posit wire matmul at the eight projection shapes, posit8 (table and
     computed) and posit16, under phase 3's worst-case and statistical
     limits and its TF32/bf16 controls, with times beside takum8's;
-14. attention (contiguous and paged, phase 4's shapes, one NaR word) over
+14. attention (contiguous and paged, phase 4's shapes and NaR words) over
     posit8 (table and computed) and posit16 KV words against the plain
     versions, every row compared;
 15. serving at the full width of phi3-medium-14b with posit8 wire weights
@@ -76,10 +80,22 @@ Phases, one summary line each; any failure exits non-zero:
     plain version (bit-exact; LNS: the codec kernels' round trip bit for
     bit and the plain version's words or their neighbours), times against
     the byte bound; then ``quantize_weights(mode="fake")`` over one
-    full-width layer in posit8 (7 launches).
+    full-width layer in posit8 (7 launches);
+18. float (identity-codec) KV caches, the registered config's own
+    ``kv_quant="none"``: contiguous and paged attention over bf16 and f32
+    caches (phase 4's shapes, one NaN word) against the plain version on
+    the cache's f32 values (every row, NaN in the same places) and, for
+    bf16, against the plain identity branch as it is (einsums in bf16);
+    the reduced config (f32 cache) served on the card and on the CPU; and
+    phi3-medium-14b at full width with takum8 wire weights and a bf16
+    cache, requests of 100 and 200 prompt tokens, 8 new tokens each, with
+    every kernel's launch count (both attention kernels > 0).
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
-its check, its time, the plain version's time and the bound) and, last,
+its check, its time, the plain version's time and the bound: bytes over
+3.35 TB/s or operations over the rate of the units that do them, f32
+FMAs at 67 TFLOP/s, or 2-3 TF32 tensor-core products per multiply-add at
+495 TFLOP/s for the prefill matmul and contiguous attention) and, last,
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -99,6 +115,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM TF32 on the tensor cores, dense
 U32 = 2.0 ** -24                 # f32 unit roundoff
 # statistical limit on two f32 sums of the same K products in different
 # orders: |err| <= C_STAT * sqrt(K) * u * ||x_i * w_j||_2 elementwise. The
@@ -108,6 +125,11 @@ U32 = 2.0 ** -24                 # f32 unit roundoff
 # 2^13 / (1.7 sqrt(K)) >= 35 of these units per element at K <= 17920
 C_STAT = 16.0
 ATTN_ATOL = 2e-5                 # the reference's attention tolerance
+# a bf16 float cache against the plain version's identity branch as it is:
+# that branch rounds q.k, the probabilities and p.v to bf16 (relative
+# 2^-9 each) where the kernels dot in f32, as the Pallas kernels do; with
+# outputs up to about 4 in magnitude, a few bf16 units of 2^-9 * 4
+BF16_ATTN_ATOL = 2e-2
 # every projection shape of a phi3-medium-14b layer: decode (M = 4) and a
 # prefill chunk (M = 256) of wq/wo, wk/wv, wg/w1, w2
 MM_SHAPES = [(4, 5120, 5120), (4, 5120, 1280), (4, 5120, 17920),
@@ -165,10 +187,34 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(nbytes: float, flops: float):
-    """(ms, "bytes" | "operations"): the larger of the two floors."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
+    """(ms, "bytes" | "operations"): the larger of the two floors, the
+    operations at ``rate`` (f32 FMAs unless said otherwise)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def tf32_products(spec, dtype=None) -> int:
+    """TF32 tensor-core products per multiply-add in the split-operand
+    kernels (the wire matmul's prefill regime, contiguous attention): 2
+    where the decoded word is exact in TF32 (8-bit takum and posit words,
+    a bf16 cache; the activation alone is split), 3 where it is split
+    too (csrc/wire.cuh ``TF32_EXACT``)."""
+    exact = ((spec.n == 8 and spec.kind != "lns")
+             or (spec.is_identity and str(dtype) == "torch.bfloat16"))
+    return 2 if exact else 3
+
+
+def mm_bound(spec, m: int, k: int, n: int):
+    """The wire matmul's bound at [m, k] x [k, n]: x, the weight words and
+    the output once each, and 2 m k n operations as f32 FMAs (the
+    streaming kernel of decode batches) or as TF32 tensor-core products,
+    ``tf32_products`` each (the prefill kernel)."""
+    from repro_torch.kernels import takum_matmul
+    nbytes = m * k * 4 + k * n * spec.n // 8 + m * n * 4
+    if takum_matmul.launch_plan(m, k, n, spec.n)[0] == 0:
+        return bound(nbytes, 2 * m * k * n)
+    return bound(nbytes, 2 * m * k * n * tf32_products(spec), TF32_FLOPS)
 
 
 def round_mantissa(torch, x, drop: int):
@@ -216,6 +262,9 @@ def wire_matmul_check(torch, dev, spec, m, k, n):
                                        device=dev) / k ** 0.5, spec)
     wf = ref.decode_ref(w, spec)
     got = takum_matmul.qmatmul(x, w, spec)
+    again = takum_matmul.qmatmul(x, w, spec)
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+          f"qmatmul {spec.name} {m}x{k}x{n}: two calls differ")
     want = ref.qmatmul_ref(x, w, spec)
     # worst case: two f32 sums of the same K products in any order
     # differ by at most 2 K u sum|x_k w_k| (u = 2^-24), elementwise
@@ -238,7 +287,8 @@ def wire_matmul_check(torch, dev, spec, m, k, n):
         check(ctrl[key] > 1.0, f"qmatmul {spec.name} {m}x{k}x{n}: a "
               f"{key} product passes the statistical limit")
     return {"fmt": spec.name, "m": m, "k": k, "n": n,
-            "max_abs_err": float(err.max()),
+            "variant": takum_matmul.launch_plan(m, k, n, spec.n)[0],
+            "repeatable": True, "max_abs_err": float(err.max()),
             "max_err_over_bound": float((err / tol).max()),
             "max_err_over_stat_limit": r_kernel,
             "control_max_err_over_stat_limit": ctrl}
@@ -709,6 +759,40 @@ def lns_matmul_phase(torch, dev, sm_clock_hz):
             "nar_row_column": nar, "max_abs_err": worst}
 
 
+def contiguous_nar_check(torch, q, kc, vc, spec, pos0, start0):
+    """The contiguous kernel at phase 4's chunk shape with a NaR word (NaN
+    for a float cache) in K at position 100 of KV head 3, valid for every
+    row, and in V at position 1000 of KV head 6, a visited tile's key that
+    most rows mask (p = 0): NaN in the plain version's places (every row
+    of head 3, column 2 of every row of head 6), the rest within
+    ATTN_ATOL. Returns (NaN count, largest error on the finite rest)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import takum_attention as kattn
+    hkv, tq = kc.shape[2], q.shape[1]
+    nar = float("nan") if spec.is_identity else spec.nar_word
+    kc, vc = kc.clone(), vc.clone()
+    kc[0, 100, 3, 7] = nar
+    vc[0, 1000, 6, 2] = nar
+    q4 = kattn.to_rows(q, hkv).contiguous()
+    got = kattn.attention(q4, kc, vc, pos0, start0, spec=spec, bk=256, tq=tq)
+    if spec.is_identity:       # the kernels' semantics: f32 values, f32 dots
+        q, kc, vc = q.float(), kc.float(), vc.float()
+    want = kattn.to_rows(ref.attention_ref(q, kc, vc, spec.n, spec, pos=pos0,
+                                           start=start0), hkv)
+    nan = torch.isnan(got)
+    rows, hd = got.shape[2], got.shape[3]
+    check(torch.equal(nan, torch.isnan(want)) and bool(nan[0, 3].all())
+          and bool(nan[0, 6, :, 2].all())
+          and int(nan.sum()) == rows * hd + rows,
+          f"contiguous attention over {spec.name} KV: NaR words poison "
+          "other rows than the plain version's")
+    fin = ~nan
+    err = float((got[fin] - want[fin]).abs().max())
+    check(err <= ATTN_ATOL, f"contiguous attention over {spec.name} KV with "
+          f"NaR words: off by {err}")
+    return int(nan.sum()), err
+
+
 def wire_attention_phase(torch, dev, spec):
     """Contiguous and paged attention over ``spec`` KV words against their
     plain versions at the shapes of phase 4, every row compared (a NaR K
@@ -737,6 +821,8 @@ def wire_attention_phase(torch, dev, spec):
     attn_err = float((got - want).abs().max())
     check(bool(torch.isfinite(got).all()) and attn_err <= ATTN_ATOL,
           f"contiguous attention over {spec.name} KV off by {attn_err}")
+    nar_nans, nar_err = contiguous_nar_check(torch, q, kc, vc, spec, pos0,
+                                             start0)
     kp = takum_codec.encode(torch.randn((24, 256, hkv, hd), generator=g,
                                         device=dev), spec)
     vp = takum_codec.encode(torch.randn((24, 256, hkv, hd), generator=g,
@@ -754,7 +840,10 @@ def wire_attention_phase(torch, dev, spec):
     check(nan_ok and clean and paged_err <= ATTN_ATOL,
           f"paged attention over {spec.name} KV: nan_ok={nan_ok} "
           f"clean={clean} err={paged_err}")
-    res = {"contiguous_max_abs_err": attn_err, "paged_max_abs_err": paged_err,
+    res = {"contiguous_max_abs_err": attn_err,
+           "contiguous_nar_nans": nar_nans,
+           "contiguous_nar_max_abs_err": nar_err,
+           "paged_max_abs_err": paged_err,
            "nar_rows_poisoned": clean, "tolerance": ATTN_ATOL,
            "contiguous_ms": cuda_ms(torch, lambda: kattn.attention(
                q4, kc, vc, pos0, start0, spec=spec, bk=256, tq=tq)),
@@ -906,8 +995,7 @@ def posit_matmul_phase(torch, dev):
                 x = torch.randn((m, k), device=dev)
                 w = takum_codec.encode(torch.randn((k, n), device=dev)
                                        / k ** 0.5, spec)
-                b_ms, b_by = bound(m * k * 4 + k * n * spec.n // 8
-                                   + m * n * 4, 2 * m * k * n)
+                b_ms, b_by = mm_bound(spec, m, k, n)
                 row.update(ms=cuda_ms(torch, lambda: takum_matmul.qmatmul(
                     x, w, spec)), bound_ms=b_ms, bound_by=b_by)
                 times[f"{label} {m}x{k}x{n}"] = row["ms"]
@@ -1024,6 +1112,88 @@ def quantize_layer_fake(torch, dev, fmt):
     torch.cuda.empty_cache()
     return {"format": fmt, "matrices": 7, "elements": elems,
             "launches": launches, "wall_s": wall}
+
+
+def float_kv_attention_phase(torch, dev):
+    """Phase 18, attention: the contiguous and paged kernels over the
+    identity codec's bf16 and f32 caches at phase 4's shapes, q in the
+    cache dtype as served. Against the plain version on the cache's f32
+    values (the kernels cast the words to f32 and dot at f32 precision,
+    as the Pallas kernels do): ATTN_ATOL, every row, a NaN word poisoning
+    the plain version's rows (contiguous: contiguous_nar_check; paged:
+    one NaN K word). Against the plain identity branch as it is (einsums
+    in the cache dtype): ATTN_ATOL for f32, BF16_ATTN_ATOL for bf16."""
+    from repro_torch import formats
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import takum_attention as kattn
+    spec = formats.get("none")
+    hkv, grp, hd, tq, pos0, tcache = 10, 4, 128, 256, 768, 1280
+    g = torch.Generator(device=dev).manual_seed(19)
+    q32 = torch.randn((1, tq, hkv * grp, hd), generator=g, device=dev)
+    qd32 = torch.randn((4, 1, hkv * grp, hd), generator=g, device=dev)
+    kf = torch.randn((1, tcache, hkv, hd), generator=g, device=dev)
+    vf = torch.randn((1, tcache, hkv, hd), generator=g, device=dev)
+    kpf = torch.randn((24, 256, hkv, hd), generator=g, device=dev)
+    vpf = torch.randn((24, 256, hkv, hd), generator=g, device=dev)
+    start0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    startp = torch.zeros(4, dtype=torch.int32, device=dev)
+    table = torch.tensor([[1, 2, 0, 0, 0], [3, 4, 5, 0, 0],
+                          [6, 7, 8, 9, 10], [0, 0, 0, 0, 0]],
+                         dtype=torch.int32, device=dev)
+    pos = torch.tensor([76, 520, 1023, 4000], dtype=torch.int32, device=dev)
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        q, qd = q32.to(dt), qd32.to(dt)
+        kc, vc = kf.to(dt), vf.to(dt)
+        q4 = kattn.to_rows(q, hkv).contiguous()
+        got = kattn.attention(q4, kc, vc, pos0, start0, spec=spec, bk=256,
+                              tq=tq)
+        want = kattn.to_rows(ref.attention_ref(
+            q.float(), kc.float(), vc.float(), 0, spec, pos=pos0,
+            start=start0), hkv)
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= ATTN_ATOL,
+              f"contiguous attention over a {name} cache off by {err}")
+        plain = kattn.to_rows(ref.attention_ref(q, kc, vc, 0, spec, pos=pos0,
+                                                start=start0), hkv)
+        plain_err = float((got - plain.float()).abs().max())
+        plain_tol = BF16_ATTN_ATOL if dt == torch.bfloat16 else ATTN_ATOL
+        check(plain_err <= plain_tol, f"contiguous attention over a {name} "
+              f"cache off the plain identity branch by {plain_err}")
+        nar_nans, nar_err = contiguous_nar_check(torch, q, kc, vc, spec, pos0,
+                                                 start0)
+        kp, vp = kpf.to(dt), vpf.to(dt)
+        kp[4, 10, 3, 7] = float("nan")   # seq 1, position 266, head 3
+        qd4 = kattn.to_rows(qd, hkv).contiguous()
+        gotp = kattn.paged_attention(qd4, kp, vp, pos, startp, table,
+                                     spec=spec)
+        wantp = kattn.to_rows(ref.paged_attention_ref(
+            qd.float(), kp.float(), vp.float(), table, spec, pos=pos,
+            start=startp), hkv)
+        nan_ok = torch.equal(torch.isnan(gotp), torch.isnan(wantp))
+        clean = (bool(torch.isnan(gotp[1, 3]).all())
+                 and int(torch.isnan(gotp).sum()) == grp * hd)
+        fin = torch.isfinite(wantp)
+        paged_err = float((gotp[fin] - wantp[fin]).abs().max())
+        check(nan_ok and clean and paged_err <= ATTN_ATOL,
+              f"paged attention over a {name} cache: nan_ok={nan_ok} "
+              f"clean={clean} err={paged_err}")
+        res[name] = {
+            "contiguous_max_abs_err": err,
+            "contiguous_plain_branch_max_abs_err": plain_err,
+            "contiguous_plain_branch_tolerance": plain_tol,
+            "contiguous_nar_nans": nar_nans,
+            "contiguous_nar_max_abs_err": nar_err,
+            "paged_max_abs_err": paged_err, "nan_rows_poisoned": clean,
+            "tolerance": ATTN_ATOL,
+            "contiguous_ms": cuda_ms(torch, lambda: kattn.attention(
+                q4, kc, vc, pos0, start0, spec=spec, bk=256, tq=tq)),
+            "paged_ms": cuda_ms(torch, lambda: kattn.paged_attention(
+                qd4, kp, vp, pos, startp, table, spec=spec), iters=50)}
+        del kc, vc, kp, vp, got, want, plain, gotp, wantp
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase(n: int, name: str, **fields) -> None:
@@ -1166,6 +1336,8 @@ def main() -> int:
     attn_err = float((got - want).abs().max())
     check(bool(torch.isfinite(got).all()) and attn_err <= ATTN_ATOL,
           f"contiguous attention off by {attn_err}")
+    nar_nans, nar_err = contiguous_nar_check(torch, q, kc, vc, t8, pos0,
+                                             start0)
     # paged: 4 sequences, one idle slot with a stale pos, one NaR word
     npg, pool_pages = 5, 24
     kp = takum_codec.encode(torch.randn((pool_pages, ps, hkv, hd), generator=g,
@@ -1192,7 +1364,8 @@ def main() -> int:
           f"paged attention: nan_ok={nan_ok} poisoned={poisoned} "
           f"clean={clean} err={paged_err}")
     phase(4, "attention", contiguous_rows=q4.shape[2],
-          contiguous_max_abs_err=attn_err, paged_max_abs_err=paged_err,
+          contiguous_max_abs_err=attn_err, contiguous_nar_nans=nar_nans,
+          contiguous_nar_max_abs_err=nar_err, paged_max_abs_err=paged_err,
           nar_rows_poisoned=poisoned, tolerance=ATTN_ATOL)
 
     # -- kernel times at the main path's shapes ---------------------------
@@ -1236,30 +1409,48 @@ def main() -> int:
         plain_ms=main_t["plain_ms"], bound_ms=main_t["bound_ms"],
         bound_by=main_t["bound_by"], library_ms=None, detail=codec_t)
     detail["codec_times"] = codec_t
-    # qmatmul: every projection shape of a layer, decode and prefill
-    mm_times = []
-    for m, k, n in shapes:
-        x = torch.randn((m, k), device=dev)
-        w = takum_codec.encode(torch.randn((k, n), device=dev) / k ** 0.5, t8)
-        b_ms, b_by = bound(m * k * 4 + k * n + m * n * 4, 2 * m * k * n)
-        row = {"m": m, "k": k, "n": n,
-               "ms": cuda_ms(torch, lambda: takum_matmul.qmatmul(x, w, t8)),
-               "plain_ms": cuda_ms(torch, lambda: ref.qmatmul_ref(x, w, t8),
-                                   iters=5),
-               "bound_ms": b_ms, "bound_by": b_by}
-        mm_times.append(row)
-        del x, w
-    detail["matmul_times_takum8"] = mm_times
+    # qmatmul: every projection shape of a layer, decode and prefill, for
+    # takum8 (the plain version timed beside it) and takum16
+    for spec in (t8, t16):
+        mm_times = []
+        for m, k, n in shapes:
+            x = torch.randn((m, k), device=dev)
+            w = takum_codec.encode(torch.randn((k, n), device=dev) / k ** 0.5,
+                                   spec)
+            b_ms, b_by = mm_bound(spec, m, k, n)
+            row = {"m": m, "k": k, "n": n,
+                   "ms": cuda_ms(torch, lambda: takum_matmul.qmatmul(
+                       x, w, spec)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            if spec is t8:
+                row["plain_ms"] = cuda_ms(torch, lambda: ref.qmatmul_ref(
+                    x, w, spec), iters=5)
+            mm_times.append(row)
+            del x, w
+        detail[f"matmul_times_{spec.name}"] = mm_times
+    mm_times = detail["matmul_times_takum8"]
     rep = next(r for r in mm_times if (r["m"], r["k"], r["n"]) == (4, 5120, 17920))
+    pre = next(r for r in mm_times
+               if (r["m"], r["k"], r["n"]) == (256, 5120, 17920))
     kernels["qmatmul"] = dict(
         route="cuda", source="src/repro_torch/csrc/qmatmul.cu",
-        replaces="src/repro/kernels/takum_matmul.py:105", max_abs_err=worst,
+        replaces="src/repro/kernels/takum_matmul.py:105",
+        redesigned="streaming kernel for M <= 16, split-TF32 tensor cores "
+                   "above",
+        max_abs_err=worst,
         shape=[4, 5120, 17920], ms=rep["ms"], plain_ms=rep["plain_ms"],
-        bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=None)
-    # contiguous attention: the 1024-row chunk above
+        bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=None,
+        bound_note="M = 4 streams on f32 FMAs (67 TFLOP/s); the prefill "
+                   f"bound counts {tf32_products(t8)} TF32 tensor-core "
+                   "products per multiply-add at 495 TFLOP/s",
+        prefill={"shape": [256, 5120, 17920], "ms": pre["ms"],
+                 "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+                 "bound_by": pre["bound_by"]})
+    # contiguous attention: the 1024-row chunk above; its products run on
+    # the tensor cores, tf32_products per multiply-add
     keys_needed = sum(pos0 + r + 1 for r in range(tq)) * grp * hkv
     b_ms, b_by = bound(q4.numel() * 4 * 2 + 2 * (pos0 + tq) * hkv * hd,
-                       4 * hd * keys_needed)
+                       4 * hd * keys_needed * tf32_products(t8), TF32_FLOPS)
     kf = ref.decode_ref(kc, t8)[:, :pos0 + tq].transpose(1, 2)
     vf = ref.decode_ref(vc, t8)[:, :pos0 + tq].transpose(1, 2)
     qf = q.transpose(1, 2)
@@ -1267,8 +1458,11 @@ def main() -> int:
               <= (pos0 + torch.arange(tq, device=dev))[:, None])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kernels["attention"] = dict(
-        route="cuda", source="src/repro_torch/csrc/attention.cu",
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/takum_attention.py:158",
+        redesigned="split-TF32 tensor cores",
+        bound_note=f"{tf32_products(t8)} TF32 tensor-core products per "
+                   "multiply-add at 495 TFLOP/s over the keys each row needs",
         max_abs_err=attn_err, shape=list(q4.shape),
         ms=cuda_ms(torch, lambda: kattn.attention(q4, kc, vc, pos0, start0,
                                                   spec=t8, bk=ps, tq=tq)),
@@ -1525,6 +1719,29 @@ def main() -> int:
                       "that decoded through the table",
         note="a decode path inside the codec, wire-matmul, attention and "
              "fake-quant kernels; timed in the codec's decode kernel")
+
+    # -- 18. float (identity-codec) KV caches -------------------------------
+    fattn = float_kv_attention_phase(torch, dev)
+    fred = reduced_card_vs_cpu(torch, dev, wfmt="takum8", kv="none")
+    fserve = serve_full_width(torch, dev, wfmt="takum8", kv="none",
+                              plens=(100, 200), max_new=8, max_len=512,
+                              wrappers=wrappers)
+    fserve["card"] = card
+    fl = fserve["launches"]
+    for k in ("qmatmul", "attention", "paged_attention"):
+        check(fl[k] > 0, f"kernel {k} was not launched by the float-KV "
+              "serving run")
+    check(fl["takum_encode"] == 0 and fl["lns_matmul"] == 0,
+          "the float-KV serving run encoded words or ran the LNS matmul")
+    phase(18, "float kv caches", attention=fattn, reduced_card_vs_cpu=fred,
+          serving=fserve)
+    detail["float_kv"] = {"attention": fattn, "reduced": fred,
+                          "serving": fserve}
+    for k in ("attention", "paged_attention"):
+        kernels[k]["float_kv_ms"] = {
+            dt: v["contiguous_ms" if k == "attention" else "paged_ms"]
+            for dt, v in fattn.items()}
+        kernels[k]["launches_float_kv_serving"] = fl[k]
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "qmatmul", "attention", "paged_attention",

@@ -12,47 +12,92 @@
 //   POSIT      posit, es = 2, computed decode (posit.cuh)
 //   POSIT_LUT  posit8 through a 256-entry float table in shared memory:
 //              replaces registry.py:270 _posit8_lut_decode. The table
-//              (1 KB) is built at block start by the computed decode
-//              (Table<true>::fill, then a __syncthreads before the first
-//              read), so both paths give the same floats bit for bit; a
-//              word then costs one shared-memory load. Encode is posit's.
-// A kernel that decodes keeps one `__shared__ typename Codec<N, K>::Tab`
-// (empty unless K is POSIT_LUT) and passes it to decode.
+//              (Table8, 1 KB) is built at block start by the computed
+//              decode (fill, then a __syncthreads before the first read),
+//              so both paths give the same floats bit for bit; a word then
+//              costs one shared-memory load. Encode is posit's.
+//   IDENTITY   a float KV cache (the registry's "none" codec): the words
+//              are bf16 (N = 16) or f32 (N = 32) bit patterns and decode is
+//              the exact cast to f32, as the reference's kv_words_to_f32
+//              casts them (src/repro/kernels/takum_attention.py:72-81). A
+//              decode path only: the identity encode is a cast in PyTorch.
+// takum8 and lns-takum8 words (N = 8, LINEAR or LNS) always decode
+// through their own Table8, built the same way, so it gives the same
+// floats; in the kernels that read words at random (the wire matmul,
+// attention) the lookup beats the computed decode on the H100
+// (WIRE_TAKUM8_COMPUTED set to 1 turns both tables off: the timing builds
+// of tools/torch_kernel_times.py). A kernel
+// that decodes keeps one `__shared__ typename Codec<N, K>::Tab` (empty
+// but for takum8 and POSIT_LUT), fills it at block start, and passes it
+// to decode after a barrier.
 #pragma once
 #include <cstdint>
+#include <type_traits>
 #include "posit.cuh"
 #include "takum.cuh"
 
+#ifndef WIRE_TAKUM8_COMPUTED
+#define WIRE_TAKUM8_COMPUTED 0
+#endif
+
 namespace wire {
 
-enum Kind { LINEAR = 0, LNS = 1, POSIT = 2, POSIT_LUT = 3 };
+enum Kind { LINEAR = 0, LNS = 1, POSIT = 2, POSIT_LUT = 3, IDENTITY = 4 };
 
-template <bool TABLE>
-struct Table {
+// The storage type of an N-bit word: takum's for 8 and 16 bits, and the
+// f32 bit pattern of the identity codec for 32.
+template <int N> struct Word { using type = takum::WordT<N>; };
+template <> struct Word<32> { using type = uint32_t; };
+template <int N> using WordT = typename Word<N>::type;
+
+struct NoTable {
     __device__ void fill(int, int) {}
 };
 
-template <>
-struct Table<true> {
+// The 256 decoded floats of an 8-bit format (takum8: K = LINEAR,
+// lns-takum8: K = LNS, posit8: K = POSIT), each entry by the computed
+// decode.
+template <int K>
+struct Table8 {
+    static_assert(K == LINEAR || K == LNS || K == POSIT, "an 8-bit format");
     float v[256];
-    // every entry by the computed posit8 decode, threads tid, tid + nt, ...
+    // threads tid, tid + nt, ... fill the entries
     __device__ void fill(int tid, int nt) {
-        for (int i = tid; i < 256; i += nt)
-            v[i] = posit::decode<8>((uint32_t)i);
+        for (int i = tid; i < 256; i += nt) {
+            if constexpr (K == LINEAR) v[i] = takum::decode<8>((uint32_t)i);
+            else if constexpr (K == LNS)
+                v[i] = takum::lns_decode<8>((uint32_t)i);
+            else v[i] = posit::decode<8>((uint32_t)i);
+        }
     }
+    __device__ float operator()(uint32_t w) const { return v[w & 0xFFu]; }
 };
 
 template <int N, int K>
 struct Codec {
-    static_assert(N == 8 || N == 16, "8- and 16-bit words");
+    static_assert(N == 8 || N == 16 || (N == 32 && K == IDENTITY),
+                  "8- and 16-bit words, and f32 identity words");
     static_assert(K != POSIT_LUT || N == 8, "the table is posit8's");
-    using Tab = Table<K == POSIT_LUT>;
+    static_assert(K != IDENTITY || N != 8, "bf16 or f32 identity words");
+    // whether every decoded value is exact in TF32 (10 fraction bits): an
+    // 8-bit takum or posit has at most 3 fraction bits, bf16 has 7
+    static constexpr bool TF32_EXACT =
+        (N == 8 && K != LNS) || (N == 16 && K == IDENTITY);
+    static constexpr bool TAKUM8 =
+        N == 8 && (K == LINEAR || K == LNS) && !WIRE_TAKUM8_COMPUTED;
+    using Tab = std::conditional_t<
+        K == POSIT_LUT, Table8<POSIT>,
+        std::conditional_t<TAKUM8, Table8<K == LNS ? LNS : LINEAR>,
+                           NoTable>>;
 
     __device__ static float decode(uint32_t w, const Tab& tab) {
-        if constexpr (K == LINEAR) return takum::decode<N>(w);
+        if constexpr (TAKUM8) return tab(w);
+        else if constexpr (K == LINEAR) return takum::decode<N>(w);
         else if constexpr (K == LNS) return takum::lns_decode<N>(w);
         else if constexpr (K == POSIT) return posit::decode<N>(w);
-        else return tab.v[w & 0xFFu];
+        else if constexpr (K == IDENTITY)
+            return __uint_as_float(N == 16 ? w << 16 : w);
+        else return tab(w);
     }
 
     __device__ static uint32_t encode(float x) {
@@ -61,6 +106,23 @@ struct Codec {
         else return posit::encode<N>(x);
     }
 };
+
+// Four consecutive N-bit words from (4 * N / 8)-byte aligned memory, in one
+// load (little-endian lanes).
+template <int N>
+__device__ __forceinline__ void unpack4(const void* p, uint32_t w[4]) {
+    if constexpr (N == 8) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+        for (int i = 0; i < 4; ++i) w[i] = (v >> (8 * i)) & 0xFFu;
+    } else if constexpr (N == 16) {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        w[0] = v.x & 0xFFFFu; w[1] = v.x >> 16;
+        w[2] = v.y & 0xFFFFu; w[3] = v.y >> 16;
+    } else {
+        const uint4 v = *reinterpret_cast<const uint4*>(p);
+        w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    }
+}
 
 }  // namespace wire
 
@@ -71,5 +133,7 @@ struct Codec {
 #define WIRE_DECODE_FORMATS(X) \
     X(8, 0) X(8, 1) X(8, 2) X(8, 3) X(16, 0) X(16, 1) X(16, 2)
 #define WIRE_DENSE_FORMATS(X) X(8, 0) X(8, 2) X(8, 3) X(16, 0) X(16, 2)
+// Attention also reads float caches: bf16 and f32 words (identity).
+#define WIRE_KV_FORMATS(X) WIRE_DECODE_FORMATS(X) X(16, 4) X(32, 4)
 #define WIRE_ENCODE_FORMATS(X) \
     X(8, 0) X(8, 1) X(8, 2) X(16, 0) X(16, 1) X(16, 2)

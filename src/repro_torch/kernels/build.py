@@ -30,11 +30,12 @@ from typing import Dict, Sequence
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "library", "check",
            "BUILD_INFO", "stream_of", "format_code", "KIND_CODES",
-           "POSIT8_LUT", "launched", "posit8_lut"]
+           "POSIT8_LUT", "IDENTITY_BITS", "launched", "posit8_lut"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("codec", "qmatmul", "attention", "lns_matmul", "fake_quant")
+SOURCES = ("codec", "qmatmul", "attention", "flash_attention", "lns_matmul",
+           "fake_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,15 +119,25 @@ def check(err: int, what: str) -> None:
 
 # The C entry points' format codes (csrc/wire.cuh, ``Kind``): the kernels
 # are templated on the word width and on this code.
-KIND_CODES = {"linear": 0, "lns": 1, "posit": 2}
+KIND_CODES = {"linear": 0, "lns": 1, "posit": 2, "none": 4}
 POSIT8_LUT = 3          # posit8 through the shared-memory table
+# the float caches of the identity codec, by word width (attention only)
+IDENTITY_BITS = {"torch.bfloat16": 16, "torch.float32": 32}
 
 
-def format_code(spec, device, kinds=("linear", "lns", "posit")) -> int:
+def format_code(spec, device, kinds=("linear", "lns", "posit"),
+                dtype=None) -> int:
     """The format code a kernel is launched with for ``spec``'s words on
     ``device``: posit8 takes the table code when
-    ``spec.lut_decode(device)``. Raises ``ValueError`` for a kind outside
-    ``kinds`` or a width other than 8 and 16."""
+    ``spec.lut_decode(device)``; the identity codec (kind ``"none"``, in
+    ``kinds`` only for the attention kernels) takes its own code for a
+    bf16 or f32 cache ``dtype``. Raises ``ValueError`` for a kind outside
+    ``kinds``, a width other than 8 and 16, or another float dtype."""
+    if spec.is_identity and "none" in kinds:
+        if str(dtype) not in IDENTITY_BITS:
+            raise ValueError(f"the CUDA attention kernels read bf16 or f32 "
+                             f"float caches, got {dtype}")
+        return KIND_CODES["none"]
     if spec.kind not in kinds or spec.n not in (8, 16):
         raise ValueError(f"this CUDA kernel takes 8- and 16-bit words of "
                          f"kind {' / '.join(kinds)}, got {spec.name!r}")

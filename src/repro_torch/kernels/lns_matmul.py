@@ -25,10 +25,10 @@ from repro_torch.core.takum import frac_width
 from repro_torch.formats import FormatSpec
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels import takum_matmul
 
 __all__ = ["lns_matmul", "launch_plan", "LINEAR_BLOCKS"]
 
+SMS = 132         # H100 SXM streaming multiprocessors
 # linear variants: (rows, columns, K tile) of a block; see the source
 LINEAR_BLOCKS = {0: (4, 128, 32), 1: (64, 64, 16)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -40,12 +40,23 @@ _LUTS: Dict[Tuple[int, str], torch.Tensor] = {}
 def launch_plan(m: int, k: int, n: int, accum: str = "linear"):
     """(variant, split, K tiles per split) for an [m, k] x [k, n] call.
 
-    Linear: the plan of the shared tiled skeleton
-    (``takum_matmul.launch_plan``) over ``LINEAR_BLOCKS``. Gauss: one
-    block shape, never split (the fold runs k = 0..K-1 in order)."""
+    Gauss: one block shape, never split (the fold runs k = 0..K-1 in
+    order). Linear, on the tiled skeleton (``csrc/tiled_matmul.cuh``):
+    variant 0 when its block (``LINEAR_BLOCKS``) holds all m rows (decode
+    batches: every weight word decoded once), else variant 1 (prefill
+    chunks); K is split across blocks when the (N, M) grid would leave
+    the SMs idle."""
     if accum == "gauss":
         return 0, 1, 1
-    return takum_matmul.launch_plan(m, k, n, LINEAR_BLOCKS)
+    variant = 0 if m <= LINEAR_BLOCKS[0][0] else 1
+    bm, bn, bk = LINEAR_BLOCKS[variant]
+    kt = max(1, -(-k // bk))
+    grid = -(-n // bn) * -(-m // bm)
+    split = 1
+    if grid < 2 * SMS:
+        split = max(1, min(-(-2 * SMS // grid), kt // 8))
+    per = -(-kt // split)
+    return variant, -(-kt // per), per
 
 
 def _lut(wf: int, device) -> torch.Tensor:

@@ -15,13 +15,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch import formats
-from repro_torch.core import lns
+from repro_torch.core import lns, takum
 from repro_torch.core.bitops import carrier
 from repro_torch.core.quant import exp2i
 from repro_torch.core.takum import frac_width
 
-__all__ = ["decode_ref", "encode_ref", "fake_quant_ref", "fake_quant_lns_ref",
-           "qmatmul_ref", "lns_qmatmul_ref", "lns_matmul_plain",
+__all__ = ["decode_ref", "encode_ref", "takum8_table", "fake_quant_ref",
+           "fake_quant_lns_ref", "qmatmul_ref", "lns_qmatmul_ref", "lns_matmul_plain",
            "attention_ref", "paged_attention_ref", "MASKED"]
 
 MASKED = -1e30   # finite mask value: all-masked rows stay finite
@@ -30,6 +30,14 @@ MASKED = -1e30   # finite mask value: all-masked rows stay finite
 def decode_ref(words, fmt, dtype=torch.float32) -> torch.Tensor:
     """Wire words -> float."""
     return formats.resolve(fmt).decode_tile(words, dtype=dtype)
+
+
+def takum8_table(device=None) -> torch.Tensor:
+    """The 256-entry takum8 decode table of every kernel that decodes
+    takum8 words (``csrc/wire.cuh``, ``Codec<8, LINEAR>::Tab``): entry
+    ``w`` is the computed decode of word ``w``, as each block fills it."""
+    words = torch.arange(256, dtype=torch.int64, device=device)
+    return takum.takum_to_float(words.to(torch.uint8), 8)
 
 
 def encode_ref(x, fmt) -> torch.Tensor:

@@ -1,13 +1,21 @@
 """Flash attention over wire KV words: the CUDA kernels of
-``csrc/attention.cu``.
+``csrc/flash_attention.cu`` and ``csrc/attention.cu``.
 
 Replaces ``repro/kernels/takum_attention.py::attention_kernel_call``
-(contiguous cache: cached prefill chunks) and
-``::paged_attention_kernel_call`` (paged pool: decode steps), over
-takum8/16, lns-takum8/16 and posit8/16 KV words (posit8 through the
-shared-memory table when ``spec.lut_decode``). Prefill
-chunks are bound by f32 FLOPs, decode steps by the KV words' bytes; see
-the source's header comment for the design and the semantics kept.
+(contiguous cache: cached prefill chunks, ``csrc/flash_attention.cu``, on
+the tensor cores) and ``::paged_attention_kernel_call`` (paged pool:
+decode steps, ``csrc/attention.cu``), over takum8/16, lns-takum8/16 and
+posit8/16 KV words (posit8 through the shared-memory table when
+``spec.lut_decode``) and the identity codec's bf16 or f32 float caches.
+Prefill chunks are bound by their products, decode steps by the KV
+words' bytes; see the sources' header comments for the designs and the
+semantics kept.
+
+A float cache is cast to f32 inside the kernels and every dot runs at
+f32 precision, as the reference's Pallas kernels do (``kv_words_to_f32``
+and ``preferred_element_type=f32``). The plain version's identity branch
+instead runs its einsums in the cache dtype, so against it a bf16 cache
+agrees only to bf16 rounding (the card tests state the tolerance).
 
 Both wrappers take the kernel layout ``q4 [B, Hkv, rows, hd]`` (row
 ``r`` = GQA group ``r // tq`` at position ``pos + r % tq``) and return
@@ -32,16 +40,19 @@ __all__ = ["attention", "paged_attention", "to_rows", "from_rows",
 DEFAULT_BK = 256           # contiguous-cache KV tile (keys), as on the TPU
 HEAD_DIMS = (16, 32, 64, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry point of each library
 _SIGNATURES = {
-    "takum_attention": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _F, _P],
-    "takum_paged_attention": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _I, _I, _I, _I, _F, _P],
+    "flash_attention": {"takum_attention": [_I, _I, _I, _P, _P, _P, _P, _P,
+                                            _I, _I, _I, _I, _I, _I, _I, _I,
+                                            _F, _P]},
+    "attention": {"takum_paged_attention": [_I, _I, _I, _P, _P, _P, _P, _P,
+                                            _P, _P, _I, _I, _I, _I, _I, _I,
+                                            _F, _P]},
 }
 
 
-def _lib():
-    return build.library("attention", _SIGNATURES)
+def _lib(name: str):
+    return build.library(name, _SIGNATURES[name])
 
 
 def to_rows(q: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -62,21 +73,29 @@ def from_rows(out4: torch.Tensor, tq: int) -> torch.Tensor:
             .reshape(b, tq, hkv * g, hd))
 
 
-def _check(q4, kw, vw, spec) -> int:
-    """Validate the inputs; returns the kernels' format code."""
-    if spec.is_identity:
-        raise NotImplementedError(
-            "the CUDA attention kernels read wire KV words; float ('none') "
-            "caches are not in this port yet")
-    code = build.format_code(spec, q4.device)
-    if kw.dtype != spec.word_dtype or vw.dtype != spec.word_dtype:
-        raise TypeError(f"{spec.name} KV words must be {spec.word_dtype}")
+def _check(q4, kw, vw, spec):
+    """Validate the inputs; returns the kernels' (word bits, format
+    code)."""
+    code = build.format_code(spec, q4.device,
+                             kinds=("linear", "lns", "posit", "none"),
+                             dtype=kw.dtype)
+    want = kw.dtype if spec.is_identity else spec.word_dtype
+    if kw.dtype != want or vw.dtype != want:
+        raise TypeError(f"{spec.name} KV words must be {want}, got "
+                        f"{kw.dtype} / {vw.dtype}")
     if q4.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head_dim {q4.shape[-1]} not in {HEAD_DIMS}")
     for t in (kw, vw):
         if not t.is_cuda or t.device != q4.device:
             raise ValueError("q4 and the KV words must share a CUDA device")
-    return code
+    bits = build.IDENTITY_BITS[str(kw.dtype)] if spec.is_identity else spec.n
+    return bits, code
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernels' vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
@@ -90,7 +109,7 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         out = kref.attention_ref(from_rows(q4, tq), kw, vw, spec.n, spec,
                                  pos=pos, start=start, window=window)
         return to_rows(out, kw.shape[2])
-    code = _check(q4, kw, vw, spec)
+    bits, code = _check(q4, kw, vw, spec)
     b, hkv, rows, hd = q4.shape
     if kw.shape != vw.shape or kw.shape[0] != b or kw.shape[2:] != (hkv, hd):
         raise ValueError(f"cache shape {tuple(kw.shape)} does not match q4 "
@@ -98,15 +117,15 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     if rows % tq:
         raise ValueError(f"rows {rows} not a multiple of tq {tq}")
     bk = min(bk or DEFAULT_BK, -(-kw.shape[1] // 8) * 8)
-    q4 = q4.to(torch.float32).contiguous()
-    kw, vw = kw.contiguous(), vw.contiguous()
+    q4 = _aligned(q4.to(torch.float32))
+    kw, vw = _aligned(kw), _aligned(vw)
     start = (torch.zeros(b, dtype=torch.int32, device=q4.device)
              if start is None else
              torch.as_tensor(start, device=q4.device).reshape(b)
              .to(torch.int32).contiguous())
     out = torch.empty_like(q4)
-    err = _lib().takum_attention(
-        spec.n, code, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
+    err = _lib("flash_attention").takum_attention(
+        bits, code, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
         out.data_ptr(), start.data_ptr(), b, hkv, rows, kw.shape[1],
         int(pos), tq, bk, window, hd ** -0.5, build.stream_of(q4))
     build.check(err, "takum_attention")
@@ -131,7 +150,7 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         out = kref.paged_attention_ref(from_rows(q4, 1), kw, vw, table, spec,
                                        pos=pos, start=start, window=window)
         return to_rows(out, kw.shape[2])
-    code = _check(q4, kw, vw, spec)
+    bits, code = _check(q4, kw, vw, spec)
     b, hkv, rows, hd = q4.shape
     if kw.shape != vw.shape or kw.shape[2:] != (hkv, hd):
         raise ValueError(f"pool shape {tuple(kw.shape)} does not match q4 "
@@ -145,8 +164,8 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     pos = _per_seq(pos, b, dev)
     start = _per_seq(0 if start is None else start, b, dev)
     out = torch.empty_like(q4)
-    err = _lib().takum_paged_attention(
-        spec.n, code, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
+    err = _lib("attention").takum_paged_attention(
+        bits, code, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
         out.data_ptr(), pos.data_ptr(), start.data_ptr(), table.data_ptr(),
         b, hkv, rows, kw.shape[1], table.shape[1], window, hd ** -0.5,
         build.stream_of(q4))

@@ -1,16 +1,17 @@
-"""Wire-weight matmul: the CUDA kernel of ``csrc/qmatmul.cu``.
+"""Wire-weight matmul: the CUDA kernels of ``csrc/qmatmul.cu``.
 
 Replaces ``repro/kernels/takum_matmul.py::qmatmul_kernel_call``, for
 takum8/16 and posit8/16 weight words (posit8 through the shared-memory
-table when ``spec.lut_decode``). Bound by the weight words' bytes at
-decode batch sizes and by f32 FMAs at prefill chunks; see the source's
-header comment for the design.
+table when ``spec.lut_decode``; takum8 always through its own table).
+Two regimes, chosen per call by :func:`launch_plan`: decode batches
+(M <= 16) stream the weight words, bound by their bytes; prefill chunks
+run split TF32 products on the tensor cores, bound by the products. See
+the source's header comment for the designs.
 
-``qmatmul`` launches the kernel for CUDA tensors (ragged M, K and N are
-masked in the kernel) and runs ``ref.qmatmul_ref`` for CPU tensors;
-``qmatmul.launches`` counts launches. :func:`launch_plan` also plans the
-linear LNS matmul, which shares the kernel's tiled skeleton
-(``csrc/tiled_matmul.cuh``).
+``qmatmul`` launches a kernel for CUDA tensors (ragged M, K and N are
+masked in the kernels) and runs ``ref.qmatmul_ref`` for CPU tensors;
+``qmatmul.launches`` counts calls that launched (one per call, whatever
+the regime and however K is split).
 """
 
 from __future__ import annotations
@@ -23,32 +24,48 @@ from repro_torch.formats import FormatSpec
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
-__all__ = ["qmatmul", "BLOCKS", "launch_plan"]
+__all__ = ["qmatmul", "launch_plan", "STREAM_M", "KTILE", "STREAM_BLOCKS",
+           "TC_BLOCKS"]
 
 SMS = 132         # H100 SXM streaming multiprocessors
-# (rows, columns, K tile) of a block, per variant of csrc/qmatmul.cu
-BLOCKS = {0: (16, 64, 64), 1: (64, 64, 16)}
+STREAM_M = 16     # largest M of the streaming kernel (variant 0)
+KTILE = 32        # rows of K in a tile, both variants
+# streaming kernel, by word bits: (rows of x, columns) of a block
+STREAM_BLOCKS = {8: (4, 512), 16: (8, 256)}
+STREAM_X_FLOATS = 8192    # x a streaming block stages in shared memory
+# tensor-core kernel, by word bits: (rows, columns) of a block; 16-bit
+# words share each computed decode between 128 rows
+TC_BLOCKS = {8: (64, 128), 16: (128, 128)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"takum_qmatmul": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _P]}
 
 
-def launch_plan(m: int, k: int, n: int, blocks=BLOCKS):
-    """(variant, split, K tiles per split) for an [m, k] x [k, n] call of
-    a kernel on the tiled skeleton whose variants have ``blocks``.
+def launch_plan(m: int, k: int, n: int, bits: int = 8):
+    """(variant, split, K tiles per split) for an [m, k] x [k, n] call
+    with ``bits``-bit weight words; K tiles are ``KTILE`` rows.
 
-    Variant 0 when its block holds all m rows (decode batches: every
-    weight word decoded once), else variant 1 (prefill chunks). K is
-    split across blocks when the (N, M) grid would leave the SMs idle."""
-    variant = 0 if m <= blocks[0][0] else 1
-    bm, bn, bk = blocks[variant]
-    kt = max(1, -(-k // bk))
+    Variant 0 (m <= ``STREAM_M``, decode batches) streams the weights:
+    K is split across blocks until about 4 blocks per SM are busy, but
+    never into more partial sums (split * m * n floats) than a quarter of
+    the weight bytes, and a block's x slice fits its stage. Variant 1
+    (prefill chunks, the tensor cores) splits K only when the (N, M) grid
+    would leave the SMs idle."""
+    kt = max(1, -(-k // KTILE))
+    if m <= STREAM_M:
+        mc, bn = STREAM_BLOCKS[bits]
+        grid = -(-n // bn) * -(-m // mc)
+        cap = max(1, k * bits // (128 * m))
+        split = max(1, min(kt, -(-4 * SMS // grid), cap))
+        per = min(-(-kt // split), STREAM_X_FLOATS // (mc * KTILE))
+        return 0, -(-kt // per), per
+    bm, bn = TC_BLOCKS[bits]
     grid = -(-n // bn) * -(-m // bm)
     split = 1
     if grid < 2 * SMS:
         split = max(1, min(-(-2 * SMS // grid), kt // 8))
     per = -(-kt // split)
-    return variant, -(-kt // per), per
+    return 1, -(-kt // per), per
 
 
 def qmatmul(x: torch.Tensor, w_words: torch.Tensor,
@@ -71,7 +88,7 @@ def qmatmul(x: torch.Tensor, w_words: torch.Tensor,
     x = x.to(torch.float32).contiguous()
     w_words = w_words.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    variant, split, per = launch_plan(m, k, n)
+    variant, split, per = launch_plan(m, k, n, spec.n)
     work = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
             if split > 1 else out)
     err = _lib().takum_qmatmul(spec.n, code, variant, x.data_ptr(),

@@ -141,6 +141,17 @@ def test_decode_every_word_bit_exact(n):
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
+def test_takum8_table_matches_reference_decode():
+    """The plain takum8 table of the card's kernels equals
+    the JAX package's takum_to_float on all 256 words, bit for bit (NaR
+    to the same NaN bits, the words past the f32 range to the same
+    infinities, the subnormal band exact)."""
+    from repro_torch.kernels import ref
+    want = np.asarray(jtakum.takum_to_float(jnp.asarray(_all_words(8)), 8))
+    table = ref.takum8_table().numpy()
+    np.testing.assert_array_equal(table.view(np.uint32), want.view(np.uint32))
+
+
 @pytest.mark.parametrize("n", WIDTHS)
 def test_decode_fields_match_reference(n):
     words = _all_words(n)

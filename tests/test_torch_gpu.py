@@ -77,55 +77,156 @@ def test_encode_bit_exact(dev, spec):
     assert torch.equal(got.to(torch.int64), want.to(torch.int64))
 
 
+# M through both regimes of the wire matmul (streaming up to 16 rows, the
+# tensor cores above), K and N ragged (not multiples of 16) and aligned
+MKN = [(1, 100, 60), (4, 128, 64), (4, 250, 130), (16, 320, 192),
+       (16, 333, 77), (17, 250, 130), (37, 256, 128), (256, 512, 64),
+       (256, 333, 77), (3, 100, 60)]
+
+
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
-@pytest.mark.parametrize("mkn", [(4, 128, 64), (16, 320, 192),
-                                 (37, 256, 128), (256, 512, 64),
-                                 (3, 100, 60)])
+@pytest.mark.parametrize("mkn", MKN)
 def test_qmatmul_matches_plain(dev, spec, mkn):
+    """Within f32 summation-order tolerance of the plain version (the
+    tensor-core kernel's split TF32 products carry about 21 bits of x),
+    and the same bits from two calls (fixed-order sums, no atomics)."""
     m, k, n = mkn
     g = torch.Generator().manual_seed(5)
     x = torch.randn((m, k), generator=g)
     w = takum.float_to_takum(torch.randn((k, n), generator=g) / k ** 0.5,
                              spec.n)
-    got = ops.quant_matmul(x.to(dev), w.to(dev), spec).cpu()
+    got = ops.quant_matmul(x.to(dev), w.to(dev), spec)
+    again = ops.quant_matmul(x.to(dev), w.to(dev), spec)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     want = ref.qmatmul_ref(x.to(dev), w.to(dev), spec).cpu()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
 
 
-def _cache(spec, shape, g):
-    return takum.float_to_takum(torch.randn(shape, generator=g), spec.n)
+@pytest.mark.parametrize("spec", SPECS + POSIT_SPECS, ids=lambda s: s.name)
+@pytest.mark.parametrize("m", [4, 37])
+def test_qmatmul_nonfinite_x_matches_plain(dev, spec, m):
+    """x rows holding an inf, a NaN and a value that rounds to TF32
+    infinity (3.4028e38), in both regimes: the split of tf32.cuh keeps
+    f32's meaning (NaN and infinities in the plain version's places, the
+    large value's row finite and within f32 tolerance)."""
+    k, n = 320, 130
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((m, k), generator=g)
+    w = spec.encode_tile(torch.randn((k, n), generator=g) / k ** 0.5)
+    x[1, 40] = float("inf")
+    x[2, 41] = float("nan")
+    x[3, 100] = 3.4028e38
+    got = ops.quant_matmul(x.to(dev), w.to(dev), spec).cpu()
+    want = ref.qmatmul_ref(x, w, spec)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[2]).all()
+    fin = torch.isfinite(want)
+    assert torch.equal(got[~fin & ~torch.isnan(want)],
+                       want[~fin & ~torch.isnan(want)])
+    assert bool(fin[3].all())
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
-@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("m", [1, 17])
+@pytest.mark.parametrize("name,lut", [("takum8", "0"), ("takum8", "1"),
+                                      ("posit8", "1"), ("posit8", "0")])
+def test_8bit_tables_decode_every_word(dev, name, lut, m, monkeypatch):
+    """The wire matmul's decode of every 8-bit word, read back through
+    x = 1 and K = 1 (out = decode(w), in both regimes): the takum8 table
+    (always on) and posit8's (under REPRO_LUT_DECODE) give the computed
+    decode's values, infinities and NaN places; +0 and -0 count as one
+    value (0 + 1 * -0 is +0 in the sum). The tensor cores (M > 16) read
+    TF32 operands, which keep 10 fraction bits in the subnormal band too:
+    there an f32-subnormal value loses its low 13 bits (the takum8 words
+    of +-2^-143 read as 0); the streaming kernel's FMAs keep them."""
+    monkeypatch.setenv("REPRO_LUT_DECODE", lut)
+    spec = formats.get(name)
+    words = _words(spec).to(dev)[None, :]
+    got = ops.quant_matmul(torch.ones((m, 1), device=dev), words, spec).cpu()
+    want = ref.decode_ref(words.cpu(), spec)
+    if m > takum_matmul.STREAM_M:
+        sub = want.abs() < torch.finfo(torch.float32).tiny
+        tf32 = (want.view(torch.int32) & -(1 << 13)).view(torch.float32)
+        want = torch.where(sub, tf32, want)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan.expand_as(got))
+    assert torch.equal(got[:, ~nan[0]], want[:, ~nan[0]].expand(m, -1))
+
+
+def _cache(spec, shape, g, dtype=None):
+    """Seeded K/V words of ``spec`` (floats of ``dtype`` for the identity
+    codec)."""
+    x = torch.randn(shape, generator=g)
+    return x.to(dtype) if spec.is_identity else spec.encode_tile(x)
+
+
+# every KV format the attention kernels read: the wire formats, and the
+# identity codec's bf16 and f32 caches
+KV = ([(s, None) for s in SPECS + LNS_SPECS + POSIT_SPECS]
+      + [(formats.get("none"), torch.bfloat16),
+         (formats.get("none"), torch.float32)])
+
+
+def _kv_id(kv):
+    spec, dtype = kv
+    return spec.name if dtype is None else f"none-{str(dtype)[6:]}"
+
+
+def _plain_f32(spec, q, kw, vw):
+    """The plain version's inputs for the kernels' semantics: a float cache
+    (and q) in f32, as the kernels cast the words and dot in f32."""
+    if spec.is_identity:
+        return q.float(), kw.float(), vw.float()
+    return q, kw, vw
+
+
+# a bf16 cache against the plain identity branch as it is (einsums in
+# bf16: q.k, the probabilities and p.v each rounded to bf16, 2^-9
+# relative, on outputs of magnitude up to about 3)
+BF16_ATOL = 2e-2
+
+
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("window", [0, 24])
-def test_contiguous_attention_matches_plain(dev, spec, hd, window):
+def test_contiguous_attention_matches_plain(dev, kv, hd, window):
+    spec, dtype = kv
     g = torch.Generator().manual_seed(1)
     b, tq, hkv, grp, tmax = 2, 9, 2, 3, 72
     q = torch.randn((b, tq, hkv * grp, hd), generator=g)
-    kw = _cache(spec, (b, tmax, hkv, hd), g)
-    vw = _cache(spec, (b, tmax, hkv, hd), g)
+    if dtype is not None:
+        q = q.to(dtype)                 # served activations: the cache dtype
+    kw = _cache(spec, (b, tmax, hkv, hd), g, dtype)
+    vw = _cache(spec, (b, tmax, hkv, hd), g, dtype)
     start = torch.tensor([0, 5], dtype=torch.int32)
     for pos, block in ((0, 32), (40, None), (50, 24)):
         kwargs = dict(pos=pos, start=start, window=window)
         got = ops.takum_attention(q.to(dev), kw.to(dev), vw.to(dev), 0, spec,
                                   block=block, **kwargs).cpu()
-        want = ref.attention_ref(q, kw, vw, 0, spec, **kwargs)
+        want = ref.attention_ref(*_plain_f32(spec, q, kw, vw), 0, spec,
+                                 **kwargs)
         # rows with qpos < start are garbage on every path: compare the rest
         valid = (pos + torch.arange(tq))[None, :] >= start[:, None].long()
         torch.testing.assert_close(got[valid], want[valid], rtol=0,
                                    atol=2e-5)
+        if dtype == torch.bfloat16:
+            plain = ref.attention_ref(q, kw, vw, 0, spec, **kwargs)
+            torch.testing.assert_close(got[valid], plain[valid].float(),
+                                       rtol=0, atol=BF16_ATOL)
 
 
-def _pool(spec, g, p=11, ps=16, hkv=2, hd=16):
-    return (_cache(spec, (p, ps, hkv, hd), g), _cache(spec, (p, ps, hkv, hd), g))
+def _pool(spec, g, p=11, ps=16, hkv=2, hd=16, dtype=None):
+    return (_cache(spec, (p, ps, hkv, hd), g, dtype),
+            _cache(spec, (p, ps, hkv, hd), g, dtype))
 
 
-@pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
+@pytest.mark.parametrize("kv", [(s, None) for s in SPECS] + KV[-2:],
+                         ids=_kv_id)
 @pytest.mark.parametrize("window", [0, 7])
-def test_paged_attention_matches_plain(dev, spec, window):
+def test_paged_attention_matches_plain(dev, kv, window):
+    spec, dtype = kv
     g = torch.Generator().manual_seed(2)
-    kw, vw = _pool(spec, g)
+    kw, vw = _pool(spec, g, dtype=dtype)
     table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 0, 0],
                           [0, 0, 0, 0]], dtype=torch.int32)
     # seq 3 is an idle slot whose stale pos ran past its table
@@ -135,8 +236,8 @@ def test_paged_attention_matches_plain(dev, spec, window):
     got = ops.paged_attention(q.to(dev), kw.to(dev), vw.to(dev),
                               table.to(dev), spec, pos=pos.to(dev),
                               start=start.to(dev), window=window).cpu()
-    want = ref.paged_attention_ref(q, kw, vw, table, spec, pos=pos,
-                                   start=start, window=window)
+    want = ref.paged_attention_ref(*_plain_f32(spec, q, kw, vw), table, spec,
+                                   pos=pos, start=start, window=window)
     assert torch.isfinite(got).all()
     # every row, the idle slot's too (with a window no page is in range:
     # 0 on both paths)
@@ -183,6 +284,7 @@ def _reduced(kv, wfmt=None):
 
 
 @pytest.mark.parametrize("kv,wfmt", [("takum8", None), ("takum16", None),
+                                     ("none", "takum8"),
                                      ("lns-takum8", "lns-takum16"),
                                      ("takum8", "lns-takum16"),
                                      ("posit8", "posit16"),

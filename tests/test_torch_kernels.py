@@ -254,13 +254,31 @@ def test_codec_and_matmul_wrappers_do_not_launch_on_cpu():
             takum_matmul.qmatmul.launches) == counts
 
 
-def test_qmatmul_launch_plan_covers_every_k_tile():
-    for m, k, n in [(4, 5120, 5120), (4, 5120, 1280), (4, 17920, 5120),
-                    (256, 5120, 1280), (256, 5120, 17920), (16, 64, 64)]:
-        variant, split, per = takum_matmul.launch_plan(m, k, n)
-        kt = k // (64 if variant == 0 else 16)
-        assert variant == (0 if m <= 16 else 1)
+@pytest.mark.parametrize("bits", [8, 16])
+def test_qmatmul_launch_plan_covers_every_k_tile(bits):
+    """Every K row lies in exactly one split (the last split is not
+    empty), decode batches stream and prefill chunks take the tensor
+    cores, a streaming block's x slice fits its stage, and the partial
+    sums never outweigh a quarter of the weight words."""
+    kt_rows = takum_matmul.KTILE
+    for m, k, n in [(4, 5120, 5120), (4, 5120, 1280), (4, 5120, 17920),
+                    (4, 17920, 5120), (256, 5120, 5120), (256, 5120, 1280),
+                    (256, 5120, 17920), (256, 17920, 5120), (16, 64, 64),
+                    (1, 100, 60), (16, 320, 192), (17, 250, 130),
+                    (3, 17920, 37), (256, 31, 9)]:
+        variant, split, per = takum_matmul.launch_plan(m, k, n, bits)
+        kt = -(-k // kt_rows)
+        assert variant == (0 if m <= takum_matmul.STREAM_M else 1)
         assert split * per >= kt and (split - 1) * per < kt
+        if variant == 1 and split > 1:
+            # K is split only to fill the SMs
+            bm, bn = takum_matmul.TC_BLOCKS[bits]
+            assert -(-m // bm) * -(-n // bn) < 2 * takum_matmul.SMS
+        if variant == 0:
+            mc = takum_matmul.STREAM_BLOCKS[bits][0]
+            assert mc * per * kt_rows <= takum_matmul.STREAM_X_FLOATS
+            if split > 1:
+                assert split * m * n * 4 <= k * n * bits // 8 // 4 + m * n * 4
 
 
 # -- the model's paged branch -----------------------------------------------------

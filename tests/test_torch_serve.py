@@ -151,6 +151,61 @@ def test_generate_tokens_and_step_logits(wired, wfmt, kv):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_float_kv_cache_serves_like_the_reference(wired, dtype):
+    """The registered config's own KV setting, ``kv_quant="none"``: a
+    float cache in the activation dtype (bf16 or f32), takum8 wire
+    weights, cold and warm prefix tree, equal ``PageStats``.
+
+    f32: greedy streams token-identical to the JAX engine's. bf16: the
+    same streams up to a position where the reference's own two best
+    logits tie within bf16 rounding (2^-5 of the largest logit: a few
+    bf16 units, which the bf16 activations of both engines accumulate
+    through the layers in different places); there, teacher-forced with
+    the reference's stream, the port's logits lie within that rounding
+    of the reference's and the port picks one of the tied tokens. (Such a tie is no defect of the
+    float cache: bf16 serving with takum8 KV words meets it at the same
+    place.)"""
+    jcfg, cfg = (dataclasses.replace(c, dtype=dtype) for c in _cfgs("none"))
+    jp, tp = wired["takum8"]
+    prompts = _prompts(cfg.vocab)
+    jeng = JServeEngine(jp, jcfg, max_len=48, page_size=16)
+    teng = ServeEngine(tp, cfg, max_len=48, page_size=16, device="cpu")
+    ties = 0
+    for label in ("cold", "warm"):
+        want = [[int(t) for t in seq] for seq in jeng.generate(prompts, 4)]
+        got = teng.generate(prompts, max_new=4)
+        if dtype == "f32":
+            assert got == want, label
+            continue
+        for seq, mine in zip(want, got):
+            if mine == seq:
+                continue
+            i = next(i for i, (a, b) in enumerate(zip(seq, mine)) if a != b)
+            tokens = np.zeros((1, 16), np.int32)
+            tokens[0, :i] = seq[:i]
+            jrow, _ = jeng._prefill_chunk(
+                jp, jnp.asarray(tokens), jmodel.init_cache(jcfg, 1, 32),
+                jnp.asarray(0, jnp.int32), jnp.asarray(i - 1, jnp.int32))
+            row, _ = model.prefill_chunk(
+                teng.params, torch.from_numpy(tokens).long(), cfg,
+                model.init_cache(cfg, 1, 32, device="cpu"), pos=0,
+                last_idx=i - 1)
+            j = np.asarray(jrow, np.float32).ravel()
+            t = row.float().numpy().ravel()
+            tol = 2.0 ** -5 * np.abs(j).max()
+            top2 = np.sort(j)[-2:]
+            assert top2[1] - top2[0] <= tol, (label, i)       # a tie
+            assert np.abs(j - t).max() <= tol, (label, i)
+            assert j[mine[i]] >= j.max() - tol, (label, i)
+            ties += 1
+    assert ties <= 2 * len(prompts)
+    pool = teng.scheduler().pool
+    want_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    assert pool.cache[0]["k"].dtype == want_dtype
+    assert _stats(pool) == _stats(jeng.scheduler().pool)
+
+
 def test_submit_run_streams_match_generate(wired):
     jcfg, cfg = _cfgs("takum8")
     tp = wired["takum8"][1]
