@@ -21,8 +21,10 @@ Phases, one summary line each; any failure exits non-zero:
    kernel; then with a NaR K word at a valid position and a NaR V word at
    a masked position of a visited tile, NaN in the plain version's
    places) and a paged decode step (B = 4, Hkv = 10, G = 4, hd = 128,
-   page 256, varied pos, an idle slot with a stale pos, one NaR word)
-   against their plain versions;
+   page 256, varied pos, an idle slot with a stale pos, one NaR word;
+   the flash-decoding kernel: each sequence's in-band keys in partitions
+   of 64, merged in order by the last block of each sequence and KV
+   head) against their plain versions;
 5. serving at the full width of phi3-medium-14b (40 layers, takum8
    wire weights and KV, random weights from a seeded generator on the
    card): 4 requests of about 77, 300, 520 and 1024 prompt tokens and
@@ -36,14 +38,17 @@ Phases, one summary line each; any failure exits non-zero:
    through the LNS encode kernel (the plain version's word or, at an
    ell_bar rounding tie of logf, its neighbour; the neighbours' share is
    reported and bounded);
-8. LNS matmul (``csrc/lns_matmul.cu``) against its plain version: each
+8. LNS matmul (``csrc/lns_matmul.cu``: the streaming kernel for
+   M <= 16, register-blocked tiles above) against its plain version: each
    product alone (K = 1, every lns-takum8 word pair) within 2 ulp;
    linear accumulation at the eight projection shapes (M = 4 and 256)
    within the worst-case f32 bound and a statistical one; controls in
    the same run that must break each (products rounded to TF32 or bf16,
    a rescaled exp2f); gauss accumulation at 4x5120x1280 and
    64x5120x5120 with the integer state bit-exact, NaR poisoning exactly
-   its row and column; time, bound and plain time per shape;
+   its row and column in both accumulations; time, bound and plain time
+   per shape, and at 4x5120x17920 and 256x5120x17920 the library call
+   (``torch.matmul`` on both operands decoded to f32, TF32 off);
 9. attention (contiguous and paged) over lns-takum8 KV words against
    the plain versions, every row compared;
 10. serving at the full width of phi3-medium-14b with lns-takum8 wire
@@ -95,7 +100,16 @@ Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
 3.35 TB/s or operations over the rate of the units that do them, f32
 FMAs at 67 TFLOP/s, or 2-3 TF32 tensor-core products per multiply-add at
-495 TFLOP/s for the prefill matmul and contiguous attention) and, last,
+495 TFLOP/s for the prefill matmul and contiguous attention; and, where
+one PyTorch call computes the same function on operands decoded
+beforehand, that call's time as ``library_ms`` with the call named in
+``library_call``: the wire matmul and the LNS matmul against
+``torch.matmul`` with TF32 off, both attention kernels against
+``scaled_dot_product_attention``). ``ms`` and ``library_ms`` are CUDA
+events over back-to-back calls; where a call takes tens of microseconds
+the host is the slower side, so the wire matmul, paged attention and
+the LNS matmul also carry ``device_ms`` and ``library_device_ms``, the
+same calls replayed from a CUDA graph. Last,
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -135,6 +149,9 @@ BF16_ATTN_ATOL = 2e-2
 MM_SHAPES = [(4, 5120, 5120), (4, 5120, 1280), (4, 5120, 17920),
              (4, 17920, 5120), (256, 5120, 5120), (256, 5120, 1280),
              (256, 5120, 17920), (256, 17920, 5120)]
+# the shapes at which a library call is timed beside the matmul kernels:
+# a decode step's and a prefill chunk's w1/wg
+LIBRARY_SHAPES = [(4, 5120, 17920), (256, 5120, 17920)]
 # the gauss LNS matmul: a decode step's and a prefill chunk's wk/wv and wq
 GAUSS_SHAPES = [(4, 5120, 1280), (64, 5120, 5120)]
 # LNS encode: share of words that are the plain version's neighbour (the
@@ -184,6 +201,33 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
         fn()
     t1.record()
     torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(torch, fn, iters=20) -> float:
+    """Mean device time of ``fn`` replayed from a CUDA graph: the card's
+    time for the call with no host work between launches (``cuda_ms``
+    also counts the host where it is the slower side, as for calls of a
+    few tens of microseconds)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
     return t0.elapsed_time(t1) / iters
 
 
@@ -351,8 +395,10 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
     g = torch.Generator().manual_seed(seed)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
                for n in plens]
+    from repro_torch.kernels import lns_matmul as klns
     for fn in wrappers.values():
         fn.launches = 0
+    klns.lns_matmul.split_launches = 0
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new) for p in prompts]
     stamps = {r: [] for r in rids}       # host time of each streamed token
@@ -362,6 +408,7 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    split_sums = klns.lns_matmul.split_launches
     ttft = [round(stamps[r][0], 3) for r in rids]
     gaps = sorted(b - a for r in rids
                   for a, b in zip(stamps[r], stamps[r][1:]))
@@ -396,7 +443,8 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
              "ttft_s": ttft,
              "token_gap_ms_median": round(1e3 * gaps[len(gaps) // 2], 1),
              "token_gap_ms_max": round(1e3 * gaps[-1], 1),
-             "peak_gb": round(peak_gb, 2), "launches": launches}
+             "peak_gb": round(peak_gb, 2), "launches": launches,
+             "lns_matmul_split_sum_launches": split_sums}
     # the timing wrappers and the scheduler reference each other: collect
     # the cycle so the model's memory is free before the next phase
     del eng, sched, params, cache, row
@@ -705,6 +753,15 @@ def lns_matmul_phase(torch, dev, sm_clock_hz):
                "bound_by": "operations" if t_sfu >= t_bytes else "bytes",
                "bound_note": "products / (16 expf per SM per clock x 132 "
                              "SMs x clocks.max.sm)"}
+        if (m, k, n) in LIBRARY_SHAPES:
+            # one PyTorch call on both operands decoded beforehand (the
+            # reference's CPU route, lns_qmatmul_ref), TF32 off
+            row["library_ms"] = cuda_ms(torch, lambda: torch.matmul(xd, wd),
+                                        iters=iters)
+            row["device_ms"] = graph_ms(
+                torch, lambda: klns.lns_matmul(x, w, spec), iters=iters)
+            row["library_device_ms"] = graph_ms(
+                torch, lambda: torch.matmul(xd, wd), iters=iters)
         linear.append(row)
         worst = max(worst, row["max_abs_err"])
         del x, w, got, want, xd, wd, tol, stat, err
@@ -743,8 +800,12 @@ def lns_matmul_phase(torch, dev, sm_clock_hz):
         del x, w, out, ell, flags, pout, pell, pflags
     # NaR words poison exactly their row (x) and column (w)
     nar = {}
-    for accum in ("linear", "gauss"):
-        m, k, n = 4, 5120, 1280
+    # the linear streaming kernel (M = 4), the register tiles (M = 64) and
+    # the gauss fold
+    for name, accum, m in (("linear", "linear", 4),
+                           ("linear_prefill", "linear", 64),
+                           ("gauss", "gauss", 4)):
+        k, n = 5120, 1280
         x, w = operands(m, k, n, 11)
         x[2, 100] = spec.nar_word
         w[4000, 333] = spec.nar_word
@@ -752,9 +813,9 @@ def lns_matmul_phase(torch, dev, sm_clock_hz):
         isnan = torch.isnan(got)
         exact = (bool(isnan[2].all()) and bool(isnan[:, 333].all())
                  and int(isnan.sum()) == m + n - 1)
-        check(exact, f"lns_matmul {accum}: NaR does not poison exactly its "
+        check(exact, f"lns_matmul {name}: NaR does not poison exactly its "
               "row and column")
-        nar[accum] = exact
+        nar[name] = exact
     return {"each_product": each_product, "linear": linear, "gauss": gauss,
             "nar_row_column": nar, "max_abs_err": worst}
 
@@ -848,6 +909,8 @@ def wire_attention_phase(torch, dev, spec):
            "contiguous_ms": cuda_ms(torch, lambda: kattn.attention(
                q4, kc, vc, pos0, start0, spec=spec, bk=256, tq=tq)),
            "paged_ms": cuda_ms(torch, lambda: kattn.paged_attention(
+               qd4, kp, vp, pos, startp, table, spec=spec), iters=50),
+           "paged_device_ms": graph_ms(torch, lambda: kattn.paged_attention(
                qd4, kp, vp, pos, startp, table, spec=spec), iters=50)}
     del kc, vc, kp, vp, got, want, gotp, wantp
     torch.cuda.empty_cache()
@@ -1190,7 +1253,10 @@ def float_kv_attention_phase(torch, dev):
             "contiguous_ms": cuda_ms(torch, lambda: kattn.attention(
                 q4, kc, vc, pos0, start0, spec=spec, bk=256, tq=tq)),
             "paged_ms": cuda_ms(torch, lambda: kattn.paged_attention(
-                qd4, kp, vp, pos, startp, table, spec=spec), iters=50)}
+                qd4, kp, vp, pos, startp, table, spec=spec), iters=50),
+            "paged_device_ms": graph_ms(
+                torch, lambda: kattn.paged_attention(
+                    qd4, kp, vp, pos, startp, table, spec=spec), iters=50)}
         del kc, vc, kp, vp, got, want, plain, gotp, wantp
     torch.cuda.empty_cache()
     return res
@@ -1425,6 +1491,17 @@ def main() -> int:
             if spec is t8:
                 row["plain_ms"] = cuda_ms(torch, lambda: ref.qmatmul_ref(
                     x, w, spec), iters=5)
+            if spec is t8 and (m, k, n) in LIBRARY_SHAPES:
+                # one PyTorch call on the weights decoded beforehand, TF32
+                # off (the kernel keeps f32 products)
+                wd = ref.decode_ref(w, spec)
+                row["library_ms"] = cuda_ms(torch, lambda: torch.matmul(
+                    x, wd))
+                row["device_ms"] = graph_ms(
+                    torch, lambda: takum_matmul.qmatmul(x, w, spec))
+                row["library_device_ms"] = graph_ms(
+                    torch, lambda: torch.matmul(x, wd))
+                del wd
             mm_times.append(row)
             del x, w
         detail[f"matmul_times_{spec.name}"] = mm_times
@@ -1439,13 +1516,20 @@ def main() -> int:
                    "above",
         max_abs_err=worst,
         shape=[4, 5120, 17920], ms=rep["ms"], plain_ms=rep["plain_ms"],
-        bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=None,
+        bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+        library_ms=rep["library_ms"], device_ms=rep["device_ms"],
+        library_device_ms=rep["library_device_ms"],
+        library_call="torch.matmul(x, w) with w decoded to f32 beforehand "
+                     "(decode not timed), "
+                     "torch.backends.cuda.matmul.allow_tf32 = False",
         bound_note="M = 4 streams on f32 FMAs (67 TFLOP/s); the prefill "
                    f"bound counts {tf32_products(t8)} TF32 tensor-core "
                    "products per multiply-add at 495 TFLOP/s",
         prefill={"shape": [256, 5120, 17920], "ms": pre["ms"],
                  "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
-                 "bound_by": pre["bound_by"]})
+                 "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
+                 "device_ms": pre["device_ms"],
+                 "library_device_ms": pre["library_device_ms"]})
     # contiguous attention: the 1024-row chunk above; its products run on
     # the tensor cores, tf32_products per multiply-add
     keys_needed = sum(pos0 + r + 1 for r in range(tq)) * grp * hkv
@@ -1477,15 +1561,52 @@ def main() -> int:
     need = [min(int(p) + 1, npg * ps) for p in pos.tolist()]
     b_ms, b_by = bound(qd4.numel() * 4 * 2 + sum(need) * hkv * hd * 2,
                        4 * hd * grp * hkv * sum(need))
+    # the library call: each sequence's in-band pages gathered and decoded
+    # beforehand, padded to the longest, under its own boolean mask
+    lens = [min(int(p) // ps, npg - 1) * ps + ps for p in pos.tolist()]
+    kg = torch.zeros((4, hkv, max(lens), hd), device=dev)
+    vg = torch.zeros_like(kg)
+    keep = torch.zeros((4, 1, 1, max(lens)), dtype=torch.bool, device=dev)
+    for i, n_keys in enumerate(lens):
+        pages = table[i, :n_keys // ps].long()
+        kg[i, :, :n_keys] = ref.decode_ref(kp[pages], t8).reshape(
+            n_keys, hkv, hd).transpose(0, 1)
+        vg[i, :, :n_keys] = ref.decode_ref(vp[pages], t8).reshape(
+            n_keys, hkv, hd).transpose(0, 1)
+        j = torch.arange(n_keys, device=dev)
+        keep[i, 0, 0, :n_keys] = (j <= pos[i]) & (j >= startp[i])
+    qg = qd.transpose(1, 2)                  # [B, H, 1, hd]
+
+    def paged_library():
+        return sdpa(qg, kg, vg, attn_mask=keep, enable_gqa=True)
+
+    def paged_kernel():
+        return kattn.paged_attention(qd4, kp, vp, pos, startp, table, spec=t8)
+
+    lib_out = kattn.to_rows(paged_library().transpose(1, 2), hkv)
+    lib_fin = torch.isfinite(lib_out) & torch.isfinite(gotp)
     kernels["paged_attention"] = dict(
         route="cuda", source="src/repro_torch/csrc/attention.cu",
         replaces="src/repro/kernels/takum_attention.py:301",
+        redesigned="flash-decoding: partitions of 8192 / hd keys, merged "
+                   "in order by the last block of each (sequence, KV head)",
         max_abs_err=paged_err, shape=list(qd4.shape),
-        ms=cuda_ms(torch, lambda: kattn.paged_attention(
-            qd4, kp, vp, pos, startp, table, spec=t8), iters=50),
+        ms=cuda_ms(torch, paged_kernel, iters=100),
+        device_ms=graph_ms(torch, paged_kernel, iters=100),
         plain_ms=cuda_ms(torch, lambda: ref.paged_attention_ref(
             qd, kp, vp, table, t8, pos=pos, start=startp), iters=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(torch, paged_library, iters=100),
+        library_device_ms=graph_ms(torch, paged_library, iters=100),
+        library_call="scaled_dot_product_attention(enable_gqa=True) over "
+                     "each sequence's in-band pages gathered and decoded to "
+                     "f32 beforehand (not timed), padded to the longest, "
+                     "with that sequence's boolean causal/start mask",
+        library_max_abs_err=float((lib_out - gotp)[lib_fin].abs().max()),
+        timing_note="ms: CUDA events over back-to-back calls (the host's "
+                    "time where it is the slower side); device_ms: the same "
+                    "calls replayed from a CUDA graph")
+    del kg, vg, keep, qg, lib_out, lib_fin
     del kc, vc, kp, vp, kf, vf, q, q4, qd, qd4, got, want, gotp, wantp
     torch.cuda.empty_cache()
 
@@ -1572,19 +1693,36 @@ def main() -> int:
     detail["lns_matmul"] = lmm
     rep = next(r for r in lmm["linear"]
                if (r["m"], r["k"], r["n"]) == (4, 5120, 17920))
+    pre = next(r for r in lmm["linear"]
+               if (r["m"], r["k"], r["n"]) == (256, 5120, 17920))
     kernels["lns_matmul"] = dict(
         route="cuda", source="src/repro_torch/csrc/lns_matmul.cu",
         replaces="src/repro/kernels/lns_matmul.py:246",
+        redesigned="streaming column strips for M <= 16, register-blocked "
+                   "tiles above; lv operands, the sign by XOR, one expf a "
+                   "product",
         max_abs_err=lmm["max_abs_err"], shape=[4, 5120, 17920],
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-        bound_by=rep["bound_by"], library_ms=None,
-        library_call="none: no PyTorch call computes an ell_bar-sum product")
+        bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+        device_ms=rep["device_ms"],
+        library_device_ms=rep["library_device_ms"],
+        library_call="torch.matmul on x and w both decoded to f32 beforehand "
+                     "(decode not timed), "
+                     "torch.backends.cuda.matmul.allow_tf32 = False: the "
+                     "reference's CPU route (lns_qmatmul_ref), one more "
+                     "rounding per product than the kernel",
+        prefill={"shape": [256, 5120, 17920], "ms": pre["ms"],
+                 "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+                 "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
+                 "device_ms": pre["device_ms"],
+                 "library_device_ms": pre["library_device_ms"]})
 
     # -- 9. attention over LNS KV -------------------------------------------
     lattn = wire_attention_phase(torch, dev, lns8)
     phase(9, "attention over lns-takum8 kv", **lattn)
     kernels["attention"]["lns_ms"] = lattn["contiguous_ms"]
     kernels["paged_attention"]["lns_ms"] = lattn["paged_ms"]
+    kernels["paged_attention"]["lns_device_ms"] = lattn["paged_device_ms"]
 
     # -- 10. LNS serving at full width ----------------------------------------
     lserve = serve_full_width(torch, dev, wfmt="lns-takum8", kv="lns-takum8",
@@ -1647,6 +1785,8 @@ def main() -> int:
                                         for k, v in pattn.items()}
     kernels["paged_attention"]["posit_ms"] = {k: v["paged_ms"]
                                               for k, v in pattn.items()}
+    kernels["paged_attention"]["posit_device_ms"] = {
+        k: v["paged_device_ms"] for k, v in pattn.items()}
 
     # -- 15. posit serving at full width --------------------------------------
     p8 = formats.get("posit8")
@@ -1742,6 +1882,8 @@ def main() -> int:
             dt: v["contiguous_ms" if k == "attention" else "paged_ms"]
             for dt, v in fattn.items()}
         kernels[k]["launches_float_kv_serving"] = fl[k]
+    kernels["paged_attention"]["float_kv_device_ms"] = {
+        dt: v["paged_device_ms"] for dt, v in fattn.items()}
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "qmatmul", "attention", "paged_attention",

@@ -25,8 +25,9 @@
 // through their own Table8, built the same way, so it gives the same
 // floats; in the kernels that read words at random (the wire matmul,
 // attention) the lookup beats the computed decode on the H100
-// (WIRE_TAKUM8_COMPUTED set to 1 turns both tables off: the timing builds
-// of tools/torch_kernel_times.py). A kernel
+// (WIRE_TAKUM8_COMPUTED set to 1 turns both tables off, and the LNS
+// matmul's table of lns-takum8 lv pairs: the timing builds of
+// tools/torch_kernel_times.py). A kernel
 // that decodes keeps one `__shared__ typename Codec<N, K>::Tab` (empty
 // but for takum8 and POSIT_LUT), fills it at block start, and passes it
 // to decode after a barrier.
@@ -122,6 +123,13 @@ __device__ __forceinline__ void unpack4(const void* p, uint32_t w[4]) {
         const uint4 v = *reinterpret_cast<const uint4*>(p);
         w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
     }
+}
+
+// Word e of a 16-byte vector of N-bit words (little-endian lanes).
+template <int N>
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int e) {
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+    return (u[e * N / 32] >> ((e * N) % 32)) & (uint32_t)((1ull << N) - 1u);
 }
 
 }  // namespace wire

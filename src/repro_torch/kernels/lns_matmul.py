@@ -1,16 +1,21 @@
-"""LNS matmul on the ell_bar datapath: the CUDA kernel of
+"""LNS matmul on the ell_bar datapath: the CUDA kernels of
 ``csrc/lns_matmul.cu``.
 
 Replaces ``repro/kernels/lns_matmul.py::lns_matmul_kernel_call``.
 Products are int32 adds of the operands' ``ell`` lanes; ``accum="linear"``
-converts each with one ``expf`` and sums in f32 (bound by the SFU on the
-H100), ``accum="gauss"`` folds them in order through the Gauss-log table
-and converts once (bound by the integer fold). See the source's header
-comment for the design.
+converts each with one ``expf`` and sums in f32 (bound by instruction
+issue around the SFU's ``expf`` on the H100), ``accum="gauss"`` folds them
+in order through the Gauss-log table and converts once (bound by the
+integer fold). Linear accumulation runs in two regimes, chosen per call by
+:func:`launch_plan`: decode batches (M <= ``STREAM_M``) stream the weight
+words through column-strip blocks, prefill chunks run register-blocked
+tiles. See the source's header comment for the designs.
 
 ``lns_matmul`` launches the kernel for CUDA tensors and runs
 ``ref.lns_matmul_plain`` for CPU tensors; ``lns_matmul.launches`` counts
-launches.
+calls that launched (one per call, however K is split), and
+``lns_matmul.split_launches`` those that also summed K splits in a second
+launch.
 """
 
 from __future__ import annotations
@@ -26,35 +31,59 @@ from repro_torch.formats import FormatSpec
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
-__all__ = ["lns_matmul", "launch_plan", "LINEAR_BLOCKS"]
+__all__ = ["lns_matmul", "launch_plan", "STREAM_M", "KTILE",
+           "stream_block", "TILE_BLOCK"]
 
 SMS = 132         # H100 SXM streaming multiprocessors
-# linear variants: (rows, columns, K tile) of a block; see the source
-LINEAR_BLOCKS = {0: (4, 128, 32), 1: (64, 64, 16)}
+STREAM_M = 16     # largest M of the streaming kernel (variants 0 and 2)
+# rows of K in a tile, by variant (0 and 2: streaming, 1: register tiles)
+KTILE = {0: 128, 1: 16, 2: 128}
+TILE_BLOCK = (64, 64)      # (rows, columns) of a register-tile block
+# K is split until about this many blocks an SM are queued (streaming,
+# register tiles): see launch_plan. The register tiles take many small
+# splits, which even out the SMs' last wave (on an H100, 24 beat 6 and 12
+# at the prefill shapes: tools/torch_kernel_times.py --variants)
+STREAM_PER_SM, TILE_PER_SM = 4, 24
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"takum_lns_matmul": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _P]}
 _LUTS: Dict[Tuple[int, str], torch.Tensor] = {}
 
 
-def launch_plan(m: int, k: int, n: int, accum: str = "linear"):
-    """(variant, split, K tiles per split) for an [m, k] x [k, n] call.
+def stream_block(variant: int, bits: int):
+    """(rows of x, columns) of a streaming block: 4 rows (variant 0) or 8
+    (variant 2, 16-bit words); two 16-byte weight loads wide."""
+    return (8 if variant == 2 else 4), 2 * 128 // bits
+
+
+def launch_plan(m: int, k: int, n: int, accum: str = "linear",
+                bits: int = 8):
+    """(variant, split, K tiles per split) for an [m, k] x [k, n] call
+    with ``bits``-bit words; K tiles are ``KTILE[variant]`` rows.
 
     Gauss: one block shape, never split (the fold runs k = 0..K-1 in
-    order). Linear, on the tiled skeleton (``csrc/tiled_matmul.cuh``):
-    variant 0 when its block (``LINEAR_BLOCKS``) holds all m rows (decode
-    batches: every weight word decoded once), else variant 1 (prefill
-    chunks); K is split across blocks when the (N, M) grid would leave
-    the SMs idle."""
+    order). Linear: m <= ``STREAM_M`` (decode batches) streams the
+    weights, variant 2 (8 rows of x a block) for 16-bit words above 4
+    rows, else variant 0 (4 rows); K is split across blocks only where
+    the column strips alone would leave the SMs idle (fewer than
+    ``STREAM_PER_SM`` blocks an SM). Prefill chunks take variant 1
+    (``TILE_BLOCK`` tiles), K split until about ``TILE_PER_SM`` blocks an
+    SM are queued, each split at least 8 tiles."""
     if accum == "gauss":
         return 0, 1, 1
-    variant = 0 if m <= LINEAR_BLOCKS[0][0] else 1
-    bm, bn, bk = LINEAR_BLOCKS[variant]
-    kt = max(1, -(-k // bk))
-    grid = -(-n // bn) * -(-m // bm)
+    if m <= STREAM_M:
+        variant = 2 if bits == 16 and m > 4 else 0
+        mc, bn = stream_block(variant, bits)
+        target, least = STREAM_PER_SM * SMS, 1
+    else:
+        variant = 1
+        mc, bn = TILE_BLOCK
+        target, least = TILE_PER_SM * SMS, 8
+    kt = max(1, -(-k // KTILE[variant]))
+    grid = -(-n // bn) * -(-m // mc)
     split = 1
-    if grid < 2 * SMS:
-        split = max(1, min(-(-2 * SMS // grid), kt // 8))
+    if grid < target:
+        split = max(1, min(-(-target // grid), kt // least))
     per = -(-kt // split)
     return variant, -(-kt // per), per
 
@@ -99,7 +128,7 @@ def lns_matmul(x_words: torch.Tensor, w_words: torch.Tensor,
                          "device")
     x_words, w_words = x_words.contiguous(), w_words.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    variant, split, per = launch_plan(m, k, n, accum)
+    variant, split, per = launch_plan(m, k, n, accum, spec.n)
     gauss = accum == "gauss"
     work = (torch.empty((split, m, n), dtype=torch.float32, device=dev)
             if split > 1 else out)
@@ -116,6 +145,7 @@ def lns_matmul(x_words: torch.Tensor, w_words: torch.Tensor,
         build.stream_of(x_words))
     build.check(err, "takum_lns_matmul")
     lns_matmul.launches += 1
+    lns_matmul.split_launches += split > 1
     return (out, ell, flags) if state else out
 
 
@@ -124,3 +154,5 @@ def _lib():
 
 
 lns_matmul.launches = 0
+# calls that also launched split_sum_kernel (K split across blocks)
+lns_matmul.split_launches = 0

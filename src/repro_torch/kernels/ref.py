@@ -198,7 +198,8 @@ def attention_ref(q, k_cache, v_cache, n, fmt="none", *, pos, start=None,
 
 def paged_attention_ref(q, k_pool, v_pool, table, fmt="none", *, pos,
                         start=None, window: int = 0,
-                        out_dtype=torch.float32) -> torch.Tensor:
+                        out_dtype=torch.float32,
+                        partitions=None) -> torch.Tensor:
     """Gather-then-attend over the pages the paged kernels visit.
 
     Sequence ``b`` reads pages ``first..last`` of its block table:
@@ -214,8 +215,19 @@ def paged_attention_ref(q, k_pool, v_pool, table, fmt="none", *, pos,
     This is the reference Pallas kernel's result (its ``in_band`` test).
     The JAX package's oracle gathers every page of the table instead; the
     two differ only where a page outside the range would count: rows that
-    mask every key, and NaR words on such pages (see ROADMAP.md)."""
+    mask every key, and NaR words on such pages (see ROADMAP.md).
+
+    ``partitions`` (keys per partition) splits and merges as the CUDA
+    kernel does (``csrc/attention.cu``): each range of
+    ``takum_attention.paged_partitions`` gives its own max ``m``, sum ``l``
+    and ``acc = sum exp(s - m) v`` in f32 (a float cache cast to f32, as
+    the kernel reads it), and the ranges merge in order with weights
+    ``exp(m - M)``, ``M`` their NaN-propagating max."""
     spec = formats.resolve(fmt)
+    if partitions is not None:
+        return _paged_partitioned(q, k_pool, v_pool, table, spec, pos=pos,
+                                  start=start, window=window,
+                                  pk=int(partitions)).to(out_dtype)
     b = q.shape[0]
     ps, hkv, hd = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
     dev = q.device
@@ -242,3 +254,59 @@ def paged_attention_ref(q, k_pool, v_pool, table, fmt="none", *, pos,
                                   start=start[i:i + 1] - off, window=window,
                                   out_dtype=out_dtype))
     return torch.cat(outs, dim=0)
+
+
+def _paged_partitioned(q, k_pool, v_pool, table, spec, *, pos, start,
+                       window: int, pk: int) -> torch.Tensor:
+    """:func:`paged_attention_ref` split into partitions of ``pk`` keys
+    and merged, as the CUDA kernel computes it (f32 throughout)."""
+    from repro_torch.kernels.takum_attention import paged_partitions
+    b, _, h, hd = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    dev = q.device
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=dev).expand(b)
+    start = (torch.zeros(b, dtype=torch.int64, device=dev) if start is None
+             else torch.as_tensor(start, dtype=torch.int64,
+                                  device=dev).expand(b))
+    table = torch.as_tensor(table, dtype=torch.int64, device=dev)
+    plans = paged_partitions(pos.tolist(), ps, table.shape[1], window, pk)
+
+    def words_f32(pool, pages, offs):
+        w = carrier(pool)[pages, offs].view(pool.dtype)
+        return (w.to(torch.float32) if spec.is_identity
+                else spec.decode_tile(w, dtype=torch.float32))
+
+    out = torch.zeros((b, 1, h, hd), dtype=torch.float32, device=dev)
+    for i, ranges in enumerate(plans):
+        p, st = int(pos[i]), int(start[i])
+        qi = q[i, 0].to(torch.float32).reshape(hkv, h // hkv, hd)
+        parts = []
+        for k0, k1 in ranges:
+            keys = torch.arange(k0, k1, device=dev)
+            pages, offs = table[i, keys // ps], keys % ps
+            k = words_f32(k_pool, pages, offs)              # [nk, hkv, hd]
+            v = words_f32(v_pool, pages, offs)
+            s = torch.einsum("kgd,nkd->kgn", qi, k) * (hd ** -0.5)
+            msk = (keys <= p) & (keys >= st)
+            if window:
+                msk = msk & (keys > p - window)
+            s = torch.where(msk, s, torch.full_like(s, MASKED))
+            m = torch.maximum(torch.full_like(s[..., 0], MASKED),
+                              s.amax(dim=-1))
+            pr = torch.exp(s - m[..., None])
+            parts.append((m, pr.sum(dim=-1),
+                          torch.einsum("kgn,nkd->kgd", pr, v)))
+        if not parts:
+            continue                       # no in-band page: 0
+        mx = parts[0][0]
+        for m, _, _ in parts[1:]:
+            mx = torch.maximum(mx, m)
+        l = torch.zeros_like(mx)
+        acc = torch.zeros_like(parts[0][2])
+        for m, lp, ap in parts:
+            wgt = torch.exp(m - mx)
+            l = l + lp * wgt
+            acc = acc + ap * wgt[..., None]
+        den = torch.maximum(l, torch.full_like(l, 1e-30))
+        out[i, 0] = (acc / den[..., None]).reshape(h, hd)
+    return out

@@ -17,6 +17,12 @@ and ``preferred_element_type=f32``). The plain version's identity branch
 instead runs its einsums in the cache dtype, so against it a bf16 cache
 agrees only to bf16 rounding (the card tests state the tolerance).
 
+Paged attention runs as flash-decoding: each sequence's in-band keys are
+cut into partitions of :func:`paged_partition_keys` keys
+(:func:`paged_partitions` is the plan), one block a partition and KV head,
+and the last block of a (sequence, KV head) to finish merges its
+partitions in order, in the same launch.
+
 Both wrappers take the kernel layout ``q4 [B, Hkv, rows, hd]`` (row
 ``r`` = GQA group ``r // tq`` at position ``pos + r % tq``) and return
 ``[B, Hkv, rows, hd]`` f32. For CUDA tensors they launch the kernel; for
@@ -27,6 +33,7 @@ same inputs. ``fn.launches`` counts launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -35,7 +42,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
 __all__ = ["attention", "paged_attention", "to_rows", "from_rows",
-           "DEFAULT_BK", "HEAD_DIMS"]
+           "DEFAULT_BK", "HEAD_DIMS", "paged_partition_keys",
+           "paged_partitions"]
 
 DEFAULT_BK = 256           # contiguous-cache KV tile (keys), as on the TPU
 HEAD_DIMS = (16, 32, 64, 128)
@@ -46,9 +54,12 @@ _SIGNATURES = {
                                             _I, _I, _I, _I, _I, _I, _I, _I,
                                             _F, _P]},
     "attention": {"takum_paged_attention": [_I, _I, _I, _P, _P, _P, _P, _P,
-                                            _P, _P, _I, _I, _I, _I, _I, _I,
-                                            _F, _P]},
+                                            _P, _P, _P, _P, _P, _I, _I, _I,
+                                            _I, _I, _I, _F, _I, _P]},
 }
+# paged attention's per-(sequence, KV head) counters, by device and stream:
+# zero between calls (each launch's last blocks reset theirs)
+_COUNTERS: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def _lib(name: str):
@@ -133,10 +144,57 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     return out
 
 
+def _i32(x, dev) -> torch.Tensor:
+    """``x`` as a contiguous int32 tensor on ``dev`` (as it is when it
+    already is one: a decode step calls this per layer)."""
+    if (isinstance(x, torch.Tensor) and x.dtype == torch.int32
+            and x.device == dev and x.is_contiguous()):
+        return x
+    return torch.as_tensor(x, device=dev).to(torch.int32).contiguous()
+
+
 def _per_seq(x, b: int, dev) -> torch.Tensor:
     """A scalar or ``[B]`` vector -> a contiguous ``[B]`` int32 on dev."""
-    return (torch.as_tensor(x, device=dev).reshape(-1).expand(b)
-            .to(torch.int32).contiguous())
+    x = _i32(x, dev)
+    return x if x.shape == (b,) else x.reshape(-1).expand(b).contiguous()
+
+
+def paged_partition_keys(hd: int, bits: int) -> int:
+    """Keys of a paged-attention partition for ``hd``-wide keys of
+    ``bits``-bit words: 8192 / hd, so a partition holds 8192 K words and
+    as many V words at every width (``csrc/attention.cu``: a key is read
+    by hd * bits / 128 lanes of 16 bytes, and each of a block's 128
+    threads loads 4 * bits / 8 such pieces of K and of V)."""
+    if hd * bits < 128:
+        raise ValueError(f"paged attention reads keys of at least 16 bytes, "
+                         f"got hd {hd} x {bits} bits")
+    return 8192 // hd
+
+
+def paged_partitions(pos, ps: int, npg: int, window: int, pk: int):
+    """The partition plan of paged attention: for each sequence (``pos``
+    a sequence of ints), the key ranges ``(k0, k1)`` of its partitions in
+    merge order.
+
+    A sequence's in-band pages are ``first..last``: ``last = min(pos //
+    ps, npg - 1)`` (a stale ``pos`` is clamped to the table), ``first`` 0
+    or, with a window, the page of the window floor ``pos - window + 1``;
+    ``first > last`` leaves none. Their keys ``first * ps .. (last + 1) *
+    ps - 1`` are cut into ranges of ``pk`` keys, the last one shorter. The
+    kernel's grid holds ``ceil(npg * ps / pk)`` partitions for every
+    sequence; those past a sequence's ranges visit no key and take no
+    part in the merge."""
+    plans = []
+    for p in pos:
+        p = int(p)
+        last = min(p // ps, npg - 1)
+        first = max((p - window + 1) // ps, 0) if window else 0
+        if first > last:
+            plans.append([])
+            continue
+        lo, hi = first * ps, (last + 1) * ps
+        plans.append([(k, min(k + pk, hi)) for k in range(lo, hi, pk)])
+    return plans
 
 
 def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
@@ -156,19 +214,34 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         raise ValueError(f"pool shape {tuple(kw.shape)} does not match q4 "
                          f"{tuple(q4.shape)}")
     dev = q4.device
-    table = torch.as_tensor(table, device=dev).to(torch.int32).contiguous()
+    table = _i32(table, dev)
     if table.shape[0] != b:
         raise ValueError(f"table {tuple(table.shape)} for batch {b}")
-    q4 = q4.to(torch.float32).contiguous()
-    kw, vw = kw.contiguous(), vw.contiguous()
+    if q4.dtype != torch.float32 or not q4.is_contiguous():
+        q4 = q4.to(torch.float32).contiguous()
+    kw, vw = _aligned(kw), _aligned(vw)
     pos = _per_seq(pos, b, dev)
     start = _per_seq(0 if start is None else start, b, dev)
+    ps, npg = kw.shape[1], table.shape[1]
+    parts = -(-npg * ps // paged_partition_keys(hd, bits))
     out = torch.empty_like(q4)
+    # the partitions' acc [B, Hkv, parts, rows, hd] and (m, l) pairs
+    work = torch.empty(b * hkv * parts * rows * (hd + 2),
+                       dtype=torch.float32, device=dev)
+    part_ml = work[b * hkv * parts * rows * hd:]
+    stream = build.stream_of(q4)
+    key = (str(dev), stream)
+    counter = _COUNTERS.get(key)
+    if counter is None or counter.numel() < b * hkv:
+        counter = torch.zeros(max(b * hkv, 256), dtype=torch.int32,
+                              device=dev)
+        _COUNTERS[key] = counter
     err = _lib("attention").takum_paged_attention(
         bits, code, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
-        out.data_ptr(), pos.data_ptr(), start.data_ptr(), table.data_ptr(),
-        b, hkv, rows, kw.shape[1], table.shape[1], window, hd ** -0.5,
-        build.stream_of(q4))
+        out.data_ptr(), work.data_ptr(), part_ml.data_ptr(),
+        counter.data_ptr(), pos.data_ptr(), start.data_ptr(),
+        table.data_ptr(), b, hkv, rows, ps, npg, window, hd ** -0.5, parts,
+        stream)
     build.check(err, "takum_paged_attention")
     build.launched(paged_attention, code)
     return out

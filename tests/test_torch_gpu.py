@@ -416,6 +416,147 @@ def test_lns_matmul_nar_poisons_its_row_and_column(dev, accum):
 
 
 @pytest.mark.parametrize("spec", LNS_SPECS, ids=lambda s: s.name)
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 256])
+def test_lns_matmul_regime_edges_match_plain(dev, spec, m):
+    """Both regimes of the linear kernel at their edges (the streaming
+    kernel up to M = 16, 4 or 8 rows a block; register tiles above), K
+    ragged against both K tiles (16 and 128 rows) and N against every
+    column strip and tile, under the limits of
+    test_lns_matmul_linear_matches_plain."""
+    k, n = 1000, 203
+    variant = klns.launch_plan(m, k, n, bits=spec.n)[0]
+    assert variant == (1 if m > 16 else 2 if spec.n == 16 and m > 4 else 0)
+    x, w = _lns_operands(spec, m, k, n, seed=m)
+    got = klns.lns_matmul(x.to(dev), w.to(dev), spec).cpu()
+    want = ref.lns_matmul_plain(x.to(dev), w.to(dev), spec).cpu()
+    xd, wd = spec.decode_tile(x), spec.decode_tile(w)
+    tol = (2 * k + 4) * 2.0 ** -24 * (xd.abs() @ wd.abs())
+    stat = 16 * k ** 0.5 * 2.0 ** -24 * ((xd * xd) @ (wd * wd)).sqrt()
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert bool((err <= tol).all()) and bool((err <= stat).all())
+    # the same bits from a second call: fixed-order sums
+    again = klns.lns_matmul(x.to(dev), w.to(dev), spec).cpu()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("spec", LNS_SPECS, ids=lambda s: s.name)
+@pytest.mark.parametrize("m", [4, 9, 64])
+def test_lns_matmul_nar_poisons_its_row_and_column_in_both_regimes(dev, spec,
+                                                                   m):
+    """A NaR word in x and one in w: NaN in exactly that row and that
+    column, in the streaming kernel (M = 4, 9) and the register tiles
+    (M = 64), zero words beside them adding nothing."""
+    k, n = 300, 70
+    x, w = _lns_operands(spec, m, k, n, seed=20 + m)
+    x[2, 5] = takum.nar_word(spec.n)
+    w[40, 33] = takum.nar_word(spec.n)
+    x[3, :50] = 0
+    w[:, 7] = 0
+    got = klns.lns_matmul(x.to(dev), w.to(dev), spec).cpu()
+    nan = torch.isnan(got)
+    assert nan[2].all() and nan[:, 33].all()
+    assert int(nan.sum()) == n + m - 1
+    assert (got[:, 7][~nan[:, 7]] == 0).all()
+    want = ref.lns_matmul_plain(x, w, spec)
+    assert torch.equal(nan, torch.isnan(want))
+
+
+# paged attention at the edges of its partitions (hd 128: 64 keys a
+# partition for 8-bit words, 32 for 16-bit, 16 for f32): (page size, table
+# width, pos, start, window)
+PAGED_EDGES = {
+    # pos on and beside page boundaries; an idle slot past its table
+    "page_boundary": (16, 16, [16, 127, 191, 5000], [0, 3, 0, 0], 0),
+    # a window whose floor falls inside a partition
+    "window_crossing": (16, 16, [100, 127, 200, 5000], [0, 0, 90, 0], 40),
+    # pages of one key: the last partition holds one key
+    "one_key_partition": (1, 200, [64, 32, 150, 999], [0, 0, 0, 0], 0),
+}
+
+
+def _paged_edge_inputs(spec, dtype, case, seed):
+    ps, npg, pos, start, window = PAGED_EDGES[case]
+    g = torch.Generator().manual_seed(seed)
+    pages = 4 * npg + 1
+    kw = _cache(spec, (pages, ps, 2, 128), g, dtype)
+    vw = _cache(spec, (pages, ps, 2, 128), g, dtype)
+    table = (torch.randperm(pages - 1, generator=g)[:4 * npg] + 1)
+    table = table.reshape(4, npg).to(torch.int32)
+    table[3] = 0                               # the idle slot's scratch page
+    q = torch.randn((4, 1, 8, 128), generator=g)
+    if dtype is not None:
+        q = q.to(dtype)
+    return (q, kw, vw, table, torch.tensor(pos, dtype=torch.int32),
+            torch.tensor(start, dtype=torch.int32), window)
+
+
+@pytest.mark.parametrize("case", list(PAGED_EDGES))
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+def test_paged_attention_partition_edges_match_plain(dev, kv, case):
+    spec, dtype = kv
+    q, kw, vw, table, pos, start, window = _paged_edge_inputs(spec, dtype,
+                                                              case, 5)
+    got = ops.paged_attention(q.to(dev), kw.to(dev), vw.to(dev),
+                              table.to(dev), spec, pos=pos.to(dev),
+                              start=start.to(dev), window=window).cpu()
+    plain = _plain_f32(spec, q, kw, vw)
+    want = ref.paged_attention_ref(*plain, table, spec, pos=pos, start=start,
+                                   window=window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    bits = 32 if dtype == torch.float32 else 16 if dtype else spec.n
+    split = ref.paged_attention_ref(
+        *plain, table, spec, pos=pos, start=start, window=window,
+        partitions=takum_attention.paged_partition_keys(128, bits))
+    torch.testing.assert_close(got, split, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+def test_paged_nar_places_across_partitions(dev, kv):
+    """A NaR K word (NaN for a float cache) at a valid position of
+    sequence 1, KV head 0, in its second partition, and a NaR V word at a
+    masked position (past pos) of a visited page of sequence 0, KV head 1:
+    NaN in exactly the plain version's places (every row of those heads,
+    one column for the V word)."""
+    spec, dtype = kv
+    q, kw, vw, table, pos, start, window = _paged_edge_inputs(
+        spec, dtype, "page_boundary", 6)
+    nar = float("nan") if spec.is_identity else takum.nar_word(spec.n)
+    kw[table[1, 5], 3, 0, 17] = nar          # position 83 <= pos 127
+    vw[table[0, 1], 9, 1, 40] = nar          # position 25 > pos 16
+    got = ops.paged_attention(q.to(dev), kw.to(dev), vw.to(dev),
+                              table.to(dev), spec, pos=pos.to(dev),
+                              start=start.to(dev)).cpu()
+    want = ref.paged_attention_ref(*_plain_f32(spec, q, kw, vw), table, spec,
+                                   pos=pos, start=start)
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert nan[1, 0, :4].all() and nan[0, 0, 4:, 40].all()
+    assert int(nan.sum()) == 4 * 128 + 4
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=0, atol=2e-5)
+
+
+def test_paged_merge_is_one_launch_and_the_same_bits(dev):
+    """The last block of each (sequence, KV head) merges in partition
+    order: one launch a call, the same bits on every call whichever block
+    finishes last, and every counter back at 0 after the call."""
+    spec = formats.get("takum8")
+    q, kw, vw, table, pos, start, _ = _paged_edge_inputs(spec, None,
+                                                         "page_boundary", 7)
+    args = (q.to(dev), kw.to(dev), vw.to(dev), table.to(dev), spec)
+    n0 = takum_attention.paged_attention.launches
+    first = ops.paged_attention(*args, pos=pos.to(dev))
+    assert takum_attention.paged_attention.launches == n0 + 1
+    for _ in range(5):
+        again = ops.paged_attention(*args, pos=pos.to(dev))
+        assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    torch.cuda.synchronize()
+    for counter in takum_attention._COUNTERS.values():
+        assert int(counter.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("spec", LNS_SPECS, ids=lambda s: s.name)
 def test_attention_over_lns_kv_matches_plain(dev, spec):
     g = torch.Generator().manual_seed(10)
     b, tq, hkv, grp, hd, tmax = 2, 9, 2, 3, 128, 72

@@ -192,12 +192,19 @@ def test_lns_matmul_wrapper_cpu_path_is_the_plain_version():
 
 def test_lns_launch_plan_covers_every_k_tile():
     for m, k, n in [(4, 5120, 1280), (4, 5120, 17920), (4, 17920, 5120),
-                    (256, 5120, 1280), (256, 17920, 5120), (3, 100, 60)]:
-        variant, split, per = klns.launch_plan(m, k, n)
-        bk = klns.LINEAR_BLOCKS[variant][2]
-        kt = -(-k // bk)
-        assert variant == (0 if m <= 4 else 1)
-        assert split * per >= kt > (split - 1) * per
+                    (16, 5120, 5120), (17, 5120, 1280), (256, 5120, 1280),
+                    (256, 17920, 5120), (3, 100, 60)]:
+        for bits in (8, 16):
+            variant, split, per = klns.launch_plan(m, k, n, bits=bits)
+            kt = -(-k // klns.KTILE[variant])
+            if m > klns.STREAM_M:
+                assert variant == 1
+            else:         # 8 rows of x a block only for 16-bit words
+                assert variant == (2 if bits == 16 and m > 4 else 0)
+            assert split * per >= kt > (split - 1) * per
+    # the streaming kernel's 560 column strips of 4x5120x17920 fill the
+    # card without a K split (no second launch)
+    assert klns.launch_plan(4, 5120, 17920, bits=8)[1] == 1
     assert klns.launch_plan(64, 5120, 5120, "gauss")[1] == 1   # never split
 
 

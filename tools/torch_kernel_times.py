@@ -1,8 +1,8 @@
-"""Time the port's wire matmul, and the build-time choices of its kernels,
-on one CUDA card.
+"""Time the port's wire matmul, LNS matmul and attention kernels, and the
+build-time choices of its kernels, on one CUDA card.
 
-    python3 tools/torch_kernel_times.py [--src DIR] [--attention]
-        [--variants] [--out F]
+    python3 tools/torch_kernel_times.py [--src DIR] [--attention] [--lns]
+        [--paged] [--variants] [--out F]
 
 Times ``takum_matmul.qmatmul`` for takum8, takum16, posit8 (through the
 table) and posit16 words at every projection shape of a phi3-medium-14b
@@ -15,6 +15,15 @@ used there.
 ``--attention`` also times contiguous attention at the 1024-row chunk
 of a 256-token prefill for every KV format the tree's kernels take.
 
+``--lns`` also times ``lns_matmul.lns_matmul`` (linear accumulation) on
+lns-takum8 and lns-takum16 words at the same eight shapes, and reads
+``nvidia-smi``'s SM clock and power draw while 256x5120x17920 lns-takum8
+calls keep the card busy.
+
+``--paged`` also times paged attention at ``chip_smoke.py`` phase 4's
+decode step (B 4, Hkv 10, G 4, hd 128, page 256, pos 76 / 520 / 1023 and
+an idle slot) for every KV format the tree's kernels take.
+
 ``--variants`` (this checkout's kernels only) also builds the sources
 again with the defines that undo one choice each, and times them against
 the default build on the same inputs:
@@ -26,7 +35,13 @@ the default build on the same inputs:
   with tf32.cuh's guards on every tile (the default takes them only on
   tiles that hold a value that needs them);
 * ``WIRE_TAKUM8_COMPUTED=1``: takum8 words by the computed decode in
-  every kernel instead of the 256-entry table.
+  every kernel instead of the 256-entry table, and lns-takum8 words by
+  the computed LNS decode in the LNS matmul instead of its 256-entry
+  table of lv pairs;
+
+and, not a build, the LNS matmul's K-split target for prefill chunks
+(``lns_matmul.TILE_PER_SM``: 6, 12 and the default) at the four prefill
+shapes.
 
 Prints the card (``nvidia-smi``'s name and power limit) and one JSON
 object as its last line; ``--out`` writes the same object to a file.
@@ -54,7 +69,8 @@ VARIANTS = {
     "ksplit2": (("flash_attention",), ("-DFLASH_KSPLIT=2",)),
     "guard_always": (("qmatmul", "flash_attention"),
                      ("-DTF32_GUARD_ALWAYS=1",)),
-    "takum8_computed": (("qmatmul", "flash_attention", "attention", "codec"),
+    "takum8_computed": (("qmatmul", "flash_attention", "attention", "codec",
+                         "lns_matmul"),
                         ("-DWIRE_TAKUM8_COMPUTED=1",)),
 }
 
@@ -71,6 +87,37 @@ def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
         fn()
     t1.record()
     torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(torch, fn, iters=20):
+    """Mean device time of ``fn`` replayed from a CUDA graph: the card's
+    time for the call with no host work between launches (``cuda_ms``
+    also counts the host where it is the slower side). None where the
+    call cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                fn()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
     return t0.elapsed_time(t1) / iters
 
 
@@ -122,8 +169,80 @@ def attention_times(torch, dev, names=KV_FORMATS):
     return out
 
 
+def lns_times(torch, dev, names=("lns-takum8", "lns-takum16"),
+              shapes=MM_SHAPES, graph=True):
+    """{"<format> MxKxN": ms} of the linear LNS matmul on seeded words (x
+    from N(0, 1), w from N(0, 1/K), both encoded to ``format``), and with
+    ``graph`` {"<format> MxKxN graph": ms} replayed from a CUDA graph."""
+    from repro_torch import formats
+    from repro_torch.kernels import lns_matmul as klns
+    from repro_torch.kernels import takum_codec
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(6)
+    for name in names:
+        spec = formats.get(name)
+        for m, k, n in shapes:
+            x = takum_codec.encode(torch.randn((m, k), generator=g,
+                                               device=dev), spec)
+            w = takum_codec.encode(torch.randn((k, n), generator=g,
+                                               device=dev) / k ** 0.5, spec)
+            iters = 5 if m * k * n > 5e9 else 20
+            out[f"{name} {m}x{k}x{n}"] = cuda_ms(
+                torch, lambda: klns.lns_matmul(x, w, spec), iters=iters)
+            if graph:
+                out[f"{name} {m}x{k}x{n} graph"] = graph_ms(
+                    torch, lambda: klns.lns_matmul(x, w, spec), iters=iters)
+            del x, w
+    return out
+
+
+def paged_inputs(torch, dev, g):
+    """Phase 4's decode step: q rows, an f32 pool of 24 pages, the block
+    table, pos and start."""
+    hkv, hd = 10, 128
+    kf = torch.randn((24, 256, hkv, hd), generator=g, device=dev)
+    vf = torch.randn((24, 256, hkv, hd), generator=g, device=dev)
+    qd4 = torch.randn((4, hkv, 4, hd), generator=g, device=dev)
+    table = torch.tensor([[1, 2, 0, 0, 0], [3, 4, 5, 0, 0],
+                          [6, 7, 8, 9, 10], [0, 0, 0, 0, 0]],
+                         dtype=torch.int32, device=dev)
+    pos = torch.tensor([76, 520, 1023, 4000], dtype=torch.int32, device=dev)
+    startp = torch.zeros(4, dtype=torch.int32, device=dev)
+    return qd4, kf, vf, table, pos, startp
+
+
+def paged_times(torch, dev, names=KV_FORMATS):
+    """{"<format>": ms} of paged attention at phase 4's decode step, and
+    {"<format> graph": ms} replayed from a CUDA graph."""
+    from repro_torch import formats
+    from repro_torch.kernels import takum_codec
+    from repro_torch.kernels import takum_attention as kattn
+    g = torch.Generator(device=dev).manual_seed(7)
+    qd4, kf, vf, table, pos, startp = paged_inputs(torch, dev, g)
+    out = {}
+    for name in names:
+        if name in ("bf16", "f32"):
+            spec = formats.get("none")
+            dt = torch.bfloat16 if name == "bf16" else torch.float32
+            kp, vp = kf.to(dt), vf.to(dt)
+        else:
+            spec = formats.get(name)
+            kp, vp = takum_codec.encode(kf, spec), takum_codec.encode(vf, spec)
+        def call():
+            return kattn.paged_attention(qd4, kp, vp, pos, startp, table,
+                                         spec=spec)
+        try:
+            out[name] = cuda_ms(torch, call, iters=100)
+        except (NotImplementedError, TypeError, ValueError):
+            out[name] = None       # a format this tree's kernels refuse
+            continue
+        out[f"{name} graph"] = graph_ms(torch, call, iters=100)
+    return out
+
+
 def takum8_times(torch, dev):
-    """The kernels that decode takum8 words, at the serving shapes."""
+    """The kernels that decode takum8 (and lns-takum8) words through a
+    table, at the serving shapes."""
     from repro_torch import formats
     from repro_torch.kernels import takum_codec, takum_matmul
     from repro_torch.kernels import takum_attention as kattn
@@ -147,6 +266,9 @@ def takum8_times(torch, dev):
     startp = torch.zeros(4, dtype=torch.int32, device=dev)
     out["paged_attention"] = cuda_ms(torch, lambda: kattn.paged_attention(
         qd4, kp, vp, pos, startp, table, spec=t8), iters=50)
+    out.update(lns_times(torch, dev, names=("lns-takum8",),
+                         shapes=[(4, 5120, 17920), (256, 5120, 17920)],
+                         graph=False))
     w = takum_codec.encode(torch.randn((5120, 17920), generator=g,
                                        device=dev), t8)
     out["decode [5120, 17920]"] = cuda_ms(
@@ -180,9 +302,11 @@ def build_variants(build):
 def swap_in(build, libs):
     """Load ``{source: path}`` in place of the default libraries (the
     wrappers' ctypes signatures); returns what it replaced."""
+    from repro_torch.kernels import lns_matmul
     from repro_torch.kernels import takum_attention, takum_codec, takum_matmul
     sigs = {"qmatmul": takum_matmul._SIGNATURES,
             "codec": takum_codec._SIGNATURES,
+            "lns_matmul": lns_matmul._SIGNATURES,
             **takum_attention._SIGNATURES}
     old = {}
     for src, path in libs.items():
@@ -217,7 +341,39 @@ def variant_times(torch, dev):
         res[var] = measure()
         for src, lib in old.items():
             build._LIBS[src] = lib
+    # the LNS matmul's K-split target for prefill chunks (a launch-plan
+    # choice, not a build): blocks queued an SM
+    from repro_torch.kernels import lns_matmul as klns
+    kept = klns.TILE_PER_SM
+    res["lns_tile_per_sm"] = {}
+    for per_sm in (6, 12, kept):
+        klns.TILE_PER_SM = per_sm
+        res["lns_tile_per_sm"][per_sm] = lns_times(
+            torch, dev, names=("lns-takum8",),
+            shapes=[s for s in MM_SHAPES if s[0] > klns.STREAM_M],
+            graph=False)
+    klns.TILE_PER_SM = kept
     return res
+
+
+def busy_clocks(torch, fn, seconds=1.5) -> str:
+    """``nvidia-smi``'s SM clock, power draw and limit, read while ``fn``
+    keeps the card busy (calls queued for about ``seconds``)."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smi = None
+    while time.perf_counter() - t0 < seconds:
+        fn()
+        if smi is None and time.perf_counter() - t0 > seconds / 2:
+            smi = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                 "power.draw,power.limit", "--format=csv,noheader", "-i",
+                 "0"], stdout=subprocess.PIPE, text=True)
+    out = smi.communicate()[0].strip() if smi else ""
+    torch.cuda.synchronize()
+    return out
 
 
 def main() -> int:
@@ -225,6 +381,8 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     ap.add_argument("--attention", action="store_true")
+    ap.add_argument("--lns", action="store_true")
+    ap.add_argument("--paged", action="store_true")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -246,6 +404,21 @@ def main() -> int:
                                       takum_matmul)}
     if args.attention:
         res["attention_ms"] = attention_times(torch, dev)
+    if args.lns:
+        res["lns_ms"] = lns_times(torch, dev)
+        from repro_torch import formats as fm
+        from repro_torch.kernels import lns_matmul as klns
+        spec = fm.get("lns-takum8")
+        g = torch.Generator(device=dev).manual_seed(8)
+        x = takum_codec.encode(torch.randn((256, 5120), generator=g,
+                                           device=dev), spec)
+        w = takum_codec.encode(torch.randn((5120, 17920), generator=g,
+                                           device=dev), spec)
+        res["lns_busy_clocks"] = busy_clocks(
+            torch, lambda: klns.lns_matmul(x, w, spec))
+        del x, w
+    if args.paged:
+        res["paged_ms"] = paged_times(torch, dev)
     if args.variants:
         res["variants_ms"] = variant_times(torch, dev)
     if args.out:
