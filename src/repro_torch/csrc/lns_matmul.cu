@@ -48,13 +48,13 @@
 // filled by the computed decode at block start; lns-takum16 words are
 // decoded by computation (takum::lns_parts), once per block. Two regimes,
 // chosen by repro_torch/kernels/lns_matmul.py::launch_plan:
-// * variant 0 / 2, decode batches (M <= 16): stream_kernel. A block owns a
+// * variant 0, decode batches (M <= 16): stream_kernel. A block owns a
 //   strip of 32 (8-bit) or 16 (16-bit) columns, 256 threads, two per weight
 //   row: each thread loads the 16 bytes of its row's half of the strip (a
 //   full 32-byte sector per pair) with the next row's load in flight, takes
-//   the MC = 4 (variant 0) or 8 (variant 2, 16-bit words only) x words of
-//   that row, and keeps MC x 16 bytes of columns of f32 sums. The 128 row
-//   slots of a block (disjoint K rows, warp w the rows k0 + 16 w + 128 i and
+//   the MC = 4 x words of that row (the grid's y covers the rows of x),
+//   and keeps MC x 16 bytes of columns of f32 sums. The 128 row slots of
+//   a block (disjoint K rows, warp w the rows k0 + 16 w + 128 i and
 //   the pairs within) meet in a fixed tree: shuffles that halve each lane's
 //   sums at each step, then the 8 warps in order through shared memory. No
 //   atomics; where the column strips alone would leave the SMs idle, K is
@@ -148,7 +148,7 @@ __device__ __forceinline__ void lns_mac(float& acc, float xl, uint32_t xs,
     acc += __uint_as_float(__float_as_uint(expf(xl + wl)) ^ xs ^ ws);
 }
 
-// -- variant 0 / 2: decode batches --------------------------------------------
+// -- variant 0: decode batches ------------------------------------------------
 
 constexpr int ST_NT = 256;     // threads of a streaming block
 constexpr int ST_LPR = 2;      // threads per weight row (32 bytes)
@@ -442,11 +442,6 @@ int launch_linear(int variant, const void* xp, const void* wp, float* out,
         else
             tile_kernel<N, false><<<grid, TL_NT, 0, st>>>(x, w, dst, M, K,
                                                           Ncols, kt_per_split);
-    } else if constexpr (N == 16) {
-        if (variant == 2)
-            launch_stream<N, 8>(x, w, dst, M, K, Ncols, split, krows, wvec, st);
-        else
-            launch_stream<N, 4>(x, w, dst, M, K, Ncols, split, krows, wvec, st);
     } else {
         launch_stream<N, 4>(x, w, dst, M, K, Ncols, split, krows, wvec, st);
     }
@@ -582,9 +577,8 @@ void launch_gauss(const void* x, const void* w, const int* lut, float* out,
 }  // namespace
 
 // n: 8 or 16 (lns-takum words). gauss = 0: linear accumulation, variant 0
-// (the streaming kernel, 4 rows of x a block; K tiles of 128 rows), 2 (the
-// same with 8 rows, n = 16 only) or 1 (64 x 64 register-blocked tiles; K
-// tiles of 16), K split into `split` ranges of kt_per_split tiles (with
+// (the streaming kernel, 4 rows of x a block; K tiles of 128 rows) or 1
+// (64 x 64 register-blocked tiles; K tiles of 16), K split into `split` ranges of kt_per_split tiles (with
 // split > 1, `work` holds split * M * Ncols floats). gauss = 1: the
 // (2, 1024) int32 table `lut`, no split; ell_out/flg_out (M * Ncols int32
 // each, or null) receive the final integer state.
@@ -603,8 +597,7 @@ extern "C" int takum_lns_matmul(int n, int gauss, int variant, const void* x,
         else launch_gauss<16>(x, w, lut, out, ell_out, flg_out, M, K, Ncols, st);
         return (int)cudaGetLastError();
     }
-    if (variant < 0 || variant > 2 || (variant == 2 && n != 16)
-        || (variant != 1 && M > 16))
+    if (variant < 0 || variant > 1 || (variant == 0 && M > 16))
         return (int)cudaErrorInvalidValue;
     if (n == 8)
         return launch_linear<8>(variant, x, w, out, work, M, K, Ncols, split,

@@ -32,12 +32,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
 __all__ = ["lns_matmul", "launch_plan", "STREAM_M", "KTILE",
-           "stream_block", "TILE_BLOCK"]
+           "STREAM_BLOCK", "TILE_BLOCK"]
 
 SMS = 132         # H100 SXM streaming multiprocessors
-STREAM_M = 16     # largest M of the streaming kernel (variants 0 and 2)
-# rows of K in a tile, by variant (0 and 2: streaming, 1: register tiles)
-KTILE = {0: 128, 1: 16, 2: 128}
+STREAM_M = 16     # largest M of the streaming kernel (variant 0)
+# rows of K in a tile, by variant (0: streaming, 1: register tiles)
+KTILE = {0: 128, 1: 16}
+STREAM_BLOCK = 4           # rows of x of a streaming block
 TILE_BLOCK = (64, 64)      # (rows, columns) of a register-tile block
 # K is split until about this many blocks an SM are queued (streaming,
 # register tiles): see launch_plan. The register tiles take many small
@@ -50,12 +51,6 @@ _SIGNATURES = {"takum_lns_matmul": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
 _LUTS: Dict[Tuple[int, str], torch.Tensor] = {}
 
 
-def stream_block(variant: int, bits: int):
-    """(rows of x, columns) of a streaming block: 4 rows (variant 0) or 8
-    (variant 2, 16-bit words); two 16-byte weight loads wide."""
-    return (8 if variant == 2 else 4), 2 * 128 // bits
-
-
 def launch_plan(m: int, k: int, n: int, accum: str = "linear",
                 bits: int = 8):
     """(variant, split, K tiles per split) for an [m, k] x [k, n] call
@@ -63,8 +58,9 @@ def launch_plan(m: int, k: int, n: int, accum: str = "linear",
 
     Gauss: one block shape, never split (the fold runs k = 0..K-1 in
     order). Linear: m <= ``STREAM_M`` (decode batches) streams the
-    weights, variant 2 (8 rows of x a block) for 16-bit words above 4
-    rows, else variant 0 (4 rows); K is split across blocks only where
+    weights (variant 0: ``STREAM_BLOCK`` rows of x a block, two 16-byte
+    weight loads wide, the grid's y over the rows); K is split across
+    blocks only where
     the column strips alone would leave the SMs idle (fewer than
     ``STREAM_PER_SM`` blocks an SM). Prefill chunks take variant 1
     (``TILE_BLOCK`` tiles), K split until about ``TILE_PER_SM`` blocks an
@@ -72,8 +68,8 @@ def launch_plan(m: int, k: int, n: int, accum: str = "linear",
     if accum == "gauss":
         return 0, 1, 1
     if m <= STREAM_M:
-        variant = 2 if bits == 16 and m > 4 else 0
-        mc, bn = stream_block(variant, bits)
+        variant = 0
+        mc, bn = STREAM_BLOCK, 2 * 128 // bits
         target, least = STREAM_PER_SM * SMS, 1
     else:
         variant = 1

@@ -197,10 +197,7 @@ def test_lns_launch_plan_covers_every_k_tile():
         for bits in (8, 16):
             variant, split, per = klns.launch_plan(m, k, n, bits=bits)
             kt = -(-k // klns.KTILE[variant])
-            if m > klns.STREAM_M:
-                assert variant == 1
-            else:         # 8 rows of x a block only for 16-bit words
-                assert variant == (2 if bits == 16 and m > 4 else 0)
+            assert variant == (1 if m > klns.STREAM_M else 0)
             assert split * per >= kt > (split - 1) * per
     # the streaming kernel's 560 column strips of 4x5120x17920 fill the
     # card without a K split (no second launch)

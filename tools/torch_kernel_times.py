@@ -2,7 +2,7 @@
 build-time choices of its kernels, on one CUDA card.
 
     python3 tools/torch_kernel_times.py [--src DIR] [--attention] [--lns]
-        [--paged] [--variants] [--out F]
+        [--paged] [--serve N] [--variants] [--out F]
 
 Times ``takum_matmul.qmatmul`` for takum8, takum16, posit8 (through the
 table) and posit16 words at every projection shape of a phi3-medium-14b
@@ -23,6 +23,12 @@ calls keep the card busy.
 ``--paged`` also times paged attention at ``chip_smoke.py`` phase 4's
 decode step (B 4, Hkv 10, G 4, hd 128, page 256, pos 76 / 520 / 1023 and
 an idle slot) for every KV format the tree's kernels take.
+
+``--serve N`` also serves ``chip_smoke.py`` phase 5's (takum8 weights
+and KV cache) and phase 15's (posit8) requests at full width with N new
+tokens each, through ``chip_smoke.serve_full_width`` on the ``--src``
+tree, and keeps each run's decode step, median token gap and prefill
+time: the serving comparison of two trees under one harness.
 
 ``--variants`` (this checkout's kernels only) also builds the sources
 again with the defines that undo one choice each, and times them against
@@ -57,6 +63,9 @@ import subprocess
 import sys
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import cuda_ms, graph_ms  # noqa: E402  (the repo's root)
+
 MM_SHAPES = [(4, 5120, 5120), (4, 5120, 1280), (4, 5120, 17920),
              (4, 17920, 5120), (256, 5120, 5120), (256, 5120, 1280),
              (256, 5120, 17920), (256, 17920, 5120)]
@@ -75,50 +84,14 @@ VARIANTS = {
 }
 
 
-def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
-    """Mean device time of ``fn`` over ``iters`` warm launches."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
-def graph_ms(torch, fn, iters=20):
-    """Mean device time of ``fn`` replayed from a CUDA graph: the card's
-    time for the call with no host work between launches (``cuda_ms``
-    also counts the host where it is the slower side). None where the
-    call cannot be captured."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+def graph_or_none(torch, fn, iters=20):
+    """``chip_smoke.graph_ms``, or None where ``fn`` cannot be captured in
+    a CUDA graph (a wrapper of an older tree that syncs with the host)."""
     try:
-        with torch.cuda.graph(graph, stream=side):
-            for _ in range(iters):
-                fn()
+        return graph_ms(torch, fn, iters=iters)
     except RuntimeError:
         torch.cuda.synchronize()
         return None
-    graph.replay()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    del graph
-    return t0.elapsed_time(t1) / iters
 
 
 def matmul_times(torch, dev, formats, takum_codec, takum_matmul,
@@ -190,7 +163,7 @@ def lns_times(torch, dev, names=("lns-takum8", "lns-takum16"),
             out[f"{name} {m}x{k}x{n}"] = cuda_ms(
                 torch, lambda: klns.lns_matmul(x, w, spec), iters=iters)
             if graph:
-                out[f"{name} {m}x{k}x{n} graph"] = graph_ms(
+                out[f"{name} {m}x{k}x{n} graph"] = graph_or_none(
                     torch, lambda: klns.lns_matmul(x, w, spec), iters=iters)
             del x, w
     return out
@@ -236,7 +209,32 @@ def paged_times(torch, dev, names=KV_FORMATS):
         except (NotImplementedError, TypeError, ValueError):
             out[name] = None       # a format this tree's kernels refuse
             continue
-        out[f"{name} graph"] = graph_ms(torch, call, iters=100)
+        out[f"{name} graph"] = graph_or_none(torch, call, iters=100)
+    return out
+
+
+def serve_times(torch, dev, max_new):
+    """{"phase 5 takum8" | "phase 15 posit8": {...}}: chip_smoke.py's
+    serving runs of those phases with ``max_new`` new tokens a request."""
+    from chip_smoke import serve_full_width
+    from repro_torch.kernels import takum_attention as kattn
+    from repro_torch.kernels import takum_codec, takum_matmul
+    wrappers = {"takum_decode": takum_codec.decode,
+                "takum_encode": takum_codec.encode,
+                "qmatmul": takum_matmul.qmatmul,
+                "attention": kattn.attention,
+                "paged_attention": kattn.paged_attention}
+    keep = ("decode_ms_per_step", "decode_steps", "token_gap_ms_median",
+            "prefill_s", "prefill_chunks", "launches")
+    out = {}
+    for name, fmt, plens in (("phase 5 takum8", "takum8",
+                              (77, 300, 520, 1024)),
+                             ("phase 15 posit8", "posit8", (100, 200))):
+        max_len = -(-(max(plens) + max_new) // 256) * 256
+        serve = serve_full_width(torch, dev, wfmt=fmt, kv=fmt, plens=plens,
+                                 max_new=max_new, max_len=max_len,
+                                 wrappers=wrappers)
+        out[name] = {k: serve[k] for k in keep}
     return out
 
 
@@ -383,6 +381,7 @@ def main() -> int:
     ap.add_argument("--attention", action="store_true")
     ap.add_argument("--lns", action="store_true")
     ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--serve", type=int, default=0, metavar="N")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -419,6 +418,8 @@ def main() -> int:
         del x, w
     if args.paged:
         res["paged_ms"] = paged_times(torch, dev)
+    if args.serve:
+        res["serve"] = serve_times(torch, dev, args.serve)
     if args.variants:
         res["variants_ms"] = variant_times(torch, dev)
     if args.out:
