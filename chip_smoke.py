@@ -28,8 +28,12 @@ Phases, one summary line each; any failure exits non-zero:
 5. serving at the full width of phi3-medium-14b (40 layers, takum8
    wire weights and KV, random weights from a seeded generator on the
    card): 4 requests of about 77, 300, 520 and 1024 prompt tokens and
-   16 new tokens each through ``ServeEngine.submit``/``run``, with every
-   kernel's launch count from that run;
+   16 new tokens each through ``ServeEngine.submit``/``run``, the decode
+   step replayed from a CUDA graph (as in phases 10, 15 and 18: the
+   graphs captured, the capture time and the replays are reported, and
+   ``decode_ms_per_step`` leaves out the step that captured), with every
+   kernel's launch count from that run (the K/V words through the fused
+   append, one launch a layer call);
 6. the reduced config served on the card and on the CPU (plain
    versions): identical greedy tokens, logits within tolerance;
 7. LNS codec: every lns-takum8/16 word through the LNS parts (read back
@@ -94,7 +98,18 @@ Phases, one summary line each; any failure exits non-zero:
     the reduced config (f32 cache) served on the card and on the CPU; and
     phi3-medium-14b at full width with takum8 wire weights and a bf16
     cache, requests of 100 and 200 prompt tokens, 8 new tokens each, with
-    every kernel's launch count (both attention kernels > 0).
+    every kernel's launch count (both attention kernels > 0);
+19. the compiled decode step: the fused K/V append (``kv_append``, both
+    modes, the six wire formats and the bf16/f32 caches, bf16 and f32
+    inputs, an idle slot whose stale pos lies past its table) against
+    its plain version, bit-exact, and its times at a decode step and a
+    prefill chunk; then phi3-medium-14b at full width with takum8 and
+    with lns-takum8: phase 5's and phase 10's requests served under
+    ``disable_graphs()`` (the eager step time beside the graph time of
+    phases 5 and 10, launch counts equal), and served twice more, replayed
+    and eager, for at least 64 decode steps with a short request released
+    and one more admitted mid-run: active-row logits bit-identical every
+    step, K/V pools byte-identical, greedy tokens equal.
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
@@ -109,7 +124,10 @@ beforehand, that call's time as ``library_ms`` with the call named in
 events over back-to-back calls; where a call takes tens of microseconds
 the host is the slower side, so the wire matmul, paged attention and
 the LNS matmul also carry ``device_ms`` and ``library_device_ms``, the
-same calls replayed from a CUDA graph. Last,
+same calls replayed from a CUDA graph; so does ``kv_append``, the fused
+append that took over the K/V encodes (kernel row 2); the codec's entry
+is headed by the decode, with ``torch.index_select`` on a 256-entry table
+as its library call (and the posit8 table's). Last,
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -179,6 +197,12 @@ ENCODE_INPUT_ATOL = 1e-5
 # are shared-memory loads and not counted
 GAUSS_INT_OPS = 16
 LOG2E_F32 = 1.4426950408889634   # rounded to f32 where it is used
+# the prompt lengths of the full-width serving phases: 5 (takum8), and 10,
+# 15 and 18 (lns-takum8, posit8, a bf16 cache)
+PHASE5_PLENS = (77, 300, 520, 1024)
+PHASE10_PLENS = (100, 200)
+WIRE_KV = ("takum8", "takum16", "lns-takum8", "lns-takum16", "posit8",
+           "posit16")
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -277,6 +301,29 @@ def codec_err(torch, got, want) -> float:
     return float(torch.nan_to_num(diff, nan=float("inf")).max())
 
 
+def table_library(torch, words, spec):
+    """The library call of an 8-bit decode (every 8-bit format decodes
+    through a 256-entry table): ``torch.index_select`` of the 256 values
+    the plain codec decodes, on the words cast to int32 beforehand (the
+    cast not timed). Its time and its largest difference from the decode
+    kernel's floats (NaN by place), which must be 0."""
+    from repro_torch.core.bitops import to_words
+    from repro_torch.kernels import ref, takum_codec
+    table = ref.decode_ref(to_words(torch.arange(256, device=words.device),
+                                    spec.word_dtype), spec)
+    idx = words.to(torch.int32).reshape(-1)
+    got = torch.index_select(table, 0, idx).reshape(words.shape)
+    err = codec_err(torch, got, takum_codec.decode(words, spec))
+    check(err == 0.0, f"{spec.name}: the library's table decode differs "
+          f"from the decode kernel by {err}")
+    return {"library_ms": cuda_ms(torch, lambda: torch.index_select(
+                table, 0, idx)),
+            "library_max_abs_err": err,
+            "library_call": "torch.index_select(table, 0, idx) of the 256 "
+                            "f32 values the plain codec decodes, idx the "
+                            "words cast to int32 beforehand (not timed)"}
+
+
 def smi(*fields) -> str:
     """``nvidia-smi --query-gpu=<fields>`` of card 0, as printed."""
     out = subprocess.run(["nvidia-smi", f"--query-gpu={','.join(fields)}",
@@ -338,23 +385,13 @@ def wire_matmul_check(torch, dev, spec, m, k, n):
             "control_max_err_over_stat_limit": ctrl}
 
 
-def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
-                     wrappers, seed=5):
-    """Serve phi3-medium-14b at full width (all 40 layers, random weights
-    from a seeded generator on the card, ``wfmt`` wire weights, a ``kv``
-    KV cache, page size 256, decode batch 4): one request per prompt
-    length, ``max_new`` new tokens each, through ``ServeEngine.submit``/
-    ``run``. Every wrapper's launch count is set to 0 just before the run
-    and read just after. Checks the output's shape and that the shortest
-    request's first token is the argmax of a fresh prefill."""
-    from repro_torch.configs import get_arch
+def full_width_params(torch, dev, cfg, wfmt):
+    """phi3-medium-14b's weights at full width (all layers), random from a
+    seeded generator on the card, every projection ``wfmt`` wire words,
+    embeddings bf16: (params, seconds)."""
     from repro_torch.models import layers as L
-    from repro_torch.models import model, transformer
-    from repro_torch.serve.engine import ServeEngine, quantize_weights
-    ps = 256
-    cfg = dataclasses.replace(get_arch("phi3-medium-14b").config,
-                              kv_quant=kv)
-    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import quantize_weights
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=torch.bfloat16,
@@ -367,12 +404,55 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
                                                  verbose=False))
         del layer
     torch.cuda.synchronize()
-    weights_s = time.perf_counter() - t0
+    return params, time.perf_counter() - t0
+
+
+def full_width_cfg(kv):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("phi3-medium-14b").config,
+                               kv_quant=kv)
+
+
+def eager_mode(eager: bool):
+    """``disable_graphs()`` when ``eager``; a tree without graph replay
+    (an older checkout timed by tools/torch_kernel_times.py) always runs
+    its step eagerly."""
+    if not eager:
+        return contextlib.nullcontext()
+    try:
+        from repro_torch.serve.graphs import disable_graphs
+    except ImportError:
+        return contextlib.nullcontext()
+    return disable_graphs()
+
+
+def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
+                     wrappers, seed=5, eager=False, params=None):
+    """Serve phi3-medium-14b at full width (all 40 layers, random weights
+    from a seeded generator on the card, ``wfmt`` wire weights, a ``kv``
+    KV cache, page size 256, decode batch 4): one request per prompt
+    length, ``max_new`` new tokens each, through ``ServeEngine.submit``/
+    ``run``, the decode step replayed from a CUDA graph (``eager``: under
+    ``disable_graphs()``). Every wrapper's launch count is set to 0 just
+    before the run and read just after. Checks the output's shape and that
+    the shortest request's first token is the argmax of a fresh prefill.
+    ``decode_ms_per_step`` leaves out the step that captured the graph
+    (an eager step and the capture: ``capture_step_ms``). ``params``
+    (from :func:`full_width_params`) are built here when not given."""
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine
+    ps = 256
+    cfg = full_width_cfg(kv)
+    torch.cuda.reset_peak_memory_stats()
+    weights_s = 0.0
+    if params is None:
+        params, weights_s = full_width_params(torch, dev, cfg, wfmt)
     eng = ServeEngine(params, cfg, max_len=max_len, page_size=ps,
                       decode_batch=4, device=dev)
     sched = eng.scheduler()
-    walls = {"prefill": 0.0, "decode": 0.0}
-    steps = {"prefill": 0, "decode": 0}
+    runner = getattr(sched, "step", None)      # None: a tree without graphs
+    walls = {"prefill": 0.0, "decode": 0.0, "capture": 0.0}
+    steps = {"prefill": 0, "decode": 0, "capture": 0}
 
     def timed(fn, key, state):
         def wrapped():
@@ -380,12 +460,14 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
                        if s is not None and s.state == state)
             if key == "decode":
                 busy = min(busy, 1)     # one packed step for all slots
+            caps = getattr(runner, "captures", 0)
             torch.cuda.synchronize()
             t = time.perf_counter()
             events = list(fn())
             torch.cuda.synchronize()
-            walls[key] += time.perf_counter() - t
-            steps[key] += busy
+            k = key if getattr(runner, "captures", 0) == caps else "capture"
+            walls[k] += time.perf_counter() - t
+            steps[k] += busy
             yield from events
         return wrapped
 
@@ -400,10 +482,11 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
         fn.launches = 0
     klns.lns_matmul.split_launches = 0
     t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new) for p in prompts]
-    stamps = {r: [] for r in rids}       # host time of each streamed token
-    for ev in eng.run():
-        stamps[ev.rid].append(time.perf_counter() - t0)
+    with eager_mode(eager):
+        rids = [eng.submit(p, max_new) for p in prompts]
+        stamps = {r: [] for r in rids}       # host time of each token
+        for ev in eng.run():
+            stamps[ev.rid].append(time.perf_counter() - t0)
     n_events = sum(len(v) for v in stamps.values())
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -419,6 +502,14 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
         check(o[:len(p)] == p and len(o) == len(p) + max_new
               and all(0 <= t < cfg.vocab for t in o[len(p):]),
               "served output has the wrong shape or tokens out of vocab")
+    if "kv_append" in wrappers:      # one fused append a layer and step
+        calls = cfg.n_layers * (steps["prefill"] + steps["decode"]
+                                + steps["capture"])
+        check(launches["kv_append"] == calls, f"{launches['kv_append']} "
+              f"K/V appends for {calls} layer calls")
+    graphs = getattr(runner, "captures", 0)
+    check(eager or runner is None or (graphs == 1 and runner.replays > 0),
+          f"the decode step was captured {graphs} times, not once")
     # the first served token of the shortest request is the argmax of a
     # fresh single-request prefill (serving is batch-invariant)
     cache = model.init_cache(cfg, 1, 2 * ps, device=dev)
@@ -440,6 +531,11 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
              "decode_steps": steps["decode"],
              "decode_ms_per_step": round(1e3 * walls["decode"]
                                          / max(steps["decode"], 1), 2),
+             "step": "cuda graph" if graphs else "eager",
+             "graphs_captured": graphs,
+             "capture_s": round(getattr(runner, "capture_s", 0.0), 3),
+             "capture_step_ms": round(1e3 * walls["capture"], 2),
+             "replays": getattr(runner, "replays", 0),
              "ttft_s": ttft,
              "token_gap_ms_median": round(1e3 * gaps[len(gaps) // 2], 1),
              "token_gap_ms_max": round(1e3 * gaps[-1], 1),
@@ -447,7 +543,7 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
              "lns_matmul_split_sum_launches": split_sums}
     # the timing wrappers and the scheduler reference each other: collect
     # the cycle so the model's memory is free before the next phase
-    del eng, sched, params, cache, row
+    del eng, sched, runner, params, cache, row
     gc.collect()
     torch.cuda.empty_cache()
     return serve
@@ -456,7 +552,10 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
 @contextlib.contextmanager
 def encode_tap(torch, replay=None):
     """Every ``takum_codec.encode`` call of the port (the activations
-    entering each LNS matmul and the K/V of each layer), in call order.
+    entering each LNS matmul) and every K/V encode of
+    ``takum_codec.kv_append`` (K, then V, through the plain append with
+    the tapped encode: on the card the fused kernel would write its own
+    words), in call order.
 
     Without ``replay``: yields the list of ``(format, input, words)`` on
     the CPU. With ``replay`` (such a list from another run): each call
@@ -466,8 +565,8 @@ def encode_tap(torch, replay=None):
     differed from the recorded ones and the first that did."""
     from repro_torch.core.bitops import carrier, to_words
     from repro_torch.core.takum import frac_width
-    from repro_torch.kernels import takum_codec
-    orig = takum_codec.encode
+    from repro_torch.kernels import ref, takum_codec
+    orig, orig_kv = takum_codec.encode, takum_codec.kv_append
     calls = []
     seen = {"words": 0, "differ": 0, "max_input_diff": 0.0, "first": None}
     it = enumerate(replay or [])
@@ -510,12 +609,18 @@ def encode_tap(torch, replay=None):
             seen["first"] = first
         return rwords.to(own.device)
 
-    tap.launches = 0
-    takum_codec.encode = tap
+    def tap_kv(k, v, k_cache, v_cache, spec, *, pos, table=None):
+        if spec.is_identity:
+            return orig_kv(k, v, k_cache, v_cache, spec, pos=pos, table=table)
+        return ref.kv_append_ref(k, v, k_cache, v_cache, spec, pos=pos,
+                                 table=table, encode=tap)
+
+    tap.launches = tap_kv.launches = 0
+    takum_codec.encode, takum_codec.kv_append = tap, tap_kv
     try:
         yield calls if replay is None else seen
     finally:
-        takum_codec.encode = orig
+        takum_codec.encode, takum_codec.kv_append = orig, orig_kv
     if replay is not None:
         check(next(it, None) is None, "forced run: the card encoded fewer "
               "times than the CPU")
@@ -553,10 +658,10 @@ def reduced_card_vs_cpu(torch, dev, *, wfmt, kv, free_tol=1e-4, tol=1e-4):
                                      c, pos=0, last_idx=12)
         return row.cpu()
 
-    with encode_tap(torch) as calls:
+    with eager_mode(True), encode_tap(torch) as calls:
         cpu_row = prefill("cpu")
     card_free = prefill(dev)
-    with encode_tap(torch, replay=calls) as seen:
+    with eager_mode(True), encode_tap(torch, replay=calls) as seen:
         card_forced = prefill(dev)
     same = toks_by["cpu"] == toks_by[str(dev)]
     free_err = float((cpu_row - card_free).abs().max())
@@ -1029,6 +1134,9 @@ def posit_codec_phase(torch, dev):
                 "plain_ms": cuda_ms(torch, lambda: ref.decode_ref(wt, spec),
                                     iters=3, warmup=1),
                 "bound_ms": b_ms, "bound_by": b_by}
+            if spec.n == 8:
+                times[f"{label} decode_weights"].update(
+                    table_library(torch, wt, spec))
             res[label] = row
             del wt
     del w_f32, kv_prefill
@@ -1262,6 +1370,222 @@ def float_kv_attention_phase(torch, dev):
     return res
 
 
+def same_cache(torch, got, want) -> bool:
+    """Bit-exact cache contents; NaN by place in a float cache (NaN
+    payloads differ between casts)."""
+    from repro_torch.core.bitops import carrier
+    if got.dtype in (torch.bfloat16, torch.float32):
+        nan = torch.isnan(want)
+        ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+        return (torch.equal(torch.isnan(got), nan)
+                and torch.equal(got.view(ints[got.dtype])[~nan],
+                                want.view(ints[got.dtype])[~nan]))
+    return torch.equal(carrier(got), carrier(want))
+
+
+def kv_append_inputs(torch, dev, spec, dtype, in_dtype, mode, seed):
+    """Fresh K/V at the main path's shapes (a decode step [4, 1, 10, 128]
+    into a 24-page pool of 256 positions, or a prefill chunk [1, 256, 10,
+    128] into a 1280-position cache) with zeros, infinities and a NaN
+    among them, stale cache words, and where they go: the paged table and
+    pos of phase 4 (an idle slot whose stale pos 4000 lies past its
+    table), or position 256 of the contiguous cache."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (4, 1, 10, 128) if mode == "paged" else (1, 256, 10, 128)
+    cshape = (24, 256, 10, 128) if mode == "paged" else (1, 1280, 10, 128)
+    k, v = (torch.randn(shape, generator=g, device=dev)
+            * torch.pow(2.0, torch.randint(-20, 20, shape, generator=g,
+                                           device=dev).float())
+            for _ in range(2))
+    k.view(-1)[:5] = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                                   float("nan")], device=dev)
+    caches = []
+    for _ in range(2):
+        x = torch.randn(cshape, generator=g, device=dev)
+        caches.append(x.to(dtype) if spec.is_identity
+                      else spec.encode_tile(x))
+    where = {"pos": 256}
+    if mode == "paged":
+        where = {"table": torch.tensor(
+                     [[1, 2, 0, 0, 0], [3, 4, 5, 0, 0], [6, 7, 8, 9, 10],
+                      [0, 0, 0, 0, 0]], dtype=torch.int32, device=dev),
+                 "pos": torch.tensor([76, 520, 1023, 4000],
+                                     dtype=torch.int32, device=dev)}
+    return k.to(in_dtype), v.to(in_dtype), caches[0], caches[1], where
+
+
+def kv_append_phase(torch, dev):
+    """Phase 19, the append: ``takum_codec.kv_append`` against
+    ``ref.kv_append_ref`` on the card, both modes, the six wire formats and
+    the bf16 / f32 caches, bf16 and f32 inputs: every word of both caches
+    bit-exact (NaN by place). The LNS formats are held bit-exact to the
+    plain append with the encode kernel's words (one device function),
+    and to the plain codec's words or their neighbours (logf against the
+    plain log at an ell_bar tie, phase 7)."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import carrier
+    from repro_torch.kernels import ref, takum_codec
+    res = {}
+    kinds = [(n, None) for n in WIRE_KV] + [("none", torch.bfloat16),
+                                            ("none", torch.float32)]
+    for name, dtype in kinds:
+        spec = formats.get(name)
+        label = name if dtype is None else f"{name}-{str(dtype)[6:]}"
+        row = {"cases": 0, "bit_exact": True, "neighbour_words": 0}
+        for in_dtype in (torch.bfloat16, torch.float32):
+            for mode in ("paged", "contiguous"):
+                k, v, kc, vc, where = kv_append_inputs(
+                    torch, dev, spec, dtype, in_dtype, mode,
+                    len(res) * 8 + row["cases"])
+                gk, gv = kc.clone(), vc.clone()
+                n0 = takum_codec.kv_append.launches
+                takum_codec.kv_append(k, v, gk, gv, spec, **where)
+                check(takum_codec.kv_append.launches == n0 + 1,
+                      f"kv_append {label} {mode}: not one launch")
+                enc = (takum_codec.encode if spec.kind == "lns"
+                       else ref.encode_ref)
+                wk, wv = kc.clone(), vc.clone()
+                ref.kv_append_ref(k, v, wk, wv, spec, encode=enc, **where)
+                ok = same_cache(torch, gk, wk) and same_cache(torch, gv, wv)
+                check(ok, f"kv_append {label} {mode} {in_dtype}: differs "
+                      "from the plain append")
+                if spec.kind == "lns":
+                    pk, pv = kc.clone(), vc.clone()
+                    ref.kv_append_ref(k, v, pk, pv, spec, **where)
+                    mod = 1 << spec.n
+                    step = torch.cat([
+                        ((carrier(a).long() - carrier(b).long()) % mod
+                         ).reshape(-1) for a, b in ((gk, pk), (gv, pv))])
+                    check(bool(torch.isin(step, torch.tensor(
+                        [0, 1, mod - 1], device=dev)).all()),
+                          f"kv_append {label}: a word more than one step "
+                          "from the plain codec's")
+                    row["neighbour_words"] += int((step != 0).sum())
+                row["cases"] += 1
+                del k, v, kc, vc, gk, gv, wk, wv
+        res[label] = row
+    torch.cuda.empty_cache()
+    return res
+
+
+def kv_append_times(torch, dev):
+    """The append at the main path's two shapes, takum8 words from bf16
+    K/V (the activations' dtype at full width): CUDA events over
+    back-to-back calls, CUDA-graph replays, the plain version, and the
+    bound: K and V read once, the words written once, pos and the table
+    read once, over 3.35 TB/s."""
+    from repro_torch import formats
+    from repro_torch.kernels import ref, takum_codec
+    t8 = formats.get("takum8")
+    out = {}
+    for mode in ("paged", "contiguous"):
+        k, v, kc, vc, where = kv_append_inputs(
+            torch, dev, t8, None, torch.bfloat16, mode, 99)
+        nbytes = 2 * k.numel() * (2 + 1) + sum(
+            x.numel() * 4 for x in where.values()
+            if isinstance(x, torch.Tensor))
+
+        def call():
+            takum_codec.kv_append(k, v, kc, vc, t8, **where)
+
+        b_ms, b_by = bound(nbytes, 0)
+        out[mode] = {
+            "shape": list(k.shape), "cache": list(kc.shape),
+            "ms": cuda_ms(torch, call, iters=200),
+            "device_ms": graph_ms(torch, call, iters=200),
+            "plain_ms": cuda_ms(torch, lambda: ref.kv_append_ref(
+                k, v, kc, vc, t8, **where), iters=5),
+            # the two encode launches the append replaces, by events
+            "two_encodes_ms": cuda_ms(torch, lambda: (
+                takum_codec.encode(k, t8), takum_codec.encode(v, t8)),
+                iters=200),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del k, v, kc, vc
+    return out
+
+
+def graph_vs_eager(torch, dev, params, cfg, *, plens, max_new, late_at,
+                   late_plen, late_new, seed=19):
+    """Phase 19, the step: the same requests served twice at full width
+    through ``ServeEngine.submit``/``run``, the decode step replayed from
+    a CUDA graph and under ``disable_graphs()``: one request per prompt
+    length with its own ``max_new`` (a short one finishes early and
+    releases its slot), and one more submitted after ``late_at`` streamed
+    tokens (admitted mid-run: a prefill and a ``push_tables`` between
+    replays). Every step's active rows of logits bit-identical, the K/V
+    pools (and table / pos / start) byte-identical at the end, the greedy
+    tokens equal."""
+    from repro_torch.core.bitops import carrier
+    from repro_torch.serve.engine import ServeEngine
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in plens + (late_plen,)]
+    runs = {}
+    for mode in ("graph", "eager"):
+        eng = ServeEngine(params, cfg, max_len=1280, page_size=256,
+                          decode_batch=4, device=dev)
+        sched = eng.scheduler()
+        runner, rows, pushes = sched.step, [], []
+
+        def rec(tok, pos, runner=runner, rows=rows, sched=sched):
+            logits = runner(tok, pos)
+            act = [i for i, s in enumerate(sched._slots)
+                   if s is not None and s.state == "active"]
+            rows.append((act, logits[act].clone()))
+            return logits
+
+        def push(orig=sched.pool.push_tables, rows=rows, pushes=pushes):
+            pushes.append(len(rows))
+            orig()
+
+        sched.step, sched.pool.push_tables = rec, push
+        t0 = time.perf_counter()
+        with eager_mode(mode == "eager"):
+            rids = [eng.submit(p, m) for p, m in zip(prompts, max_new)]
+            for n, _ in enumerate(eng.run()):
+                if n + 1 == late_at:
+                    rids.append(eng.submit(prompts[-1], late_new))
+        torch.cuda.synchronize()
+        runs[mode] = {"toks": [eng.result(r) for r in rids], "rows": rows,
+                      "cache": sched.pool.cache, "runner": runner,
+                      "pushes": pushes, "s": time.perf_counter() - t0}
+        del eng, sched
+    gr, er = runs["graph"], runs["eager"]
+    steps = len(gr["rows"])
+    check(len(rids) == len(plens) + 1, "the late request was not submitted")
+    check(gr["toks"] == er["toks"], "graph and eager greedy tokens differ")
+    check(steps == len(er["rows"]) and steps >= 64,
+          f"{steps} graph steps against {len(er['rows'])} eager (>= 64)")
+    for i, ((ag, lg), (ae, le)) in enumerate(zip(gr["rows"], er["rows"])):
+        check(ag == ae and torch.equal(lg.view(torch.int32),
+                                       le.view(torch.int32)),
+              f"step {i}: graph and eager logits of the active rows differ")
+    for lg, le in zip(gr["cache"], er["cache"]):
+        for key in ("k", "v", "table", "pos", "start"):
+            a, b = carrier(lg[key]), carrier(le[key])
+            if a.dtype in (torch.bfloat16, torch.float32):
+                a, b = (x.view(torch.int16 if x.dtype == torch.bfloat16
+                               else torch.int32) for x in (a, b))
+            check(torch.equal(a, b), f"graph and eager pools differ ({key})")
+    between = [n for n in gr["pushes"] if 1 <= n < steps]
+    check(len(between) >= 2, "no admission and release between replays")
+    runner = gr["runner"]
+    check(runner.captures == 1 and runner.replays == steps - 1,
+          f"{runner.captures} captures, {runner.replays} replays for "
+          f"{steps} steps")
+    out = {"weights_kv": cfg.kv_quant, "decode_steps": steps,
+           "replays": runner.replays, "requests": len(rids),
+           "push_tables_between_replays": len(between),
+           "active_rows_compared": sum(len(a) for a, _ in gr["rows"]),
+           "logits_bit_identical": True, "pools_identical": True,
+           "tokens_equal": True, "graph_run_s": round(gr["s"], 2),
+           "eager_run_s": round(er["s"], 2)}
+    del runs, gr, er
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, sort_keys=False))
 
@@ -1435,11 +1759,12 @@ def main() -> int:
           nar_rows_poisoned=poisoned, tolerance=ATTN_ATOL)
 
     # -- kernel times at the main path's shapes ---------------------------
-    # the codec pair (decode and encode kernels of codec.cu) is one entry:
-    # on the serving path the encode kernel writes every K/V append (timed
-    # here at one layer's K append of a prefill chunk); the decode kernel
-    # is the standalone op, its device function inlined into the matmul
-    # and attention kernels (timed at a weight-sized word tensor)
+    # the codec pair (decode and encode kernels of codec.cu) is one entry,
+    # headed by the decode at a weight-sized word tensor (the standalone
+    # op; its device function is inlined into the matmul and attention
+    # kernels), with its library call; the standalone encode writes the
+    # wire weights and the activations entering each LNS matmul (the K/V
+    # words of every layer call are the fused append's, phase 19)
     def codec_times(fn, plain, x, nbytes, iters, spec=t8):
         b_ms, b_by = bound(nbytes, 0)
         return {"shape": list(x.shape),
@@ -1448,32 +1773,33 @@ def main() -> int:
                                     warmup=1),
                 "bound_ms": b_ms, "bound_by": b_by}
 
-    kv_prefill = torch.randn((1, ps, hkv, hd), device=dev)
-    kv_step = torch.randn((4, 1, hkv, hd), device=dev)
     w_f32 = torch.randn((5120, 17920), device=dev)
     w_t8 = takum_codec.encode(w_f32, t8)
     codec_t = {
-        "encode_kv_prefill_chunk": codec_times(
-            takum_codec.encode, ref.encode_ref, kv_prefill,
-            kv_prefill.numel() * 5, 200),
-        "encode_kv_decode_step": codec_times(
-            takum_codec.encode, ref.encode_ref, kv_step,
-            kv_step.numel() * 5, 200),
         "encode_weights": codec_times(
             takum_codec.encode, ref.encode_ref, w_f32,
             w_f32.numel() * 5, 20),
         "decode_weights": codec_times(
             takum_codec.decode, ref.decode_ref, w_t8,
             w_t8.numel() * 5, 20)}
+    codec_t["decode_weights"].update(table_library(torch, w_t8, t8))
     del w_f32, w_t8
-    main_t = codec_t["encode_kv_prefill_chunk"]
+    main_t = codec_t["decode_weights"]
     kernels["takum_codec"] = dict(
         route="cuda", source="src/repro_torch/csrc/codec.cu",
-        replaces="src/repro/kernels/takum_codec.py:73",
-        also_replaces="src/repro/kernels/takum_codec.py:56",
+        replaces="src/repro/kernels/takum_codec.py:56",
+        also_replaces="src/repro/kernels/takum_codec.py:73 (the standalone "
+                      "encode; the KV append is the kv_append entry)",
         max_abs_err=codec_worst, shape=main_t["shape"], ms=main_t["ms"],
         plain_ms=main_t["plain_ms"], bound_ms=main_t["bound_ms"],
-        bound_by=main_t["bound_by"], library_ms=None, detail=codec_t)
+        bound_by=main_t["bound_by"], library_ms=main_t["library_ms"],
+        library_call=main_t["library_call"],
+        encode_library_call="none: no single PyTorch op rounds to takum or "
+                            "posit words",
+        launches_path="the standalone decode and encode launches of the "
+                      "serving runs, phases 5 / 10 / 15 / 18 (the LNS "
+                      "activations of phase 10)",
+        detail=codec_t)
     detail["codec_times"] = codec_t
     # qmatmul: every projection shape of a layer, decode and prefill, for
     # takum8 (the plain version timed beside it) and takum16
@@ -1613,25 +1939,30 @@ def main() -> int:
     # -- 5. serving at full width -----------------------------------------
     wrappers = {"takum_decode": takum_codec.decode,
                 "takum_encode": takum_codec.encode,
+                "kv_append": takum_codec.kv_append,
                 "qmatmul": takum_matmul.qmatmul,
                 "lns_matmul": klns.lns_matmul,
                 "attention": kattn.attention,
                 "paged_attention": kattn.paged_attention,
                 "fake_quant": kquant.fake_quant,
                 "posit8_lut": build.posit8_lut}
-    entry_of = {"takum_decode": "takum_codec", "takum_encode": "takum_codec"}
     serve = serve_full_width(torch, dev, wfmt="takum8", kv="takum8",
-                             plens=(77, 300, 520, 1024), max_new=16,
+                             plens=PHASE5_PLENS, max_new=16,
                              max_len=1280, wrappers=wrappers)
     serve["card"] = card
     launches = serve["launches"]
-    for k in wrappers:
-        if entry_of.get(k, k) in kernels:
-            entry = kernels[entry_of.get(k, k)]
-            entry["launches"] = entry.get("launches", 0) + launches[k]
-    for k, entry in kernels.items():
-        check(entry["launches"] > 0, f"kernel {k} was not launched by the "
+    # the kernels of this path: the K/V words through the fused append,
+    # none through the standalone codec
+    for k in ("kv_append", "qmatmul", "attention", "paged_attention"):
+        check(launches[k] > 0, f"kernel {k} was not launched by the "
               "serving run")
+    check(launches["takum_encode"] == 0 and launches["takum_decode"] == 0,
+          "the takum8 serving run launched the standalone codec")
+    for k in ("qmatmul", "attention", "paged_attention"):
+        kernels[k]["launches"] = launches[k]
+    kernels["takum_codec"]["launches"] = (launches["takum_decode"]
+                                          + launches["takum_encode"])
+    kv_append_launches = {"5": launches["kv_append"]}
     phase(5, "serving phi3-medium-14b full width", **serve)
     detail["serving"] = serve
 
@@ -1726,11 +2057,12 @@ def main() -> int:
 
     # -- 10. LNS serving at full width ----------------------------------------
     lserve = serve_full_width(torch, dev, wfmt="lns-takum8", kv="lns-takum8",
-                              plens=(100, 200), max_new=8, max_len=512,
+                              plens=PHASE10_PLENS, max_new=8, max_len=512,
                               wrappers=wrappers)
     lserve["card"] = card
     ll = lserve["launches"]
     lpath = {"takum_codec": ll["takum_decode"] + ll["takum_encode"],
+             "kv_append": ll["kv_append"],
              "lns_matmul": ll["lns_matmul"], "attention": ll["attention"],
              "paged_attention": ll["paged_attention"]}
     for k, v in lpath.items():
@@ -1738,6 +2070,8 @@ def main() -> int:
     check(ll["qmatmul"] == 0, "the LNS serving run launched the takum "
           "wire matmul")
     kernels["lns_matmul"]["launches"] = lpath["lns_matmul"]
+    kernels["takum_codec"]["launches"] += lpath["takum_codec"]
+    kv_append_launches["10"] = lpath["kv_append"]
     for k in ("takum_codec", "attention", "paged_attention"):
         kernels[k]["launches_lns_serving"] = lpath[k]
     phase(10, "serving phi3-medium-14b full width, lns-takum8", **lserve)
@@ -1791,12 +2125,12 @@ def main() -> int:
     # -- 15. posit serving at full width --------------------------------------
     p8 = formats.get("posit8")
     pserve = serve_full_width(torch, dev, wfmt="posit8", kv="posit8",
-                              plens=(100, 200), max_new=8, max_len=512,
+                              plens=PHASE10_PLENS, max_new=8, max_len=512,
                               wrappers=wrappers)
     pserve["card"] = card
     pserve["posit8_decode"] = "table" if p8.lut_decode(dev) else "computed"
     pl = pserve["launches"]
-    ppath = {"takum_codec": pl["takum_decode"] + pl["takum_encode"],
+    ppath = {"kv_append": pl["kv_append"],
              "qmatmul": pl["qmatmul"], "attention": pl["attention"],
              "paged_attention": pl["paged_attention"],
              "posit8_lut": pl["posit8_lut"]}
@@ -1806,8 +2140,11 @@ def main() -> int:
                   "run")
     check(pl["lns_matmul"] == 0, "the posit serving run launched the LNS "
           "matmul")
-    for k in ("takum_codec", "qmatmul", "attention", "paged_attention"):
+    kernels["takum_codec"]["launches"] += (pl["takum_decode"]
+                                           + pl["takum_encode"])
+    for k in ("qmatmul", "attention", "paged_attention"):
         kernels[k]["launches_posit_serving"] = ppath[k]
+    kv_append_launches["15"] = ppath["kv_append"]
     phase(15, "serving phi3-medium-14b full width, posit8", **pserve)
     detail["serving_posit"] = pserve
 
@@ -1851,9 +2188,8 @@ def main() -> int:
         max_abs_err=pcodec["posit8 table"]["decode_max_abs_err"],
         shape=lut_t["shape"], ms=lut_t["ms"], plain_ms=lut_t["plain_ms"],
         bound_ms=lut_t["bound_ms"], bound_by=lut_t["bound_by"],
-        library_ms=None,
-        library_call="none: no PyTorch call decodes posit words",
         computed_ms=pcodec_t["posit8 computed decode_weights"]["ms"],
+        library_ms=lut_t["library_ms"], library_call=lut_t["library_call"],
         launches=ppath["posit8_lut"],
         launches_path="the kernels of the posit8 serving run (phase 15) "
                       "that decoded through the table",
@@ -1864,15 +2200,17 @@ def main() -> int:
     fattn = float_kv_attention_phase(torch, dev)
     fred = reduced_card_vs_cpu(torch, dev, wfmt="takum8", kv="none")
     fserve = serve_full_width(torch, dev, wfmt="takum8", kv="none",
-                              plens=(100, 200), max_new=8, max_len=512,
+                              plens=PHASE10_PLENS, max_new=8, max_len=512,
                               wrappers=wrappers)
     fserve["card"] = card
     fl = fserve["launches"]
-    for k in ("qmatmul", "attention", "paged_attention"):
+    for k in ("kv_append", "qmatmul", "attention", "paged_attention"):
         check(fl[k] > 0, f"kernel {k} was not launched by the float-KV "
               "serving run")
     check(fl["takum_encode"] == 0 and fl["lns_matmul"] == 0,
           "the float-KV serving run encoded words or ran the LNS matmul")
+    kernels["takum_codec"]["launches"] += fl["takum_decode"]
+    kv_append_launches["18"] = fl["kv_append"]
     phase(18, "float kv caches", attention=fattn, reduced_card_vs_cpu=fred,
           serving=fserve)
     detail["float_kv"] = {"attention": fattn, "reduced": fred,
@@ -1885,9 +2223,69 @@ def main() -> int:
     kernels["paged_attention"]["float_kv_device_ms"] = {
         dt: v["paged_device_ms"] for dt, v in fattn.items()}
 
+    # -- 19. the compiled decode step --------------------------------------
+    app = kv_append_phase(torch, dev)
+    app_t = kv_append_times(torch, dev)
+    compiled = {}
+    for wfmt, plens, max_new, late, ref_serve in (
+            ("takum8", PHASE5_PLENS, 16, (72, 24, 72, 72), serve),
+            ("lns-takum8", PHASE10_PLENS, 8, (72, 24), lserve)):
+        cfg19 = full_width_cfg(wfmt)
+        params19, _ = full_width_params(torch, dev, cfg19, wfmt)
+        eager = serve_full_width(torch, dev, wfmt=wfmt, kv=wfmt, plens=plens,
+                                 max_new=max_new,
+                                 max_len=1280 if wfmt == "takum8" else 512,
+                                 wrappers=wrappers, eager=True,
+                                 params=params19)
+        check(eager["launches"] == ref_serve["launches"],
+              f"{wfmt}: launch counts under replay {ref_serve['launches']} "
+              f"differ from the eager run's {eager['launches']}")
+        cmp = graph_vs_eager(torch, dev, params19, cfg19, plens=plens,
+                             max_new=late, late_at=40 if wfmt == "takum8"
+                             else 10, late_plen=150, late_new=32)
+        compiled[wfmt] = dict(
+            cmp, decode_ms_per_step=ref_serve["decode_ms_per_step"],
+            decode_ms_per_step_eager=eager["decode_ms_per_step"],
+            token_gap_ms_median=ref_serve["token_gap_ms_median"],
+            token_gap_ms_median_eager=eager["token_gap_ms_median"],
+            prefill_s=ref_serve["prefill_s"],
+            prefill_s_eager=eager["prefill_s"],
+            launches_equal_to_eager=True)
+        detail[f"serving_eager_{wfmt}"] = eager
+        del params19
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase(19, "compiled decode step", kv_append=app, kv_append_times=app_t,
+          **compiled, card=card,
+          tolerance="kv_append bit-exact against the plain append (NaN by "
+                    "place; LNS words through the encode kernel, and each "
+                    "within one step of the plain codec's); graph against "
+                    "eager: active-row logits and pools bit for bit, "
+                    "tokens equal")
+    detail["compiled_step"] = {"kv_append": app, "times": app_t, **compiled}
+    dec = app_t["paged"]
+    kernels["kv_append"] = dict(
+        route="cuda", source="src/repro_torch/csrc/codec.cu",
+        replaces="src/repro/kernels/takum_codec.py:73",
+        redesigned="fused K/V append, graph-replayed: one launch writes a "
+                   "layer's K and V words to their pages from device "
+                   "indices (was two encodes and two index_put)",
+        max_abs_err=0.0, shape=dec["shape"], ms=dec["ms"],
+        device_ms=dec["device_ms"], plain_ms=dec["plain_ms"],
+        bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
+        library_ms=None,
+        library_call="none: no single PyTorch op rounds to takum or posit "
+                     "words",
+        two_encodes_ms=dec["two_encodes_ms"],
+        launches=kv_append_launches["5"],
+        launches_by_phase=kv_append_launches,
+        prefill={k: app_t["contiguous"][k] for k in
+                 ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                  "bound_by", "two_encodes_ms")})
+
     # -- the kernels line and the last line --------------------------------
-    order = ["takum_codec", "qmatmul", "attention", "paged_attention",
-             "lns_matmul", "fake_quant", "posit8_lut"]
+    order = ["takum_codec", "kv_append", "qmatmul", "attention",
+             "paged_attention", "lns_matmul", "fake_quant", "posit8_lut"]
     line = {"kernels": [dict(name=k, **kernels[k]) for k in order]}
     detail.update(kernels=line["kernels"], card=card, device=name,
                   seconds=time.perf_counter() - t_start)

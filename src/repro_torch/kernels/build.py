@@ -30,7 +30,8 @@ from typing import Dict, Sequence
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "library", "check",
            "BUILD_INFO", "stream_of", "format_code", "KIND_CODES",
-           "POSIT8_LUT", "IDENTITY_BITS", "launched", "posit8_lut"]
+           "POSIT8_LUT", "IDENTITY_BITS", "launched", "posit8_lut",
+           "aligned"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -168,3 +169,9 @@ def stream_of(t) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned (the kernels' vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -19,7 +19,7 @@ from repro_torch.kernels import lns_matmul as klns
 from repro_torch.kernels import takum_attention as kattn
 from repro_torch.kernels import quantize, takum_codec, takum_matmul
 
-__all__ = ["takum_decode", "takum_encode", "fake_quant_fused",
+__all__ = ["takum_decode", "takum_encode", "kv_append", "fake_quant_fused",
            "quant_matmul", "lns_matmul", "takum_attention", "paged_attention",
            "WireMatrix"]
 
@@ -35,6 +35,16 @@ def takum_decode(words: torch.Tensor, fmt) -> torch.Tensor:
 def takum_encode(x: torch.Tensor, fmt) -> torch.Tensor:
     """Floats (any shape, cast to f32) -> wire words, RNE, saturating."""
     return takum_codec.encode(x, formats.resolve_wire(fmt))
+
+
+def kv_append(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
+              v_cache: torch.Tensor, fmt, *, pos, table=None) -> None:
+    """Write fresh ``k``/``v [B, T, Hkv, hd]`` into a KV cache in place,
+    in the cache's format (one launch of the fused append on CUDA): a
+    paged pool through ``table [B, NP]`` at the device ``pos [B]``, or a
+    contiguous cache at ``[:, pos:pos + T]``."""
+    takum_codec.kv_append(k, v, k_cache, v_cache, formats.resolve(fmt),
+                          pos=pos, table=table)
 
 
 def fake_quant_fused(x: torch.Tensor, n=None, *, dtype=torch.float32,

@@ -20,7 +20,8 @@ from repro_torch.core.bitops import carrier
 from repro_torch.core.quant import exp2i
 from repro_torch.core.takum import frac_width
 
-__all__ = ["decode_ref", "encode_ref", "takum8_table", "fake_quant_ref",
+__all__ = ["decode_ref", "encode_ref", "kv_append_ref", "takum8_table",
+           "fake_quant_ref",
            "fake_quant_lns_ref", "qmatmul_ref", "lns_qmatmul_ref", "lns_matmul_plain",
            "attention_ref", "paged_attention_ref", "MASKED"]
 
@@ -43,6 +44,33 @@ def takum8_table(device=None) -> torch.Tensor:
 def encode_ref(x, fmt) -> torch.Tensor:
     """float32 -> wire words (RNE, saturating)."""
     return formats.resolve(fmt).encode_tile(x)
+
+
+def kv_append_ref(k, v, k_cache, v_cache, fmt, *, pos, table=None,
+                  encode=encode_ref) -> None:
+    """The KV append of ``takum_codec.kv_append``, in place: ``k``/``v``
+    ``[B, T, Hkv, hd]`` in the cache's format (the identity codec casts to
+    the cache dtype, wire formats ``encode`` from f32, K then V), written
+    at ``(table[b, min(pos // ps, NP - 1)], pos % ps)`` of a paged pool
+    (``table`` given, T = 1) or at ``[:, pos:pos + T]`` of a contiguous
+    cache (``pos`` an int)."""
+    spec = formats.resolve(fmt)
+
+    def words(x, cache):
+        return (x.to(cache.dtype) if spec.is_identity
+                else encode(x.to(torch.float32), spec))
+
+    kw, vw = words(k, k_cache), words(v, v_cache)
+    if table is None:
+        index = (slice(None), slice(int(pos), int(pos) + k.shape[1]))
+    else:
+        ps = k_cache.shape[1]
+        pidx = torch.clamp(pos // ps, max=table.shape[1] - 1).long()
+        page = table.gather(1, pidx[:, None])[:, 0].long()
+        index = (page, (pos % ps).long())
+        kw, vw = kw[:, 0], vw[:, 0]
+    carrier(k_cache)[index] = carrier(kw)
+    carrier(v_cache)[index] = carrier(vw)
 
 
 def fake_quant_ref(x, fmt, dtype=torch.float32, *,

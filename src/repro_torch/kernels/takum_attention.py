@@ -103,12 +103,6 @@ def _check(q4, kw, vw, spec):
     return bits, code
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the kernels' vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
               pos: int, start=None, *, spec: FormatSpec, tq: int,
               bk=None, window: int = 0) -> torch.Tensor:
@@ -128,8 +122,8 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     if rows % tq:
         raise ValueError(f"rows {rows} not a multiple of tq {tq}")
     bk = min(bk or DEFAULT_BK, -(-kw.shape[1] // 8) * 8)
-    q4 = _aligned(q4.to(torch.float32))
-    kw, vw = _aligned(kw), _aligned(vw)
+    q4 = build.aligned(q4.to(torch.float32))
+    kw, vw = build.aligned(kw), build.aligned(vw)
     start = (torch.zeros(b, dtype=torch.int32, device=q4.device)
              if start is None else
              torch.as_tensor(start, device=q4.device).reshape(b)
@@ -219,7 +213,7 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         raise ValueError(f"table {tuple(table.shape)} for batch {b}")
     if q4.dtype != torch.float32 or not q4.is_contiguous():
         q4 = q4.to(torch.float32).contiguous()
-    kw, vw = _aligned(kw), _aligned(vw)
+    kw, vw = build.aligned(kw), build.aligned(vw)
     pos = _per_seq(pos, b, dev)
     start = _per_seq(0 if start is None else start, b, dev)
     ps, npg = kw.shape[1], table.shape[1]

@@ -10,13 +10,16 @@ The attention here covers the two cached branches the serving path runs:
   "pos"/"start": [B]}`` (decode steps), through ``ops.paged_attention``.
 
 New K/V are encoded to the cache's wire format and written into the cache
-tensors **in place** (the JAX package returns updated copies; in-place
-writes keep the serving loop from copying whole caches every step).
+tensors **in place**, one fused append a layer (``ops.kv_append``; the JAX
+package returns updated copies; in-place writes keep the serving loop from
+copying whole caches every step). Nothing in the paged branch reads a
+device value back to the host, so a decode step can be captured in a CUDA
+graph (``serve/graphs.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,15 +55,30 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+_FREQS: Dict[Tuple[int, float, str], torch.Tensor] = {}
+
+
+def _rope_freqs(half: int, base: float, dev) -> torch.Tensor:
+    """base^(-i / half), i < half, on ``dev``: computed once per (half,
+    base, device) by the same device ops at every call (so the bits stay
+    the same), and reused, so that a captured step makes no host copy."""
+    key = (half, float(base), str(dev))
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        log_base = torch.log(torch.tensor(base, dtype=torch.float32,
+                                          device=dev))
+        freqs = torch.exp(-log_base * torch.arange(
+            half, dtype=torch.float32, device=dev) / half)
+        _FREQS[key] = freqs
+    return freqs
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          base: float = 10_000.0) -> torch.Tensor:
     """x [..., T, H, hd]; positions [..., T]."""
     hd = x.shape[-1]
     half = hd // 2
-    dev = x.device
-    log_base = torch.log(torch.tensor(base, dtype=torch.float32, device=dev))
-    freqs = torch.exp(-log_base * torch.arange(half, dtype=torch.float32,
-                                               device=dev) / half)
+    freqs = _rope_freqs(half, base, x.device)
     ang = positions[..., :, None].to(torch.float32) * freqs    # [..., T, half]
     ang = ang[..., None, :]                                    # [..., T, 1, half]
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -90,17 +108,6 @@ def _proj_qkv(params, x, n_heads, n_kv_heads, head_dim, rope_base,
     return rope(q, positions, rope_base), rope(k, positions, rope_base), v
 
 
-def _encode_kv(k, v, cache, kv_quant: str):
-    """Fresh k/v in the cache's format: (spec, kw, vw). The identity
-    codec casts to the cache dtype; wire codecs encode (the encode kernel
-    on CUDA)."""
-    spec = formats.resolve(kv_quant)
-    if spec.is_identity:
-        return spec, k.to(cache["k"].dtype), v.to(cache["v"].dtype)
-    return (spec, ops.takum_encode(k.to(torch.float32), spec),
-            ops.takum_encode(v.to(torch.float32), spec))
-
-
 def put_words(dst: torch.Tensor, index, src: torch.Tensor) -> None:
     """``dst[index] = src`` in place, also for uint16 words (PyTorch's
     CPU ``index_put`` has no uint16: write through an int16 view of the
@@ -119,7 +126,7 @@ def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
         raise NotImplementedError("uncached attention is not in the port "
                                   "yet: serving always runs with a cache")
     q, k, v = _proj_qkv(params, x, h, hkv, hd, cfg.rope_base, positions)
-    spec, kw, vw = _encode_kv(k, v, cache, cfg.kv_quant)
+    spec = formats.resolve(cfg.kv_quant)
     if "table" in cache:
         # paged decode step: append this step's words at
         # (table[b, pos // ps], pos % ps), then attend through the block
@@ -131,12 +138,8 @@ def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
                 "prefill runs on a contiguous cache and is scattered "
                 "into pages by the scheduler")
         pos, table = cache["pos"], cache["table"]
-        ps = cache["k"].shape[1]
-        pidx = torch.clamp(pos // ps, max=table.shape[1] - 1).long()
-        page = table.gather(1, pidx[:, None])[:, 0].long()
-        off = (pos % ps).long()
-        put_words(cache["k"], (page, off), kw[:, 0])
-        put_words(cache["v"], (page, off), vw[:, 0])
+        ops.kv_append(k, v, cache["k"], cache["v"], spec, pos=pos,
+                      table=table)
         new_cache = dict(cache, pos=pos + 1)
         out = ops.paged_attention(q, cache["k"], cache["v"], table, spec,
                                   pos=pos, start=cache["start"],
@@ -147,8 +150,7 @@ def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
         if pos + t > cache["k"].shape[1]:
             raise ValueError(f"cache of {cache['k'].shape[1]} positions "
                              f"cannot take {t} more at {pos}")
-        put_words(cache["k"], (slice(None), slice(pos, pos + t)), kw)
-        put_words(cache["v"], (slice(None), slice(pos, pos + t)), vw)
+        ops.kv_append(k, v, cache["k"], cache["v"], spec, pos=pos)
         new_cache = dict(cache, pos=pos + t)
         out = ops.takum_attention(q, cache["k"], cache["v"], spec.n, spec,
                                   pos=pos, start=cache.get("start"),

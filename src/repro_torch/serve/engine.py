@@ -13,7 +13,10 @@ fake-quant kernel) and the KV cache holds ``cfg.kv_quant`` words
 
 The engine runs on ``cuda`` unless it is given ``device="cpu"``, where
 every kernel wrapper runs its plain PyTorch version; it never moves to
-the CPU on its own. Greedy decoding (temperature 0) gives the JAX
+the CPU on its own. On the card each scheduler replays its decode step
+from a CUDA graph (``serve/graphs.py``, the reference's
+``jax.jit(_step_paged)``); inside :func:`disable_graphs` it runs the step
+eagerly. Greedy decoding (temperature 0) gives the JAX
 package's tokens; sampled tokens come from a per-request
 ``torch.Generator`` and match the reference's distribution, not its
 threefry draws.
@@ -38,10 +41,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.takum_attention import DEFAULT_BK
 from repro_torch.models.layers import DTYPES
 from repro_torch.models.transformer import cast_params
+from repro_torch.serve.graphs import disable_graphs
 from repro_torch.serve.paged import pages_for
 from repro_torch.serve.scheduler import Scheduler, StreamEvent, sample_rows
 
-__all__ = ["ServeEngine", "quantize_weights", "sample_rows"]
+__all__ = ["ServeEngine", "quantize_weights", "sample_rows", "disable_graphs"]
 
 _DEFAULT_SKIP = ("embed", "unembed", "scale", "norm")
 # leaves consumed through a plain ``x @ w`` (the only ones wired)

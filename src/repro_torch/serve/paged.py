@@ -13,9 +13,10 @@ reads. Conventions, as in the JAX package:
   frees). Misuse raises :class:`PagePoolError`;
 * recycled pages are not zeroed: the causal mask excludes positions past
   a sequence's ``pos``;
-* the host mirrors of ``table``/``pos``/``start`` are installed into the
-  device cache by :meth:`push_tables` when the active set changes; the
-  decode step advances the device ``pos`` itself.
+* the host mirrors of ``table``/``pos``/``start`` are copied into the
+  device cache's tensors by :meth:`push_tables` when the active set
+  changes (in place: a captured decode step reads them at fixed
+  addresses); the decode step advances the device ``pos`` itself.
 """
 
 from __future__ import annotations
@@ -194,15 +195,16 @@ class PagePool:
                                 "device cache")
 
     def push_tables(self) -> None:
-        """Install the host ``table``/``pos``/``start`` into every
-        layer's cache (one shared tensor of each)."""
+        """Copy the host ``table``/``pos``/``start`` into the device
+        tensors every layer's cache shares, in place: the tensors stay
+        the same objects (a CUDA graph of the decode step reads them)."""
         self._require_cache()
-        dev = self.cache[0]["k"].device
-        table = torch.from_numpy(self.table.copy()).to(dev)
-        pos = torch.from_numpy(self.pos.copy()).to(dev)
-        start = torch.from_numpy(self.start.copy()).to(dev)
-        for layer in self.cache:
-            layer["table"], layer["pos"], layer["start"] = table, pos, start
+        first = self.cache[0]
+        for key in ("table", "pos", "start"):
+            dst = first[key]
+            dst.copy_(torch.from_numpy(getattr(self, key)))
+            for layer in self.cache[1:]:
+                layer[key] = dst
 
     def scatter_prefill(self, contig_caches, pages: Sequence[int], *,
                         first_page: int = 0) -> None:

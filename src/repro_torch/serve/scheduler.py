@@ -17,7 +17,9 @@ Serving as a stream, as in the JAX package's scheduler:
   private contiguous cache seeded with the shared prefix
   (``gather_prefix``), then scattered into pages (``scatter_prefill``);
 * **decode packs** every active sequence into one fixed-width step over
-  the paged pool; idle slots point at the scratch page;
+  the paged pool; idle slots point at the scratch page. On the card the
+  step is replayed from a CUDA graph (:class:`~repro_torch.serve.graphs.
+  DecodeStep`, the reference's ``jax.jit(_step_paged)``);
 * **release is immediate**: the step a sequence emits EOS or reaches
   ``max_new``, its pages are unreferenced.
 
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import model
+from repro_torch.serve.graphs import DecodeStep
 from repro_torch.serve.paged import AdmissionError, PagePool, pages_for
 from repro_torch.serve.prefix import PrefixCache, PrefixPlan
 
@@ -125,6 +128,7 @@ class Scheduler:
                              max_pages=max_pages, device=engine.device)
         self.prefix: Optional[PrefixCache] = \
             PrefixCache(self.pool) if prefix_cache else None
+        self.step = DecodeStep(engine, self.pool)
         self._queue: List[Request] = []
         self._requests: Dict[int, Request] = {}
         self._slots: List[Optional[Request]] = [None] * decode_batch
@@ -360,14 +364,11 @@ class Scheduler:
                   if s is not None and s.state == "active"]
         if not active:
             return
-        eng = self.engine
         tok = torch.zeros((self.decode_batch, 1), dtype=torch.long)
         for i in active:
             tok[i, 0] = self._slots[i].generated[-1]
         pos = torch.from_numpy(self.pool.pos[:, None].astype(np.int64))
-        logits, self.pool.cache = model.decode_step(
-            eng.params, tok.to(eng.device), eng.cfg, self.pool.cache,
-            pos=pos.to(eng.device))
+        logits = self.step(tok, pos)
         self.pool.advance(active)
         toks = self._sample(logits[active], [self._slots[i] for i in active])
         events = []

@@ -10,6 +10,7 @@ no CPU mode). Run on a GPU host with::
 This file imports no JAX: the card's host has none.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -25,6 +26,7 @@ from repro_torch.kernels import lns_matmul as klns
 from repro_torch.kernels import (ops, quantize, ref, takum_attention,
                                  takum_codec, takum_matmul)
 from repro_torch.models import transformer
+from repro_torch.serve import graphs
 from repro_torch.serve.engine import ServeEngine, quantize_weights
 
 pytestmark = pytest.mark.gpu
@@ -786,3 +788,163 @@ def test_posit_and_fake_quant_wrappers_count_launches(dev):
     ops.fake_quant_fused(torch.randn(10), 8, fmt="posit")   # CPU: plain
     assert takum_matmul.qmatmul.launches == n0 + 1
     assert quantize.fake_quant.launches == q0 + 1
+
+
+# -- the fused KV append and the decode step replayed from a CUDA graph ------
+
+
+def _kv_bits(t: torch.Tensor) -> torch.Tensor:
+    """A cache's bits as integers (float caches through their int view)."""
+    t = carrier(t)
+    return {torch.bfloat16: lambda: t.view(torch.int16),
+            torch.float32: lambda: t.view(torch.int32)}.get(
+        t.dtype, lambda: t)()
+
+
+def _same_cache(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit-exact; NaN by place in a float cache (payloads differ)."""
+    if got.dtype in (torch.bfloat16, torch.float32):
+        nan = torch.isnan(want)
+        return (torch.equal(torch.isnan(got), nan)
+                and torch.equal(_kv_bits(got)[~nan], _kv_bits(want)[~nan]))
+    return torch.equal(_kv_bits(got), _kv_bits(want))
+
+
+def _append_inputs(kv, shape, cache_shape, seed, in_dtype):
+    spec, dtype = kv
+    g = torch.Generator().manual_seed(seed)
+    k, v = (torch.randn(shape, generator=g)
+            * 2.0 ** torch.randint(-20, 20, shape, generator=g)
+            for _ in range(2))
+    k.view(-1)[:5] = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                                   float("nan")])
+    k, v = k.to(in_dtype), v.to(in_dtype)
+    kc, vc = (_cache(spec, cache_shape, g, dtype) for _ in range(2))
+    return k, v, kc, vc
+
+
+def _plain_append(kv, k, v, kc, vc, **where):
+    """The plain version on the card; LNS words through the encode kernel
+    (one logf on each side: the plain codec's log may round an ell_bar tie
+    the other way, which phase 7 of chip_smoke.py bounds)."""
+    spec = kv[0]
+    enc = takum_codec.encode if spec.kind == "lns" else ref.encode_ref
+    ref.kv_append_ref(k, v, kc, vc, spec, encode=enc, **where)
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+def test_kv_append_paged_matches_plain(dev, kv, in_dtype):
+    """An active row, an idle slot on the scratch page and one whose stale
+    pos lies past its table, one launch for K and V."""
+    k, v, kc, vc = _append_inputs(kv, (4, 1, 2, 16), (7, 8, 2, 16), 21,
+                                  in_dtype)
+    table = torch.tensor([[1, 2], [3, 4], [0, 0], [5, 6]], dtype=torch.int32)
+    pos = torch.tensor([11, 3, 0, 999], dtype=torch.int32)
+    wk, wv = kc.to(dev), vc.to(dev)
+    _plain_append(kv, k.to(dev), v.to(dev), wk, wv, pos=pos.to(dev),
+                  table=table.to(dev))
+    gk, gv = kc.to(dev), vc.to(dev)
+    n0 = takum_codec.kv_append.launches
+    takum_codec.kv_append(k.to(dev), v.to(dev), gk, gv, kv[0],
+                          pos=pos.to(dev), table=table.to(dev))
+    assert takum_codec.kv_append.launches == n0 + 1
+    assert _same_cache(gk, wk) and _same_cache(gv, wv)
+
+
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+def test_kv_append_contiguous_matches_plain(dev, kv):
+    k, v, kc, vc = _append_inputs(kv, (2, 5, 2, 16), (2, 24, 2, 16), 22,
+                                  torch.float32)
+    wk, wv = kc.to(dev), vc.to(dev)
+    _plain_append(kv, k.to(dev), v.to(dev), wk, wv, pos=7)
+    gk, gv = kc.to(dev), vc.to(dev)
+    takum_codec.kv_append(k.to(dev), v.to(dev), gk, gv, kv[0], pos=7)
+    assert _same_cache(gk, wk) and _same_cache(gv, wv)
+
+
+def _serve_twice(kv, wfmt=None):
+    """The reduced config served on the card with the step replayed from
+    a graph and under ``disable_graphs``: four requests, one finishing
+    early, a fifth submitted mid-run and admitted when a slot frees (a
+    push_tables between replays). Per mode: tokens, each step's (active
+    slots, their logits), the pool, the launch counts, the step runner."""
+    cfg, params = _reduced(kv, wfmt)
+    rng = np.random.default_rng(5)
+    prompts = [list(rng.integers(0, cfg.vocab, n)) for n in (16, 9, 4, 13, 7)]
+    out = {}
+    for mode in ("graph", "eager"):
+        eng = ServeEngine(params, cfg, max_len=64, page_size=16,
+                          decode_batch=4, device="cuda")
+        sched = eng.scheduler()
+        runner, rows = sched.step, []
+
+        def rec(tok, pos, runner=runner, rows=rows, sched=sched):
+            logits = runner(tok, pos)
+            act = [i for i, s in enumerate(sched._slots)
+                   if s is not None and s.state == "active"]
+            rows.append((act, logits[act].clone()))
+            return logits
+
+        sched.step = rec
+        c0 = graphs._read_counters()
+        with (graphs.disable_graphs() if mode == "eager" else
+              contextlib.nullcontext()):
+            rids = [eng.submit(p, m) for p, m in zip(prompts, (24, 5, 24,
+                                                               24))]
+            for n, _ in enumerate(eng.run()):
+                if n == 12:
+                    rids.append(eng.submit(prompts[4], 10))
+        torch.cuda.synchronize()
+        out[mode] = dict(toks=[eng.result(r) for r in rids], rows=rows,
+                         pool=sched.pool, runner=runner,
+                         counts=[b - a for a, b in
+                                 zip(c0, graphs._read_counters())])
+    return out
+
+
+@pytest.mark.parametrize("kv,wfmt", [("takum8", None),
+                                     ("lns-takum8", "lns-takum16"),
+                                     ("none", "takum8")])
+def test_graph_replay_matches_eager(dev, kv, wfmt):
+    out = _serve_twice(kv, wfmt)
+    g, e = out["graph"], out["eager"]
+    assert g["runner"].captures == 1 and g["runner"].replays >= 20
+    assert e["runner"].captures == 0
+    assert g["toks"] == e["toks"]
+    assert len(g["rows"]) == len(e["rows"])
+    for (ag, lg), (ae, le) in zip(g["rows"], e["rows"]):
+        assert ag == ae
+        assert torch.equal(lg.view(torch.int32), le.view(torch.int32))
+    for lg, le in zip(g["pool"].cache, e["pool"].cache):
+        for key in ("k", "v", "table", "pos", "start"):
+            assert torch.equal(_kv_bits(lg[key]), _kv_bits(le[key])), key
+
+
+def test_launch_counts_equal_under_replay(dev):
+    out = _serve_twice("takum8")
+    assert out["graph"]["counts"] == out["eager"]["counts"]
+    names = [f"{m}.{f}.{a}" for m, f, a in graphs.COUNTERS]
+    counts = dict(zip(names, out["graph"]["counts"]))
+    assert counts["takum_codec.kv_append.launches"] > 0
+    assert counts["takum_codec.encode.launches"] == 0
+
+
+def test_a_step_that_cannot_be_captured_raises(dev, monkeypatch):
+    from repro_torch.models import model
+    cfg, params = _reduced("takum8")
+    eng = ServeEngine(params, cfg, max_len=32, page_size=16,
+                      decode_batch=2, device="cuda")
+    orig = model.decode_step
+
+    def syncing(*args, **kwargs):
+        logits, cache = orig(*args, **kwargs)
+        float(logits.sum())           # a host sync: refused in a capture
+        return logits, cache
+
+    monkeypatch.setattr(model, "decode_step", syncing)
+    with pytest.raises(RuntimeError):
+        eng.generate([[1, 2, 3]], 4)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    torch.cuda.synchronize()

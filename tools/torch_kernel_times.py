@@ -2,7 +2,8 @@
 build-time choices of its kernels, on one CUDA card.
 
     python3 tools/torch_kernel_times.py [--src DIR] [--attention] [--lns]
-        [--paged] [--serve N] [--variants] [--out F]
+        [--paged] [--serve N [--eager]] [--step-trace] [--variants]
+        [--out F]
 
 Times ``takum_matmul.qmatmul`` for takum8, takum16, posit8 (through the
 table) and posit16 words at every projection shape of a phi3-medium-14b
@@ -25,10 +26,23 @@ decode step (B 4, Hkv 10, G 4, hd 128, page 256, pos 76 / 520 / 1023 and
 an idle slot) for every KV format the tree's kernels take.
 
 ``--serve N`` also serves ``chip_smoke.py`` phase 5's (takum8 weights
-and KV cache) and phase 15's (posit8) requests at full width with N new
+and KV cache), phase 10's (lns-takum8), phase 15's (posit8) and phase
+18's (takum8 weights, a bf16 cache) requests at full width with N new
 tokens each, through ``chip_smoke.serve_full_width`` on the ``--src``
 tree, and keeps each run's decode step, median token gap and prefill
-time: the serving comparison of two trees under one harness.
+time: the serving comparison of two trees under one harness. The decode
+step is replayed from a CUDA graph where the tree does so; ``--eager``
+serves under its ``disable_graphs()`` instead (a tree without graphs
+always serves eagerly), so that an older tree, this tree eager and this
+tree replayed compare under one harness.
+
+``--step-trace`` (this checkout only) serves phase 5's and phase 10's
+requests at full width until the decode step has been captured, then
+replays the captured step alone: its device time per step (CUDA events
+over back-to-back replays) and a ``torch.profiler`` trace of a few
+replays, the device time summed by kernel (the port's kernels by name,
+cuBLAS, and the PyTorch ops between them): where a replayed step's time
+goes.
 
 ``--variants`` (this checkout's kernels only) also builds the sources
 again with the defines that undo one choice each, and times them against
@@ -213,28 +227,113 @@ def paged_times(torch, dev, names=KV_FORMATS):
     return out
 
 
-def serve_times(torch, dev, max_new):
-    """{"phase 5 takum8" | "phase 15 posit8": {...}}: chip_smoke.py's
-    serving runs of those phases with ``max_new`` new tokens a request."""
-    from chip_smoke import serve_full_width
+def serve_times(torch, dev, max_new, eager=False):
+    """{"phase 5 takum8" | "phase 10 lns-takum8" | "phase 15 posit8" |
+    "phase 18 bf16 cache": {...}}: chip_smoke.py's serving runs of those
+    phases with ``max_new`` new tokens a request (``eager``: under
+    ``disable_graphs()``)."""
+    from chip_smoke import PHASE5_PLENS, PHASE10_PLENS, serve_full_width
+    from repro_torch.kernels import lns_matmul as klns
     from repro_torch.kernels import takum_attention as kattn
     from repro_torch.kernels import takum_codec, takum_matmul
     wrappers = {"takum_decode": takum_codec.decode,
                 "takum_encode": takum_codec.encode,
                 "qmatmul": takum_matmul.qmatmul,
+                "lns_matmul": klns.lns_matmul,
                 "attention": kattn.attention,
                 "paged_attention": kattn.paged_attention}
+    if hasattr(takum_codec, "kv_append"):
+        wrappers["kv_append"] = takum_codec.kv_append
     keep = ("decode_ms_per_step", "decode_steps", "token_gap_ms_median",
-            "prefill_s", "prefill_chunks", "launches")
+            "prefill_s", "prefill_chunks", "step", "graphs_captured",
+            "capture_step_ms", "launches")
     out = {}
-    for name, fmt, plens in (("phase 5 takum8", "takum8",
-                              (77, 300, 520, 1024)),
-                             ("phase 15 posit8", "posit8", (100, 200))):
+    for name, wfmt, kv, plens in (
+            ("phase 5 takum8", "takum8", "takum8", PHASE5_PLENS),
+            ("phase 10 lns-takum8", "lns-takum8", "lns-takum8",
+             PHASE10_PLENS),
+            ("phase 15 posit8", "posit8", "posit8", PHASE10_PLENS),
+            ("phase 18 bf16 cache", "takum8", "none", PHASE10_PLENS)):
         max_len = -(-(max(plens) + max_new) // 256) * 256
-        serve = serve_full_width(torch, dev, wfmt=fmt, kv=fmt, plens=plens,
+        serve = serve_full_width(torch, dev, wfmt=wfmt, kv=kv, plens=plens,
                                  max_new=max_new, max_len=max_len,
-                                 wrappers=wrappers)
+                                 wrappers=wrappers, eager=eager)
         out[name] = {k: serve[k] for k in keep}
+    return out
+
+
+# kernel name fragments -> the group a trace sums them into
+TRACE_GROUPS = (("kv_append_kernel", "kv_append"),
+                ("encode_kernel", "encode (LNS activations)"),
+                ("attn_kernel", "paged attention"),
+                ("split_sum_kernel", "matmul K-split sums"),
+                ("stream_kernel", "wire / LNS matmul, streaming"),
+                ("gemm", "cuBLAS (bf16 unembed)"),
+                ("xmma", "cuBLAS (bf16 unembed)"),
+                ("cutlass", "cuBLAS (bf16 unembed)"))
+
+
+def step_trace(torch, dev, replays=50, traced=5):
+    """{"phase 5 takum8" | "phase 10 lns-takum8": {...}}: the captured
+    decode step of those phases' serving runs, replayed alone."""
+    from chip_smoke import (PHASE5_PLENS, PHASE10_PLENS, full_width_cfg,
+                            full_width_params)
+    from repro_torch.serve.engine import ServeEngine
+    out = {}
+    for name, fmt, plens in (("phase 5 takum8", "takum8", PHASE5_PLENS),
+                             ("phase 10 lns-takum8", "lns-takum8",
+                              PHASE10_PLENS)):
+        cfg = full_width_cfg(fmt)
+        params, _ = full_width_params(torch, dev, cfg, fmt)
+        eng = ServeEngine(params, cfg, max_len=1280, page_size=256,
+                          decode_batch=4, device=dev)
+        sched = eng.scheduler()
+        g = torch.Generator().manual_seed(5)
+        for n in plens:
+            eng.submit(torch.randint(0, cfg.vocab, (n,), generator=g)
+                       .tolist(), 64)
+        run = eng.run()
+        while sched.step.replays < 3:       # the step captured, replayed
+            next(run)
+        run.close()                         # the replays below move pos
+        graph = next(iter(sched.step._graphs.values())).graph
+        graph.replay()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(replays):
+            graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(traced):
+                graph.replay()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue        # host ops: their kernels are counted below
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0)
+            if t > 0:
+                by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e3 / traced
+        groups = {}
+        for key, ms in by_kernel.items():
+            group = next((g for frag, g in TRACE_GROUPS if frag in key),
+                         "PyTorch ops between the kernels")
+            groups[group] = groups.get(group, 0.0) + ms
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+        out[name] = {"replay_device_ms": t0.elapsed_time(t1) / replays,
+                     "traced_device_ms": sum(by_kernel.values()) or None,
+                     "by_group_ms": groups,
+                     "top_kernels_ms": [[k[:120], v] for k, v in top],
+                     "kernels_traced": len(by_kernel)}
+        del eng, sched, graph, params, run
+        torch.cuda.empty_cache()
     return out
 
 
@@ -382,6 +481,8 @@ def main() -> int:
     ap.add_argument("--lns", action="store_true")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--serve", type=int, default=0, metavar="N")
+    ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--step-trace", action="store_true")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -419,7 +520,9 @@ def main() -> int:
     if args.paged:
         res["paged_ms"] = paged_times(torch, dev)
     if args.serve:
-        res["serve"] = serve_times(torch, dev, args.serve)
+        res["serve"] = serve_times(torch, dev, args.serve, args.eager)
+    if args.step_trace:
+        res["step_trace"] = step_trace(torch, dev)
     if args.variants:
         res["variants_ms"] = variant_times(torch, dev)
     if args.out:
