@@ -109,7 +109,35 @@ Phases, one summary line each; any failure exits non-zero:
     phases 5 and 10, launch counts equal), and served twice more, replayed
     and eager, for at least 64 decode steps with a short request released
     and one more admitted mid-run: active-row logits bit-identical every
-    step, K/V pools byte-identical, greedy tokens equal.
+    step, K/V pools byte-identical, greedy tokens equal;
+20. lockstep at full width (takum8 weights and KV, the weights built once
+    more for phases 20-22): phase 5's prompts left-padded into one
+    ``generate_lockstep`` batch, 16 new tokens each (prefill seconds and
+    the eager ``decode_ms_per_step``, every forward synchronised); each
+    prompt served alone through the paged scheduler gives the tokens of
+    the same prompt alone through lockstep and of its row of the batch
+    when that row has no padding (equal, or parting at a bf16 tie:
+    ``TIE_REL``); a left-padded row sits at positions shifted by its
+    start, where its rotated bf16 q and k round otherwise (the layer-0
+    score change is reported), and is reported, not held; the
+    fresh-prefill attention (``_sdpa_chunked``) on one 2048-token layer
+    input against the unchunked ``_sdpa`` within ``FRESH_REL`` of the
+    largest output; and contiguous attention at the lockstep step's shape
+    (tq = 1, rows = G = 4, each row's left-pad ``start``) against its
+    plain version, with its event and graph times, bound and SDPA's time;
+21. the failure model at full width (decode batch 4, a pool of 8 pages
+    of 256): a priority-5 request preempts, a request is cancelled and
+    one passes its deadline on a fake clock; without faults the preempted
+    request and its preemptor give their solo lockstep tokens (or part at
+    a bf16 tie); a second run with one NaR word injected into a live page
+    poisons that request alone, quarantines its pages and leaves every
+    other request as the first run left it; the decode step is captured
+    once through both runs;
+22. telemetry: phase 5's requests under ``REPRO_OBS`` unset, 1 and 2
+    give the same tokens; each request's span tree is closed; the trace
+    exports as Chrome JSON (``chiprun_out/trace_obs*.json``); no capture
+    after ``arm_steady``; at level 2 ``scan_nar`` counts exactly the NaR
+    words injected into live pages; ``decode_ms_per_step`` per level.
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
@@ -1528,11 +1556,11 @@ def graph_vs_eager(torch, dev, params, cfg, *, plens, max_new, late_at,
         runner, rows, pushes = sched.step, [], []
 
         def rec(tok, pos, runner=runner, rows=rows, sched=sched):
-            logits = runner(tok, pos)
+            logits, head = runner(tok, pos)
             act = [i for i, s in enumerate(sched._slots)
                    if s is not None and s.state == "active"]
             rows.append((act, logits[act].clone()))
-            return logits
+            return logits, head
 
         def push(orig=sched.pool.push_tables, rows=rows, pushes=pushes):
             pushes.append(len(rows))
@@ -1584,6 +1612,461 @@ def graph_vs_eager(torch, dev, params, cfg, *, plens, max_new, late_at,
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# the bf16 tie rule of tests/test_torch_serve.py: two greedy streams of
+# bf16 activations computed through other kernels may part only where the
+# reference stream's two best logits lie within 2^-5 of its largest logit
+# (a few bf16 units), and the other stream took the second of them
+TIE_REL = 2.0 ** -5
+# the fresh-prefill attention (bf16 q/k/v, the online softmax over two key
+# blocks, its accumulator in bf16) against the unchunked _sdpa on the same
+# inputs: both outputs are bf16, rounded at other points (p, p.v, the
+# accumulator after each block), so they may differ by a bf16 unit or two
+# at the largest output: |diff| <= FRESH_REL * max|out| (2^-6 relative is
+# 2 to 4 units of bf16's 8-bit significand)
+FRESH_REL = 2.0 ** -6
+
+
+class FakeClock:
+    """A scheduler clock that moves only when told (deadlines)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def lockstep_traced(torch, eng, prompts, max_new):
+    """``eng.generate_lockstep`` with each forward timed (synchronised on
+    both sides) and its logits' two best values and tokens kept: (tokens,
+    [(top2 values [B, 2], top2 ids [B, 2]) per forward], prefill s, decode
+    ms per step)."""
+    from repro_torch.models import model
+    orig_prefill, orig_step = model.prefill, model.decode_step
+    tops, walls = [], {"prefill": 0.0, "decode": 0.0, "steps": 0}
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls[key] += time.perf_counter() - t0
+            walls["steps"] += key == "decode"
+            top = torch.topk(logits.float(), 2, dim=-1)
+            tops.append((top.values.cpu(), top.indices.cpu()))
+            return logits, cache
+        return wrapped
+
+    model.prefill = timed(orig_prefill, "prefill")
+    model.decode_step = timed(orig_step, "decode")
+    try:
+        toks = eng.generate_lockstep(prompts, max_new)
+    finally:
+        model.prefill, model.decode_step = orig_prefill, orig_step
+    return (toks, tops, walls["prefill"],
+            1e3 * walls["decode"] / max(walls["steps"], 1))
+
+
+def tie_equal(want, tops, row, got, plen):
+    """Whether ``got`` equals the lockstep stream ``want`` (row ``row`` of
+    a traced lockstep run), or leaves it at a bf16 tie of the lockstep's
+    logits: "equal", "tie at i (gap g)" with g the two best logits'
+    difference over the largest, or None."""
+    if got == want:
+        return "equal"
+    i = next(i for i, (a, b) in enumerate(zip(want[plen:], got[plen:]))
+             if a != b)
+    vals, ids = tops[i]
+    v, t = vals[row].tolist(), ids[row].tolist()
+    if (v[0] - v[1] <= TIE_REL * abs(v[0])
+            and got[plen + i] == t[1] and want[plen + i] == t[0]):
+        return f"tie at {i} (gap {(v[0] - v[1]) / abs(v[0]):.2e})"
+    return None
+
+
+def lockstep_phase(torch, dev, params, cfg, wrappers, plens, max_new):
+    """Phase 20: phase 5's prompts left-padded into one lockstep batch at
+    full width; each prompt served alone through the paged scheduler
+    against the same prompt alone through lockstep (equal, or parting at
+    a bf16 tie), and against its row of the batch (the unpadded row must
+    agree so; the padded rows, whose positions are shifted by their
+    start, are reported with the layer-0 score change the shift makes);
+    the fresh-prefill attention against the unchunked ``_sdpa`` on one
+    2048-token layer input; contiguous attention at the lockstep decode
+    step's shape (tq = 1) timed against its bound and SDPA."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import takum_attention as kattn
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import CACHE_SLACK, ServeEngine
+    g = torch.Generator().manual_seed(5)       # phase 5's prompts
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in plens]
+    eng = ServeEngine(params, cfg, max_len=1280, page_size=256,
+                      decode_batch=4, device=dev)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks, tops, prefill_s, step_ms = lockstep_traced(torch, eng, prompts,
+                                                     max_new)
+    lock_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for k in ("kv_append", "qmatmul", "attention"):
+        check(launches[k] > 0, f"lockstep launched no {k}")
+    check(launches["paged_attention"] == 0,
+          "lockstep launched paged attention")
+    check(launches["attention"] == cfg.n_layers * (1 + max_new),
+          f"{launches['attention']} contiguous attention launches for "
+          f"{cfg.n_layers} layers x {1 + max_new} forwards")
+    # each prompt served alone through the scheduler, and alone through
+    # lockstep (no padding: the scheduler's positions); the batch's rows
+    # against the scheduler: a left-padded row sits at positions shifted
+    # by its start, and its rotated q/k round to other bf16 values there
+    # (measured below), so only rows without padding must give the
+    # scheduler's stream; the padded rows are reported
+    solo, batch_rows = {}, {}
+    for i, p in enumerate(prompts):
+        got = eng.generate([p], max_new)[0]
+        alone, tops1, _, _ = lockstep_traced(torch, eng, [p], max_new)
+        verdict = tie_equal(alone[0], tops1, 0, got, len(p))
+        check(verdict is not None, f"solo lockstep tokens of the {len(p)}-"
+              "token prompt differ from its scheduler run, not at a tie")
+        solo[len(p)] = verdict
+        row = tie_equal(toks[i], tops, i, got, len(p))
+        if len(p) == max(plens):
+            check(row is not None, "the unpadded lockstep row differs from "
+                  "its scheduler run, not at a tie")
+        first = next((j for j, (a, b) in enumerate(zip(toks[i], got))
+                      if a != b), None)
+        batch_rows[len(p)] = {"start": max(plens) - len(p), "verdict": row,
+                              "first_differing_token": (None if first is None
+                                                        else first - len(p))}
+    # the mechanism: layer 0's rotated q and k of the shortest prompt at
+    # its padded positions against positions from 0, as bf16 scores
+    p0 = eng.params["layers"][0]
+    x = L.embed(eng.params, torch.tensor([prompts[0]], device=dev),
+                torch.bfloat16)
+    xn = L.rmsnorm(p0["ln1"], x)
+    shift = max(plens) - plens[0]
+    scores = []
+    for off in (0, shift):
+        positions = torch.arange(plens[0], device=dev)[None] + off
+        q, k, _ = L._proj_qkv(p0["attn"], xn, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.hd, cfg.rope_base, positions)
+        # one query head of each KV head against that KV head's keys
+        scores.append(torch.einsum(
+            "bqhd,bkhd->bhqk",
+            q[:, :, ::cfg.n_heads // cfg.n_kv_heads].float(), k.float()))
+    rel = ((scores[0] - scores[1]).abs()
+           / scores[0].abs().clamp(min=1e-3)).median()
+    rope_shift = {"prompt": plens[0], "shift": shift,
+                  "layer0_score_rel_diff_median": float(rel)}
+    del x, xn, q, k, scores
+    check(all(len(o) == len(p) + max_new for o, p in zip(toks, prompts)),
+          "lockstep output has the wrong shape")
+    # the fresh branch: one layer's q/k/v at 2048 tokens, chunked against
+    # the unchunked attention under the causal mask
+    gx = torch.Generator(device=dev).manual_seed(20)
+    x = torch.randn((1, L.ATTN_CHUNK_T, cfg.d_model), device=dev,
+                    generator=gx).to(torch.bfloat16)
+    p0 = eng.params["layers"][0]
+    positions = torch.arange(L.ATTN_CHUNK_T, device=dev)[None]
+    q, k, v = L._proj_qkv(p0["attn"], L.rmsnorm(p0["ln1"], x), cfg.n_heads,
+                          cfg.n_kv_heads, cfg.hd, cfg.rope_base, positions)
+    fresh = L._sdpa_chunked(q, k, v)
+    full = L._sdpa(q, k, v, L.causal_mask(L.ATTN_CHUNK_T, L.ATTN_CHUNK_T,
+                                          device=dev))
+    fresh_err = float((fresh.float() - full.float()).abs().max())
+    fresh_max = float(full.float().abs().max())
+    check(bool(torch.isfinite(fresh).all())
+          and fresh_err <= FRESH_REL * fresh_max,
+          f"fresh-prefill attention off the unchunked one by {fresh_err} "
+          f"(largest output {fresh_max})")
+    fresh_ms = cuda_ms(torch, lambda: L._sdpa_chunked(q, k, v), iters=5)
+    del x, q, k, v, fresh, full
+    # contiguous attention at the lockstep decode step: B 4, rows G = 4
+    # per KV head, tq = 1, the cache rounded to 256-key tiles, each row's
+    # start its left padding
+    t8 = eng.params["layers"][0]["attn"]["wq"].spec
+    hkv, grp, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    plen = max(plens)
+    tmax = -(-(plen + max_new + CACHE_SLACK) // 256) * 256
+    pos = plen + max_new - 1
+    gd = torch.Generator(device=dev).manual_seed(20)
+    qd = torch.randn((4, 1, hkv * grp, hd), generator=gd, device=dev)
+    kc = ref.encode_ref(torch.randn((4, tmax, hkv, hd), generator=gd,
+                                    device=dev), t8)
+    vc = ref.encode_ref(torch.randn((4, tmax, hkv, hd), generator=gd,
+                                    device=dev), t8)
+    start = torch.tensor([plen - n for n in plens], dtype=torch.int32,
+                         device=dev)
+    q4 = kattn.to_rows(qd, hkv).contiguous()
+
+    def kernel():
+        return kattn.attention(q4, kc, vc, pos, start, spec=t8, tq=1)
+
+    got = kattn.from_rows(kernel(), 1)
+    want = ref.attention_ref(qd, kc, vc, 8, t8, pos=pos, start=start)
+    err = float((got - want).abs().max())
+    check(err <= ATTN_ATOL, f"contiguous attention at tq = 1 off by {err}")
+    keys = [pos - int(s) + 1 for s in start.tolist()]
+    b_ms, b_by = bound(q4.numel() * 4 * 2 + sum(keys) * hkv * hd * 2,
+                       4 * hd * grp * hkv * sum(keys) * tf32_products(t8),
+                       TF32_FLOPS)
+    kf = ref.decode_ref(kc, t8)[:, :pos + 1].transpose(1, 2)
+    vf = ref.decode_ref(vc, t8)[:, :pos + 1].transpose(1, 2)
+    j = torch.arange(pos + 1, device=dev)
+    keep = (j[None, :] >= start[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qf = qd.transpose(1, 2)
+
+    def library():
+        return sdpa(qf, kf, vf, attn_mask=keep, enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2) - got).abs().max())
+    tq1 = {"shape": list(q4.shape), "cache": [4, tmax, hkv, hd],
+           "pos": pos, "start": start.tolist(), "max_abs_err": err,
+           "ms": cuda_ms(torch, kernel, iters=100),
+           "device_ms": graph_ms(torch, kernel, iters=100),
+           "plain_ms": cuda_ms(torch, lambda: ref.attention_ref(
+               qd, kc, vc, 8, t8, pos=pos, start=start), iters=5),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(torch, library, iters=100),
+           "library_device_ms": graph_ms(torch, library, iters=100),
+           "library_max_abs_err": lib_err,
+           "library_call": "scaled_dot_product_attention(enable_gqa=True) "
+                           "on K/V decoded to f32 beforehand (not timed), "
+                           "boolean start mask",
+           "launches_lockstep": launches["attention"]}
+    del kc, vc, kf, vf, qd, q4, got, want
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prompts": list(plens), "max_new": max_new,
+            "generate_lockstep_s": round(lock_s, 3),
+            "prefill_s": round(prefill_s, 3),
+            "decode_ms_per_step": round(step_ms, 2),
+            "step": "eager (the contiguous attention takes pos as a host int)",
+            "solo_lockstep_vs_scheduler": solo,
+            "batch_rows_vs_scheduler": batch_rows,
+            "rope_shift": rope_shift, "launches": launches,
+            "fresh_branch": {"shape": [1, L.ATTN_CHUNK_T, cfg.n_heads, cfg.hd],
+                             "max_abs_err": fresh_err,
+                             "max_abs_out": fresh_max,
+                             "tolerance": f"{FRESH_REL:g} x max|out|",
+                             "ms": fresh_ms},
+            "attention_tq1": tq1}
+
+
+def failure_phase(torch, dev, params, cfg):
+    """Phase 21: the failure model at full width on one scheduler (decode
+    batch 4, 256-position pages, a pool of 8 allocatable pages: the four
+    first requests hold 7, the priority-5 one needs 5 and must preempt,
+    and whichever request a fault poisons, the pages left after its
+    quarantine still serve the rest): run A without faults, run B with
+    one NaR word injected into a live page; both with a cancelled request
+    and one past its deadline on a fake clock."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.faults import FaultInjector
+    g = torch.Generator().manual_seed(21)
+    lens = {"low": 300, "mid": 520, "deadline": 77, "cancel": 100,
+            "high": 1024}
+    prompts = {k: torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for k, n in lens.items()}
+    max_new = 16
+    clock = FakeClock()
+    eng = ServeEngine(params, cfg, max_len=1100, page_size=256,
+                      decode_batch=4, num_pages=9, prefix_cache=False,
+                      now_fn=clock, device=dev)
+    sched = eng.scheduler()
+    runs = {}
+    captures = []
+    for run in ("A", "B"):
+        clock.t = 0.0
+        rids = {k: eng.submit(prompts[k], max_new,
+                              deadline_ms=5000.0 if k == "deadline" else None)
+                for k in ("low", "mid", "deadline", "cancel")}
+        preempt0 = sched.preemptions
+        seen = {k: 0 for k in rids}
+        by_rid = {r: k for k, r in rids.items()}
+        injected = []
+        for ev in eng.run():
+            k = by_rid.get(ev.rid)
+            if k is not None and ev.status == "ok":
+                seen[k] += 1
+            if k == "low" and seen["low"] == 2 and "high" not in rids:
+                rids["high"] = eng.submit(prompts["high"], max_new,
+                                          priority=5)
+                by_rid[rids["high"]] = "high"
+                seen["high"] = 0
+            if k == "cancel" and seen["cancel"] == 2:
+                eng.cancel(rids["cancel"])
+            if "high" in rids and seen["high"] == 1 and clock.t == 0.0:
+                clock.t = 10.0            # past the 5 s deadline
+            if (run == "B" and "high" in rids and seen["high"] == 3
+                    and sched.injector is None and not injected):
+                sched.injector = FaultInjector(sched.pool, rate=1.0, seed=4,
+                                               kind="nar", target="live",
+                                               max_faults=1)
+                injected = sched.injector.injected
+            if sched.step.captures:
+                captures.append(sched.step.captures)
+        sched.injector = None
+        status = {k: eng.status(r) for k, r in rids.items()}
+        outs = {k: (eng.result(r) if status[k] == "done" else None)
+                for k, r in rids.items()}
+        runs[run] = {"status": status, "outs": outs,
+                     "preemptions": sched.preemptions - preempt0,
+                     "injected": [dataclasses.asdict(r) for r in injected],
+                     "quarantined": sorted(sched.pool.quarantined_pages())}
+        for r in rids.values():
+            eng.forget(r)
+    a, b = runs["A"], runs["B"]
+    check(a["preemptions"] >= 1, "run A: the priority-5 request preempted "
+          "nothing")
+    check(a["status"] == {"low": "done", "mid": "done", "deadline": "timeout",
+                          "cancel": "cancelled", "high": "done"},
+          f"run A statuses {a['status']}")
+    ties = {}
+    for k in ("low", "high"):
+        toks, tops, _, _ = lockstep_traced(torch, eng, [prompts[k]], max_new)
+        verdict = tie_equal(toks[0], tops, 0, a["outs"][k], lens[k])
+        check(verdict is not None, f"run A: the {k} request's tokens differ "
+              "from its solo lockstep run, not at a tie")
+        ties[k] = verdict
+    poisoned = [k for k, st in b["status"].items() if st == "poisoned"]
+    check(len(b["injected"]) == 1 and len(poisoned) == 1,
+          f"run B: {len(b['injected'])} faults, poisoned {poisoned}")
+    check(b["injected"][0]["page"] in b["quarantined"],
+          "run B: the corrupted page is not quarantined")
+    for k, st in a["status"].items():
+        if k in poisoned:
+            continue
+        check(b["status"][k] == st and b["outs"][k] == a["outs"][k],
+              f"run B: the {k} request moved ({st} -> {b['status'][k]})")
+    check(captures and len(set(captures)) == 1 and captures[-1] == 1,
+          f"the decode step was captured again: {sorted(set(captures))}")
+    out = {"pool_pages": 8, "page_size": 256, "decode_batch": 4,
+           "requests": lens, "max_new": max_new,
+           "run_a": {"status": a["status"], "preemptions": a["preemptions"]},
+           "run_b": {"status": b["status"], "preemptions": b["preemptions"],
+                     "fault": b["injected"][0],
+                     "quarantined_pages": b["quarantined"]},
+           "solo_lockstep": ties, "captures": sched.step.captures,
+           "replays": sched.step.replays}
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def telemetry_phase(torch, dev, params, cfg, plens, max_new):
+    """Phase 22: phase 5's requests served with ``REPRO_OBS`` unset, 1 and
+    2 (new engines, the same weights): the same tokens; every request's
+    span tree closed and rooted at ``request``; the trace exported as
+    Chrome JSON; no capture after ``arm_steady``; at level 2, ``scan_nar``
+    counts exactly the NaR words written into live pages."""
+    from repro_torch.obs import export
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.faults import FaultInjector
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in plens]
+    saved = os.environ.get("REPRO_OBS")
+    runs = {}
+    try:
+        for lvl in ("0", "1", "2"):
+            os.environ["REPRO_OBS"] = lvl
+            eng = ServeEngine(params, cfg, max_len=1280, page_size=256,
+                              decode_batch=4, device=dev)
+            sched = eng.scheduler()
+            wall = {"s": 0.0, "n": 0}
+            step = sched._decode_step
+
+            def timed_step(step=step, wall=wall, sched=sched):
+                busy = any(s is not None and s.state == "active"
+                           for s in sched._slots)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                events = list(step())
+                torch.cuda.synchronize()
+                if busy and sched.step.replays:     # the capture left out
+                    wall["s"] += time.perf_counter() - t0
+                    wall["n"] += 1
+                yield from events
+
+            sched._decode_step = timed_step
+            rids = [eng.submit(p, max_new) for p in prompts]
+            armed = False
+            for _ in eng.run():
+                if eng.obs is not None and not armed and sched.step.replays:
+                    eng.obs.arm_steady()
+                    armed = True
+            runs[lvl] = {"toks": [eng.result(r) for r in rids],
+                         "decode_ms_per_step": round(
+                             1e3 * wall["s"] / max(wall["n"], 1), 2)}
+            if lvl != "0":
+                tr = eng.obs.tracer
+                for r in rids:
+                    spans = tr.track_spans(r)
+                    check(tr.open_depth(r) == 0 and spans
+                          and spans[0].name == "request"
+                          and [s.depth for s in spans].count(0) == 1
+                          and all(s.t1 is not None and s.t1 >= s.t0
+                                  for s in spans),
+                          f"REPRO_OBS={lvl}: request {r}'s spans are "
+                          "incomplete")
+                check(eng.obs.steady_state_recompiles == 0,
+                      f"REPRO_OBS={lvl}: {eng.obs.steady_state_recompiles} "
+                      "captures after warm-up")
+                recs = eng.trace_records({"phase": 22, "obs": lvl})
+                doc = json.loads(json.dumps(export.chrome_trace(recs)))
+                out = ROOT / "chiprun_out"
+                out.mkdir(exist_ok=True)
+                (out / f"trace_obs{lvl}.json").write_text(json.dumps(doc))
+                runs[lvl].update(trace_events=len(doc["traceEvents"]),
+                                 spans=len(tr.spans),
+                                 instants=len(tr.instants))
+            if lvl == "2":
+                # a new request, then NaR words into its live pages
+                rid = eng.submit(prompts[1], max_new)
+                stream = eng.run()
+                next(stream)                     # its prefill is in pages
+                before = sched.pool.scan_nar()
+                inj = FaultInjector(sched.pool, rate=3.0, seed=8,
+                                    kind="nar", target="live")
+                recs = inj.step(sched._tick)
+                sites = {(r.page, r.rep, r.key, r.offset) for r in recs}
+                after = sched.pool.scan_nar()
+                for _ in stream:
+                    pass
+                check(after - before == len(sites) == 3,
+                      f"scan_nar counted {after - before} of {len(sites)} "
+                      "injected words")
+                check(eng.status(rid) == "poisoned",
+                      "the NaR words did not poison their request")
+                runs[lvl].update(nar_injected=len(sites),
+                                 nar_scanned=after - before,
+                                 captures=sched.step.captures)
+            eng.obs is not None and eng.obs.close()
+            del eng, sched
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_OBS", None)
+        else:
+            os.environ["REPRO_OBS"] = saved
+    check(runs["1"]["toks"] == runs["0"]["toks"] == runs["2"]["toks"],
+          "tokens differ between REPRO_OBS levels")
+    return {"tokens_equal_across_levels": True,
+            "decode_ms_per_step": {f"obs{k}": v["decode_ms_per_step"]
+                                   for k, v in runs.items()},
+            **{f"obs{k}": {kk: vv for kk, vv in v.items()
+                           if kk not in ("toks", "decode_ms_per_step")}
+               for k, v in runs.items() if k != "0"}}
 
 
 def phase(n: int, name: str, **fields) -> None:
@@ -2282,6 +2765,32 @@ def main() -> int:
         prefill={k: app_t["contiguous"][k] for k in
                  ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
                   "bound_by", "two_encodes_ms")})
+
+    # -- 20-22. lockstep, the failure model, telemetry ---------------------
+    cfg20 = full_width_cfg("takum8")
+    params20, _ = full_width_params(torch, dev, cfg20, "takum8")
+    lock = lockstep_phase(torch, dev, params20, cfg20, wrappers,
+                          PHASE5_PLENS, 16)
+    phase(20, "lockstep phi3-medium-14b full width", **lock, card=card,
+          tolerance=f"solo lockstep and the unpadded batch row: tokens "
+                    f"equal to the solo scheduler's, or parting at a bf16 "
+                    f"tie (best two logits within {TIE_REL:g} of the "
+                    f"largest); fresh branch within {FRESH_REL:g} x its "
+                    f"largest output of _sdpa; "
+                    f"attention at tq = 1 within {ATTN_ATOL} of the plain "
+                    "version")
+    detail["lockstep"] = lock
+    kernels["attention"]["lockstep_tq1"] = lock["attention_tq1"]
+    kernels["attention"]["launches_lockstep"] = lock["launches"]["attention"]
+    fail_ = failure_phase(torch, dev, params20, cfg20)
+    phase(21, "failure model phi3-medium-14b full width", **fail_)
+    detail["failure_model"] = fail_
+    tel = telemetry_phase(torch, dev, params20, cfg20, PHASE5_PLENS, 16)
+    phase(22, "telemetry", **tel, card=card)
+    detail["telemetry"] = tel
+    del params20
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "kv_append", "qmatmul", "attention",

@@ -52,7 +52,9 @@
 // the tiles visited (every tile up to (pos + tq - 1) / bk, minus those
 // wholly before a window's floor), every key of a visited tile taking part
 // (masked keys with p = 0, so a NaR V word anywhere in a visited tile
-// poisons the rows of that tile), masked scores = MASKED = -1e30 before the
+// poisons the rows of that tile; keys before a sequence's start are the
+// exception: their K/V rows are zeros, so left padding poisons no row),
+// masked scores = MASKED = -1e30 before the
 // NaN-propagating row max, the scale after the dot, out = acc /
 // max(l, 1e-30), expf. Keys past T are the zero words the Pallas wrapper
 // pads with; keys of a sub-tile past the tile's end are not keys of it.
@@ -306,7 +308,12 @@ flash_kernel(const float* __restrict__ q4,
             const int j = (u / (HD / 4)) % BKV, d4 = u % (HD / 4);
             uint32_t w[4];
             wire::unpack4<N>(src + (tensor * BKV + j) * L::WB + d4 * N / 2, w);
-            const float4 v = make_float4(
+            // keys before start (left padding) read as zeros: no NaR word
+            // there can reach a row through p = 0 in P.V
+            const int kpos = (kk0 + step / nsub) * tile + (step % nsub) * BKV
+                             + j;
+            const float4 v = kpos < start ? make_float4(0.f, 0.f, 0.f, 0.f)
+                             : make_float4(
                 C::decode(w[0], tab), C::decode(w[1], tab),
                 C::decode(w[2], tab), C::decode(w[3], tab));
             bad |= tf32::needs_guard(v.x) || tf32::needs_guard(v.y)

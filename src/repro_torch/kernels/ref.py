@@ -185,7 +185,8 @@ def lns_matmul_plain(x_words, w_words, fmt, accum: str = "linear", *,
 
 
 def attention_ref(q, k_cache, v_cache, n, fmt="none", *, pos, start=None,
-                  window: int = 0, out_dtype=torch.float32) -> torch.Tensor:
+                  window: int = 0, out_dtype=torch.float32,
+                  zero_padding: bool = True) -> torch.Tensor:
     """Decode-then-attend: the whole cache is decoded to f32 and dense
     masked attention runs over it.
 
@@ -193,7 +194,12 @@ def attention_ref(q, k_cache, v_cache, n, fmt="none", *, pos, start=None,
     the identity codec); ``pos`` is the position of ``q[:, 0]``,
     ``start [B]`` the first valid key, ``window`` a sliding window
     (0 = full causal). All-masked query rows give a finite uniform
-    average; NaR words decode to NaN and poison the rows they reach."""
+    average; NaR words decode to NaN and poison the rows they reach.
+    With ``zero_padding`` (the contiguous kernel's semantics) keys
+    before a sequence's ``start`` (left padding) take no part in P.V:
+    their V values count as 0, so a NaR word there reaches no row (a
+    masked key elsewhere has p = 0, and 0 x NaN poisons). Without it
+    (the paged kernel's, as the reference's) they count as they are."""
     spec = formats.resolve(fmt, n)
     if spec.is_identity:
         k, v = k_cache, v_cache
@@ -218,6 +224,9 @@ def attention_ref(q, k_cache, v_cache, n, fmt="none", *, pos, start=None,
     if start is not None:
         st = torch.as_tensor(start, device=dev).reshape(b)
         m = m & (kj >= st[:, None, None, None, None])
+        if zero_padding:
+            pad = torch.arange(tk, device=dev)[None, :] < st[:, None]
+            v = torch.where(pad[:, :, None, None], torch.zeros_like(v), v)
     scores = torch.where(m, scores, torch.full_like(scores, MASKED))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
@@ -280,7 +289,7 @@ def paged_attention_ref(q, k_pool, v_pool, table, fmt="none", *, pos,
         outs.append(attention_ref(q[i:i + 1], kc[None], vc[None], spec.n,
                                   spec, pos=p - off,
                                   start=start[i:i + 1] - off, window=window,
-                                  out_dtype=out_dtype))
+                                  out_dtype=out_dtype, zero_padding=False))
     return torch.cat(outs, dim=0)
 
 

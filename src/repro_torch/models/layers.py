@@ -2,12 +2,21 @@
 
 Parameters are plain dicts of tensors; a projection may instead be a
 ``kernels.ops.WireMatrix``, whose ``x @ w`` runs the wire-weight matmul.
-The attention here covers the two cached branches the serving path runs:
+``attention`` has the reference's four branches:
 
 * the contiguous cache ``{"k", "v": [B, Tmax, Hkv, hd], "pos": int}``
-  (cached prefill chunks), attended through ``ops.takum_attention``;
+  (cached prefill chunks, lockstep prefill and lockstep decode steps),
+  attended through ``ops.takum_attention``;
 * the paged pool ``{"k", "v": [P, ps, Hkv, hd], "table": [B, NP],
-  "pos"/"start": [B]}`` (decode steps), through ``ops.paged_attention``.
+  "pos"/"start": [B]}`` (the scheduler's decode steps), through
+  ``ops.paged_attention``;
+* a fresh prefill (``prefill_fresh``, no ``start``, ``T >= ATTN_CHUNK_T``
+  and a multiple of ``QC``): the K/V words are written to the cache, and
+  attention runs over the current, unquantised k/v with
+  :func:`_sdpa_chunked` (the reference computes this branch outside any
+  Pallas kernel, in plain ops, as here);
+* no cache (``forward``): :func:`_sdpa` under a mask, or
+  :func:`_sdpa_chunked` from ``ATTN_CHUNK_T`` tokens.
 
 New K/V are encoded to the cache's wire format and written into the cache
 tensors **in place**, one fused append a layer (``ops.kv_append``; the JAX
@@ -19,6 +28,7 @@ graph (``serve/graphs.py``).
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -30,10 +40,17 @@ from repro_torch.kernels import ops
 
 __all__ = ["DTYPES", "dense_init", "rmsnorm_init", "rmsnorm", "rope",
            "attn_init", "attention", "mlp_init", "mlp", "embed_init",
-           "embed", "unembed", "padded_vocab", "VOCAB_PAD", "put_words"]
+           "embed", "unembed", "padded_vocab", "VOCAB_PAD", "put_words",
+           "causal_mask", "ATTN_CHUNK_T", "QC", "KC", "CAUSAL_SKIP"]
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 VOCAB_PAD = 128   # embedding tables padded so the vocab dim tiles evenly
+
+ATTN_CHUNK_T = 2048   # the chunked attention from this sequence length on
+QC, KC = 2048, 1024   # its query and key blocks
+# skip the key blocks wholly outside the causal band in _sdpa_chunked: the
+# reference's perf knob, read from the same variable, off by default
+CAUSAL_SKIP = os.environ.get("REPRO_CAUSAL_SKIP", "0") == "1"
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -115,24 +132,112 @@ def put_words(dst: torch.Tensor, index, src: torch.Tensor) -> None:
     carrier(dst)[index] = carrier(src)
 
 
+def _sdpa(q, k, v, mask):
+    """q [B, Tq, H, hd], k/v [B, Tk, Hkv, hd]; GQA by head groups; the
+    scores in f32, einsums in the inputs' dtype (the reference's)."""
+    b, tq, h, hd = q.shape
+    hkv = k.shape[2]
+    q = q.reshape(b, tq, hkv, h // hkv, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).to(torch.float32)
+    scores = scores / (hd ** 0.5)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, tq, h, hd)
+
+
+def _sdpa_chunked(q, k, v, *, window: int = 0, causal_skip: bool = False,
+                  causal: bool = True):
+    """Online-softmax attention over query blocks of ``QC`` and key blocks
+    of ``KC`` (never the whole [Tq, Tk] scores): the reference's loop, its
+    inner ``lax.scan`` a Python loop here. ``causal_skip`` visits only
+    the key blocks that meet the causal (and window) band."""
+    b, tq, h, hd = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    if tq % QC or tk % KC:
+        raise ValueError(f"chunked attention needs Tq % {QC} == 0 and "
+                         f"Tk % {KC} == 0, got {tq}, {tk}")
+    q5 = q.reshape(b, tq, hkv, g, hd)
+    scale = hd ** -0.5
+    nkb = tk // KC
+    dev = q.device
+    outs = []
+    for qb in range(tq // QC):
+        q_blk = q5[:, qb * QC:(qb + 1) * QC]
+        qpos = qb * QC + torch.arange(QC, device=dev)
+        lo, hi = 0, nkb
+        if causal_skip and causal:
+            hi = min(nkb, qb + QC // KC + 1)
+            if window:
+                lo = max(0, (qb * QC - window) // KC)
+        m = torch.full((b, hkv, g, QC), float("-inf"), dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hkv, g, QC), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, QC, hd), dtype=v.dtype, device=dev)
+        for kb in range(lo, hi):
+            kc_ = k[:, kb * KC:(kb + 1) * KC]
+            vc_ = v[:, kb * KC:(kb + 1) * KC]
+            s = torch.einsum("bqkgd,bskd->bkgqs", q_blk, kc_)
+            s = s.to(torch.float32) * scale
+            if causal:
+                kpos = kb * KC + torch.arange(KC, device=dev)
+                msk = kpos[None, :] <= qpos[:, None]
+                if window:
+                    msk = msk & (kpos[None, :] > qpos[:, None] - window)
+                s = torch.where(msk, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vc_.dtype), vc_)
+            acc = acc * corr[..., None].to(acc.dtype) + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, QC, h, hd))
+    return torch.cat(outs, dim=1)
+
+
+def causal_mask(tq: int, tk: int, offset: int = 0, window: int = 0,
+                device=None) -> torch.Tensor:
+    """[1, 1, 1, tq, tk] bool, True = attend; ``offset`` is the position
+    of query row 0."""
+    qi = torch.arange(tq, device=device)[:, None] + offset
+    kj = torch.arange(tk, device=device)[None, :]
+    m = kj <= qi
+    if window:
+        m = m & (kj > qi - window)
+    return m[None, None, None]
+
+
 def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
-              cache: Dict[str, Any], window: int = 0):
-    """Self-attention with a decode cache; returns (out, new_cache).
+              cache: Optional[Dict[str, Any]] = None, mask=None,
+              window: int = 0, bidirectional: bool = False,
+              prefill_fresh: bool = False):
+    """Self-attention, with a decode cache or without; returns (out,
+    new_cache), ``new_cache`` None without a cache.
 
     The cache's K/V tensors are updated in place; ``new_cache`` carries
     the advanced ``pos``."""
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if cache is None:
-        raise NotImplementedError("uncached attention is not in the port "
-                                  "yet: serving always runs with a cache")
     q, k, v = _proj_qkv(params, x, h, hkv, hd, cfg.rope_base, positions)
-    spec = formats.resolve(cfg.kv_quant)
-    if "table" in cache:
+    t = x.shape[1]
+    new_cache = None
+    if cache is None:
+        if t >= ATTN_CHUNK_T and t % QC == 0 and k.shape[1] % KC == 0:
+            out = _sdpa_chunked(q, k, v, window=window,
+                                causal_skip=CAUSAL_SKIP,
+                                causal=not bidirectional)
+        else:
+            out = _sdpa(q, k, v, mask)
+    elif "table" in cache:
+        spec = formats.resolve(cfg.kv_quant)
         # paged decode step: append this step's words at
         # (table[b, pos // ps], pos % ps), then attend through the block
         # table. Idle slots keep stepping with a stale pos: the block
         # index is clamped to the table width (they point at page 0).
-        if x.shape[1] != 1:
+        if t != 1:
             raise ValueError(
                 "paged KV caches are decode-only (one token per step); "
                 "prefill runs on a contiguous cache and is scattered "
@@ -145,18 +250,29 @@ def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
                                   pos=pos, start=cache["start"],
                                   window=window).to(x.dtype)
     else:
-        # contiguous cache (cached prefill chunk at absolute position pos)
-        pos, t = int(cache["pos"]), x.shape[1]
+        spec = formats.resolve(cfg.kv_quant)
+        # contiguous cache at absolute position pos
+        pos = int(cache["pos"])
         if pos + t > cache["k"].shape[1]:
             raise ValueError(f"cache of {cache['k'].shape[1]} positions "
                              f"cannot take {t} more at {pos}")
         ops.kv_append(k, v, cache["k"], cache["v"], spec, pos=pos)
         new_cache = dict(cache, pos=pos + t)
-        out = ops.takum_attention(q, cache["k"], cache["v"], spec.n, spec,
-                                  pos=pos, start=cache.get("start"),
-                                  window=window,
-                                  block=cfg.kv_block or None).to(x.dtype)
-    out = out.reshape(x.shape[0], x.shape[1], h * hd)
+        if (prefill_fresh and "start" not in cache
+                and t >= ATTN_CHUNK_T and t % QC == 0):
+            # fresh prefill: the words are in the cache, and attention
+            # runs over the current, unquantised k/v in the activation
+            # dtype (the reference assumes pos == 0 here, as its serving
+            # flows guarantee)
+            out = _sdpa_chunked(q, k, v, window=window,
+                                causal_skip=CAUSAL_SKIP, causal=True)
+        else:
+            out = ops.takum_attention(q, cache["k"], cache["v"], spec.n,
+                                      spec, pos=pos,
+                                      start=cache.get("start"),
+                                      window=window,
+                                      block=cfg.kv_block or None).to(x.dtype)
+    out = out.reshape(x.shape[0], t, h * hd)
     return out @ params["wo"], new_cache
 
 

@@ -3,6 +3,8 @@
     init(gen, cfg)                                  -> params
     init_cache(cfg, batch, max_len)                 -> contiguous cache
     init_paged_cache(cfg, batch, num_pages, ...)    -> paged cache
+    forward(params, {"tokens": tokens}, cfg)        -> (logits [B, T, V], aux)
+    prefill(params, tokens, cfg, cache)             -> (logits [B, V], cache)
     prefill_chunk(params, tokens, cfg, cache, pos, last_idx)
                                                     -> (logits [B, V], cache)
     decode_step(params, tokens, cfg, cache, pos)    -> (logits [B, V], cache)
@@ -18,8 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
-__all__ = ["init", "init_cache", "init_paged_cache", "prefill_chunk",
-           "decode_step"]
+__all__ = ["init", "init_cache", "init_paged_cache", "forward", "prefill",
+           "prefill_chunk", "decode_step"]
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, *, device=None):
@@ -37,6 +39,21 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
                      dtype=None):
     return transformer.init_paged_cache(cfg, batch, num_pages, page_size,
                                         max_pages, device=device, dtype=dtype)
+
+
+def forward(params, batch, cfg: ModelConfig):
+    """Uncached forward over ``batch["tokens"]`` [B, T]: (logits
+    [B, T, V], aux), as the reference's ``model.forward``."""
+    return transformer.forward(params, batch["tokens"], cfg)
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, cache):
+    """The whole prompt from position 0, filling the contiguous cache
+    (left-padded rows masked by its ``start``): (last-position logits
+    [B, V], cache)."""
+    logits, cache = transformer.forward_cached(params, tokens, cfg, cache,
+                                               pos=0, last_only=True)
+    return logits[:, -1], cache
 
 
 def prefill_chunk(params, tokens: torch.Tensor, cfg: ModelConfig, cache, *,

@@ -8,6 +8,7 @@ Parameters are a plain dict::
 
 one entry of ``layers`` per layer (the JAX package stacks them on a
 leading axis and runs ``lax.scan``; here a Python loop walks the list).
+``forward`` runs without a cache, ``forward_cached`` with one.
 Caches are lists with one dict per layer, in the layout ``layers.attention``
 takes.
 """
@@ -26,7 +27,7 @@ from repro_torch.kernels.ops import WireMatrix
 from repro_torch.models import layers as L
 
 __all__ = ["cast_params", "init", "init_layer", "init_cache",
-           "init_paged_cache", "forward_cached"]
+           "init_paged_cache", "forward", "forward_cached"]
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
@@ -129,12 +130,49 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
             for _ in range(cfg.n_layers)]
 
 
+def _layers(params, x, cfg, positions, caches, *, mask=None,
+            prefill_fresh=False):
+    """Every block in order; returns (x, new caches or None)."""
+    new_caches = []
+    for i, p in enumerate(params["layers"]):
+        cache = None if caches is None else caches[i]
+        h, cache = L.attention(p["attn"], L.rmsnorm(p["ln1"], x), cfg,
+                               positions, cache=cache, mask=mask,
+                               prefill_fresh=prefill_fresh)
+        x = x + h
+        x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), cfg.activation)
+        new_caches.append(cache)
+    return x, (new_caches if caches is not None else None)
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig):
+    """Uncached forward: tokens [B, T] -> (logits [B, T, V] f32, aux).
+    ``aux`` is the reference's auxiliary loss, 0 for the dense family.
+    Below ``ATTN_CHUNK_T`` tokens attention runs under a causal mask;
+    from there on the chunked attention builds its own bands."""
+    _check_family(cfg)
+    dtype = L.DTYPES[cfg.dtype]
+    params = cast_params(params, dtype)
+    b, t = tokens.shape
+    x = L.embed(params, tokens, dtype)
+    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    mask = (L.causal_mask(t, t, device=tokens.device)
+            if t < L.ATTN_CHUNK_T else None)
+    x, _ = _layers(params, x, cfg, positions, None, mask=mask)
+    x = L.rmsnorm(params["final_norm"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.unembed(params, x, vocab=cfg.vocab), aux
+
+
 def forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig, caches,
                    *, pos, last_only: bool = False):
-    """Prefill chunk (T > 1, contiguous cache) or decode step (T == 1)
-    with state. ``pos`` is the position of ``tokens[:, 0]`` (an int, or
-    a ``[B, 1]`` tensor of per-row positions for a packed decode step).
-    Returns (logits [B, T_eff, V] f32, new caches)."""
+    """Prefill (T > 1, contiguous cache) or decode step (T == 1) with
+    state. ``pos`` is the position of ``tokens[:, 0]`` (an int, or a
+    ``[B, 1]`` tensor of per-row positions for a packed decode step). A
+    ``T > 1`` call may take the fresh-prefill attention (``pos`` 0, no
+    ``start``, ``T`` from ``ATTN_CHUNK_T`` on, as in the reference).
+    ``last_only`` unembeds the last position only. Returns (logits
+    [B, T_eff, V] f32, new caches)."""
     _check_family(cfg)
     dtype = L.DTYPES[cfg.dtype]
     params = cast_params(params, dtype)
@@ -142,13 +180,8 @@ def forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig, caches,
     x = L.embed(params, tokens, dtype)
     ar = torch.arange(t, device=tokens.device)
     positions = (torch.as_tensor(pos, device=tokens.device) + ar).expand(b, t)
-    new_caches = []
-    for p, cache in zip(params["layers"], caches):
-        h, cache = L.attention(p["attn"], L.rmsnorm(p["ln1"], x), cfg,
-                               positions, cache=cache)
-        x = x + h
-        x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), cfg.activation)
-        new_caches.append(cache)
+    x, new_caches = _layers(params, x, cfg, positions, caches,
+                            prefill_fresh=t > 1)
     x = L.rmsnorm(params["final_norm"], x)
     if last_only:
         x = x[:, t - 1:t]

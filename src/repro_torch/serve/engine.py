@@ -1,9 +1,16 @@
-"""Serving engine: continuous batching over the paged takum-wire KV pool.
+"""Serving engine: continuous batching over the paged takum-wire KV pool,
+and the lockstep loop.
 
 ``ServeEngine.submit``/``run``/``generate`` stream requests through a
 fixed-width decode batch over a :class:`~repro_torch.serve.paged.PagePool`
 (``serve/scheduler.py``): admission as pages free up, chunked prefill
-interleaved with decode, pages released the step a sequence finishes.
+interleaved with decode, pages released the step a sequence finishes,
+and the reference's failure model (preemption, deadlines, cancellation,
+NaR quarantine) and telemetry (``REPRO_OBS``: ``timing``, ``obs``,
+``trace_records``). ``generate_lockstep`` is the static-batch loop:
+prompts left-padded to one length, one contiguous cache, decode until the
+last sequence finishes; ``generate`` takes it at temperature > 0 and
+beside pending ``submit``ed requests, as the reference does.
 Weights come from :func:`quantize_weights` (``mode="wire"``: every
 projection a ``WireMatrix`` of takum, logarithmic-takum or posit words;
 ``mode="fake"``: float weights rounded to the format's grid by the fused
@@ -16,21 +23,23 @@ every kernel wrapper runs its plain PyTorch version; it never moves to
 the CPU on its own. On the card each scheduler replays its decode step
 from a CUDA graph (``serve/graphs.py``, the reference's
 ``jax.jit(_step_paged)``); inside :func:`disable_graphs` it runs the step
-eagerly. Greedy decoding (temperature 0) gives the JAX
-package's tokens; sampled tokens come from a per-request
-``torch.Generator`` and match the reference's distribution, not its
-threefry draws.
+eagerly. The lockstep decode step runs eagerly (its contiguous
+attention takes the position as a host int). Greedy decoding
+(temperature 0) gives the JAX package's tokens; sampled tokens come from
+a per-request ``torch.Generator`` (the scheduler) or one generator seeded
+from the engine's ``seed`` at each ``generate_lockstep`` call, and match
+the reference's distribution, not its threefry draws.
 
 Not in this package yet (``NotImplementedError`` where asked for):
-lockstep generation, preemption, deadlines and cancellation, NaR
-quarantine, fault injection, tracing, multi-device serving.
+multi-device serving (``shard=``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import formats
@@ -39,18 +48,42 @@ from repro_torch.core import quant
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.takum_attention import DEFAULT_BK
+from repro_torch.models import model
 from repro_torch.models.layers import DTYPES
 from repro_torch.models.transformer import cast_params
+from repro_torch.obs import enabled as obs_enabled
+from repro_torch.obs.metrics import GLOBAL as METRICS
 from repro_torch.serve.graphs import disable_graphs
 from repro_torch.serve.paged import pages_for
 from repro_torch.serve.scheduler import Scheduler, StreamEvent, sample_rows
 
-__all__ = ["ServeEngine", "quantize_weights", "sample_rows", "disable_graphs"]
+__all__ = ["ServeEngine", "quantize_weights", "sample_rows", "disable_graphs",
+           "CACHE_SLACK"]
+
+# lockstep cache headroom past prompt + max_new positions: the loop runs
+# one step past the EOS break (its append lands past the last token)
+CACHE_SLACK = 8
 
 _DEFAULT_SKIP = ("embed", "unembed", "scale", "norm")
 # leaves consumed through a plain ``x @ w`` (the only ones wired)
 _WIRE_LEAVES = {"wq", "wk", "wv", "wo", "wg", "w1", "w2"}
 _PER_TENSOR = quant.QuantSpec(fmt="takum", scale="per_tensor")
+# each format's largest finite magnitude (every word decoded once)
+_FMT_MAX: dict = {}
+
+
+def _format_max(spec) -> float:
+    """The largest finite value of a wire format (inf for the identity
+    codec)."""
+    if spec.is_identity:
+        return float("inf")
+    if spec.name not in _FMT_MAX:
+        from repro_torch.core.bitops import to_words
+        words = to_words(torch.arange(2 ** spec.n), spec.word_dtype)
+        vals = spec.decode_tile(words, dtype=torch.float32)
+        _FMT_MAX[spec.name] = float(torch.where(
+            torch.isfinite(vals), vals.abs(), torch.zeros_like(vals)).max())
+    return _FMT_MAX[spec.name]
 
 
 def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
@@ -75,7 +108,11 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
     so its scale is taken over that leaf in every layer (the largest
     absmax), as the reference's over its stacked leaf. Names containing a
     ``skip_substrings`` entry (embeddings, norms) and leaves below 2D stay
-    as they are."""
+    as they are.
+
+    Under ``REPRO_OBS`` >= 1 the process-wide registry counts the weights
+    beyond the format's finite range (``quant.saturated``, of
+    ``quant.elems``), the population its grid clamps."""
     if mode not in ("fake", "wire"):
         raise ValueError(f"unknown quantize_weights mode {mode!r}")
     try:
@@ -123,6 +160,7 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
         stack_exp = {k: int(quant.exponent_of(m)) for k, m in absmax.items()}
 
     counts = {"wired": 0, "fake": 0, "skipped": 0, "non_matrix": 0}
+    fmax = _format_max(spec) if obs_enabled() else float("inf")
 
     def visit(path, leaf):
         if isinstance(leaf, dict):
@@ -132,6 +170,11 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
                               for i, v in enumerate(leaf))
         act = action(path, leaf)
         counts[act] += 1
+        if (fmax < float("inf") and act in ("wired", "fake")
+                and leaf.is_floating_point()):
+            METRICS.counter("quant.saturated").inc(
+                int((leaf.abs() > fmax).sum()))
+            METRICS.counter("quant.elems").inc(leaf.numel())
         if act == "wired":
             return ops.WireMatrix.encode(leaf, fmt=spec)
         if act == "fake":
@@ -162,7 +205,7 @@ def _to_device(params, device):
 class ServeEngine:
     params: object
     cfg: ModelConfig
-    max_len: int              # per-sequence KV position cap
+    max_len: int              # per-sequence KV position cap (paged mode)
     temperature: float = 0.0
     eos_id: int = -1          # -1: never stop early
     seed: int = 0
@@ -171,13 +214,13 @@ class ServeEngine:
     num_pages: Optional[int] = None   # None -> decode_batch full sequences
     decode_batch: int = 8             # packed decode width (slots)
     prefix_cache: bool = True         # radix-tree shared prompt pages
-    preempt: bool = False             # not ported yet: must stay False
+    preempt: bool = True              # preempt low priority under pressure
+    now_fn: Optional[Callable[[], float]] = None  # scheduler clock
+                                      # (deadlines, watchdog; None: wall)
     shard: Optional[object] = None    # not ported yet: must stay None
     device: Optional[object] = None   # None -> cuda (raises without one)
 
     def __post_init__(self):
-        if self.preempt:
-            raise NotImplementedError("preemption is not in the port yet")
         if self.shard is not None:
             raise NotImplementedError("multi-device serving is not in the "
                                       "port yet")
@@ -205,7 +248,7 @@ class ServeEngine:
         db = self.decode_batch
         mp = max_pages or max(pages_for(self.max_len, ps), 1)
         npg = num_pages or self.num_pages or (db * mp + 1)
-        key = (ps, mp, npg, db, self.prefix_cache)
+        key = (ps, mp, npg, db, self.prefix_cache, self.preempt)
         if self._sched is not None:
             if self._sched_key == key:
                 return self._sched
@@ -215,9 +258,12 @@ class ServeEngine:
         prev = self._sched
         self._sched = Scheduler(self, page_size=ps, max_pages=mp,
                                 num_pages=npg, decode_batch=db,
-                                prefix_cache=self.prefix_cache)
+                                prefix_cache=self.prefix_cache,
+                                preempt=self.preempt, now_fn=self.now_fn)
         if prev is not None:
             self._sched.adopt_finished(prev)
+            if prev.obs is not None:
+                prev.obs.close()      # detach the old capture watcher
         self._sched_key = key
         return self._sched
 
@@ -227,44 +273,64 @@ class ServeEngine:
                seed: Optional[int] = None,
                deadline_ms: Optional[float] = None) -> int:
         """Enqueue one request; returns its id for :meth:`run` and
-        :meth:`result`."""
-        if deadline_ms is not None:
-            raise NotImplementedError("deadlines are not in the port yet")
+        :meth:`result`. ``priority``: higher admits first (aged; under page
+        pressure a strictly higher one may preempt a running one).
+        ``deadline_ms``: total-latency bound on the scheduler clock, past
+        which the request ends ``"timeout"``."""
         return self.scheduler().submit(prompt, max_new, eos_id=eos_id,
                                        priority=priority,
                                        temperature=temperature, top_p=top_p,
-                                       seed=seed)
+                                       seed=seed, deadline_ms=deadline_ms)
 
     def cancel(self, rid: int) -> bool:
-        raise NotImplementedError("cancellation is not in the port yet")
+        """Cancel a request in flight (its pages released, a terminal
+        ``"cancelled"`` event); False if it had already ended."""
+        return self.scheduler().cancel(rid)
 
     def status(self, rid: int) -> str:
         return self.scheduler().status(rid)
 
     def run(self) -> Iterator[StreamEvent]:
         """Serve every submitted request to completion, streaming
-        ``StreamEvent(rid, token, done)`` per generated token."""
+        ``StreamEvent(rid, token, done, status)`` per generated token."""
         yield from self.scheduler().run()
 
     def result(self, rid: int) -> List[int]:
         return self.scheduler().result(rid)
 
     def forget(self, rid: int) -> None:
+        """Drop a request's record (one in flight is cancelled first)."""
         self.scheduler().forget(rid)
+
+    def timing(self, rid: int):
+        """The request's :class:`~repro_torch.obs.trace.RequestTiming`
+        (queue/TTFT/TBT/total ms on the scheduler clock), with or without
+        ``REPRO_OBS``."""
+        return self.scheduler().timing(rid)
+
+    @property
+    def obs(self):
+        """The scheduler's :class:`~repro_torch.obs.ServeObs`, or None (no
+        scheduler yet, or ``REPRO_OBS`` off)."""
+        return None if self._sched is None else self._sched.obs
+
+    def trace_records(self, meta: Optional[dict] = None) -> List[dict]:
+        """The serving trace as JSONL-shaped records (needs
+        ``REPRO_OBS`` >= 1)."""
+        return self.scheduler().trace_records(meta)
 
     def generate(self, prompts: List[List[int]],
                  max_new: int) -> List[List[int]]:
-        """Prompt + ``max_new`` greedy tokens per prompt, served through
-        the scheduler, with the reference engine's pool sizing: the page
-        size clamps to the per-sequence cap and the table is wide enough
-        for a full-length prompt plus this call's growth."""
-        if self.temperature != 0.0:
-            raise NotImplementedError("generate at temperature > 0 runs the "
-                                      "lockstep loop, not ported yet; use "
-                                      "submit/run")
-        if self._sched is not None and self._sched.pending():
-            raise NotImplementedError("generate beside pending submit()ed "
-                                      "requests runs lockstep (not ported)")
+        """Prompt + ``max_new`` tokens per prompt. Greedy requests go
+        through the scheduler, with the reference engine's pool sizing:
+        the page size clamps to the per-sequence cap and the table is wide
+        enough for a full-length prompt plus this call's growth. At
+        temperature > 0, or while ``submit``ed requests are pending (whose
+        stream belongs to their caller), the call runs
+        :meth:`generate_lockstep`, as in the reference."""
+        if self.temperature != 0.0 or (self._sched is not None
+                                       and self._sched.pending()):
+            return self.generate_lockstep(prompts, max_new)
         ps = self.page_size or self.cfg.kv_block or DEFAULT_BK
         ps = min(ps, max(8, -(-self.max_len // 8) * 8))
         bucket_max = max(-(-len(p) // ps) * ps for p in prompts)
@@ -280,3 +346,72 @@ class ServeEngine:
         for r in rids:
             sched.forget(r)
         return outs
+
+    # -- lockstep (static batch) -------------------------------------------
+
+    def generate_lockstep(self, prompts: List[List[int]],
+                          max_new: int) -> List[List[int]]:
+        """The static-batch loop: prompts left-padded to one length (each
+        row's ``start`` masks its padding), one contiguous cache of
+        ``plen + max_new + CACHE_SLACK`` positions (rounded up to the KV
+        tile on the card, where the attention kernel runs), a prefill of
+        the whole batch, then one decode step a token until every
+        sequence has ``max_new`` tokens or its EOS. The host reads each
+        step's tokens one step late (step s + 1 is issued before step s's
+        tokens are read), so the card never waits on that read; the last
+        issued step's append lands in the slack.
+
+        At temperature > 0 tokens are drawn from one ``torch.Generator``
+        seeded from ``seed`` at each call: the same distribution as the
+        reference's, not its threefry draws (JAX's key schedule has no
+        torch counterpart)."""
+        cfg = self.cfg
+        dev = self.device
+        b = len(prompts)
+        plen = max(len(p) for p in prompts)
+        prompt = np.zeros((b, plen), np.int64)
+        start = np.zeros((b,), np.int32)
+        for i, p in enumerate(prompts):      # left-pad, last token at end
+            prompt[i, plen - len(p):] = p
+            start[i] = plen - len(p)
+        max_len = plen + max_new + CACHE_SLACK
+        if dev.type == "cuda":
+            # the kernel reads the cache in KV tiles: a cache of whole
+            # tiles needs no padded copy (keys past pos are masked)
+            blk = cfg.kv_block or DEFAULT_BK
+            max_len = -(-max_len // blk) * blk
+        cache = model.init_cache(cfg, b, max_len, device=dev,
+                                 start=start if start.any() else None)
+        logits, cache = model.prefill(self.params,
+                                      torch.from_numpy(prompt).to(dev),
+                                      cfg, cache)
+        gen = None
+        if self.temperature > 0.0:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(self.seed)
+        tok = self._lockstep_next(logits, gen)
+        out = [list(p) for p in prompts]
+        done = np.zeros(b, bool)
+        for s in range(max_new):
+            # issue step s + 1 before reading step s's tokens back
+            logits, cache = model.decode_step(self.params, tok, cfg, cache,
+                                              pos=plen + s)
+            nxt = self._lockstep_next(logits, gen)
+            tok_host = tok[:, 0].tolist()
+            for i in range(b):
+                if not done[i]:
+                    out[i].append(tok_host[i])
+            done |= np.asarray(tok_host) == self.eos_id
+            if done.all():
+                break
+            tok = nxt
+        return out
+
+    def _lockstep_next(self, logits: torch.Tensor, gen) -> torch.Tensor:
+        """[B, V] logits -> the next tokens [B, 1] on the card: argmax, or
+        a draw from softmax(logits / temperature)."""
+        if gen is None:
+            return torch.argmax(logits, dim=-1)[:, None]
+        probs = torch.softmax(logits.to(torch.float32)
+                              / max(self.temperature, 1e-6), dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)

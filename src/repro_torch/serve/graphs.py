@@ -10,8 +10,13 @@ once per (decode batch, table width) with ``torch.cuda.graph``, after one
 eager step on the capture stream (which is that call's step), and replays
 it for every later step: the step's tokens and positions are copied into
 static buffers, the graph runs, and the static logits are returned (valid
-until the next step). A replay costs the kernels' device time and one
-launch of host time.
+until the next step) with the step's ``head`` ``[2, B]`` int64: each row's
+greedy token (argmax) and its NaN flag (``isnan(logits).any(-1)``, the
+reference's per-row check for a NaR word read by that row's attention),
+both computed inside the step, so the scheduler reads tokens and flags in
+one copy. A replay costs the kernels' device time and one launch of host
+time. Every capture is reported to ``obs.metrics.record_capture`` (the
+counterpart of the reference's compile events).
 
 What makes the step replayable: the pool's ``table``/``pos``/``start``
 are updated in place (``PagePool.push_tables``), the step advances the
@@ -19,7 +24,9 @@ device ``pos`` in place (``pos.add_(1)``, captured with the step, so idle
 slots drift exactly as in an eager step), the K/V words are written by the
 fused append (``ops.kv_append``) from device indices, and no wrapper
 reads a device value back to the host. A step that cannot be captured
-raises; there is no fallback to the eager step on the card.
+raises; there is no fallback to the eager step on the card. Preemption,
+cancellation, quarantine and fault injection change only the pool's
+words and tables, in place, so they never cause a capture.
 
 The kernel wrappers count their launches in Python, which a replay skips:
 the step records each counter's increase while it is captured and adds it
@@ -41,6 +48,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.models import model
+from repro_torch.obs.metrics import record_capture
 
 __all__ = ["DecodeStep", "disable_graphs", "graphs_enabled", "COUNTERS"]
 
@@ -93,9 +101,9 @@ class _Captured:
     """One captured step: the graph, its static inputs and logits, and the
     launch counts one step adds."""
 
-    def __init__(self, graph, tok, pos, logits, deltas, keep):
+    def __init__(self, graph, tok, pos, logits, head, deltas, keep):
         self.graph, self.tok, self.pos, self.logits = graph, tok, pos, logits
-        self.deltas, self.keep = deltas, keep
+        self.head, self.deltas, self.keep = head, deltas, keep
 
 
 class DecodeStep:
@@ -114,17 +122,20 @@ class DecodeStep:
         self.capture_s = 0.0
         self.replays = 0
 
-    def _step(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    def _step(self, tok: torch.Tensor, pos: torch.Tensor):
         eng = self.engine
         logits, _ = model.decode_step(eng.params, tok, eng.cfg,
                                       self.pool.cache, pos=pos)
         self.pool.cache[0]["pos"].add_(1)    # shared by every layer
-        return logits
+        head = torch.stack([torch.argmax(logits, dim=-1),
+                            torch.isnan(logits).any(dim=-1).long()])
+        return logits, head
 
-    def __call__(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    def __call__(self, tok: torch.Tensor, pos: torch.Tensor):
         """One step for ``tok``/``pos`` ([B, 1] int64, any device):
-        logits [B, V]. Under replay they are the graph's static output,
-        overwritten by the next step."""
+        (logits [B, V], head [2, B] int64: argmax tokens, NaN flags).
+        Under replay they are the graph's static outputs, overwritten by
+        the next step."""
         dev = self.engine.device
         if dev.type != "cuda" or not graphs_enabled():
             return self._step(tok.to(dev), pos.to(dev))
@@ -137,9 +148,9 @@ class DecodeStep:
         cap.graph.replay()
         _add_counters(cap.deltas)
         self.replays += 1
-        return cap.logits
+        return cap.logits, cap.head
 
-    def _capture(self, key, tok, pos) -> torch.Tensor:
+    def _capture(self, key, tok, pos):
         from repro_torch.kernels import takum_attention
         dev = self.engine.device
         t0 = time.perf_counter()
@@ -151,12 +162,13 @@ class DecodeStep:
         main = torch.cuda.current_stream(dev)
         stream.wait_stream(main)
         with torch.cuda.stream(stream):
-            logits = self._step(static_tok, static_pos)   # this call's step
+            logits, head = self._step(static_tok, static_pos)  # this step
         before = _read_counters()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=stream):
-                static_logits = self._step(static_tok, static_pos)
+                static_logits, static_head = self._step(static_tok,
+                                                        static_pos)
         finally:
             # a failed capture can leave the capture stream current
             torch.cuda.set_stream(main)
@@ -164,10 +176,14 @@ class DecodeStep:
         _add_counters([-d for d in deltas])   # capture launched nothing
         main.wait_stream(stream)
         logits.record_stream(main)
+        head.record_stream(main)
         # the per-stream counters paged attention's graph nodes point at
         keep = dict(takum_attention._COUNTERS)
         self._graphs[key] = _Captured(graph, static_tok, static_pos,
-                                      static_logits, deltas, keep)
+                                      static_logits, static_head, deltas,
+                                      keep)
+        seconds = time.perf_counter() - t0
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
-        return logits
+        self.capture_s += seconds
+        record_capture(seconds)
+        return logits, head

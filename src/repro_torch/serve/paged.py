@@ -11,6 +11,8 @@ reads. Conventions, as in the JAX package:
 * the allocator is host-side, strict and refcounted (``alloc`` at
   refcount 1, ``ref`` adds an owner, ``unref`` drops one; the last unref
   frees). Misuse raises :class:`PagePoolError`;
+* a quarantined page (corrupted words, ``quarantine``) never rejoins the
+  free list until ``release_quarantined``;
 * recycled pages are not zeroed: the causal mask excludes positions past
   a sequence's ``pos``;
 * the host mirrors of ``table``/``pos``/``start`` are copied into the
@@ -22,7 +24,7 @@ reads. Conventions, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +63,7 @@ class PageStats:
     hbm_bytes: int          # whole pool, all layers, K and V
     shared_pages: int       # pages with refcount > 1 (prefix dedup)
     prefix_hit_tokens: int  # prompt tokens served from shared pages
-    quarantined: int        # always 0 here: quarantine is not ported yet
+    quarantined: int        # pages pulled out of circulation
 
 
 class PagePool:
@@ -90,6 +92,7 @@ class PagePool:
         # LIFO free list: hot pages get reused first (page 0 reserved)
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self._refs: Dict[int, int] = {}
+        self._quarantined: set = set()
         self._peak = 0
         self._prefix_hit_tokens = 0
         self.table = np.zeros((batch, max_pages), np.int32)
@@ -109,8 +112,15 @@ class PagePool:
     def pages_in_use(self) -> int:
         return len(self._refs)
 
+    def peak_pages_in_use(self) -> int:
+        return self._peak
+
     def shared_pages(self) -> int:
         return sum(1 for c in self._refs.values() if c > 1)
+
+    def refcount(self, page: int) -> int:
+        """Owners of ``page`` (0: free)."""
+        return self._refs.get(page, 0)
 
     def alloc(self, n: int) -> Tuple[int, ...]:
         """Take ``n`` pages off the free list at refcount 1 (strict)."""
@@ -141,10 +151,50 @@ class PagePool:
         self._refs[page] -= 1
         if self._refs[page] == 0:
             del self._refs[page]
-            self._free.append(page)
+            # a quarantined page never returns to the free list
+            if page not in self._quarantined:
+                self._free.append(page)
+
+    def free(self, pages: Sequence[int]) -> None:
+        """Unref each page."""
+        for p in pages:
+            self.unref(p)
 
     def note_prefix_hits(self, n_tokens: int) -> None:
         self._prefix_hit_tokens += int(n_tokens)
+
+    # -- quarantine (fault containment) ------------------------------------
+
+    def quarantine(self, page: int) -> None:
+        """Pull ``page`` out of circulation until
+        :meth:`release_quarantined`: a free page leaves the free list now,
+        an allocated one retires at its last ``unref``. Idempotent."""
+        if not 0 < page < self.num_pages:
+            raise PagePoolError(
+                f"quarantine of page {page}: not a poolable page id "
+                f"(scratch page 0 and ids >= {self.num_pages} excluded)")
+        if page in self._quarantined:
+            return
+        self._quarantined.add(page)
+        if page in self._free:
+            self._free.remove(page)
+
+    def pages_quarantined(self) -> int:
+        return len(self._quarantined)
+
+    def quarantined_pages(self) -> frozenset:
+        return frozenset(self._quarantined)
+
+    def release_quarantined(self) -> int:
+        """Return the quarantined pages no one owns to the free list (a
+        new owner writes a page from its position 0 before reading it);
+        pages still referenced stay quarantined. Returns the count."""
+        released = [p for p in sorted(self._quarantined)
+                    if p not in self._refs]
+        for p in released:
+            self._quarantined.discard(p)
+            self._free.append(p)
+        return len(released)
 
     # -- memory accounting -------------------------------------------------
 
@@ -164,7 +214,35 @@ class PagePool:
                          peak_in_use=self._peak, hbm_bytes=self.hbm_bytes(),
                          shared_pages=self.shared_pages(),
                          prefix_hit_tokens=self._prefix_hit_tokens,
-                         quarantined=0)
+                         quarantined=self.pages_quarantined())
+
+    def scan_nar(self, pages: Optional[Sequence[int]] = None) -> int:
+        """NaR words stored in ``pages`` (default: every allocated page),
+        all layers, K and V (NaN for a float cache): the pool's health
+        scan, one torch reduction a layer and one read back. It runs
+        between steps, never inside a captured step. Positions past a
+        sequence's ``pos`` may hold stale words, so the count bounds the
+        live corruption from above; a count that rises while the
+        allocated set stands still is the signal."""
+        self._require_cache()
+        ids = (sorted(self._refs) if pages is None
+               else sorted({int(p) for p in pages}))
+        if not ids:
+            return 0
+        dev = self.cache[0]["k"].device
+        idx = torch.as_tensor(ids, dtype=torch.long, device=dev)
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        nar = self.spec.nar_word
+        if nar is not None and self.spec.n == 16:   # int16 carriers
+            nar -= 1 << 16
+        for layer in self.cache:
+            for key in ("k", "v"):
+                words = carrier(layer[key])[idx]
+                if self.spec.is_identity:
+                    total += torch.isnan(words).sum()
+                else:
+                    total += (words == nar).sum()
+        return int(total)
 
     # -- block tables ------------------------------------------------------
 

@@ -82,7 +82,8 @@ class PrefixCache:
     (what can be shared?), :meth:`acquire` to take references on the
     shared pages, and :meth:`insert` after prefill to donate the new
     request's full prompt pages back to the tree. :meth:`evict_one`
-    (LRU leaf) frees tree-held pages under page pressure.
+    (LRU leaf) frees tree-held pages under page pressure, and
+    :meth:`evict_pages` drops quarantined pages with their subtrees.
     """
 
     def __init__(self, pool):
@@ -220,11 +221,45 @@ class PrefixCache:
         while self.pool.pages_free() < pages_wanted and self.evict_one():
             pass
 
+    def evict_pages(self, pages) -> int:
+        """Evict every node holding one of ``pages``, with its whole
+        subtree (fault containment: a corrupted shared page, and the pages
+        whose KV attends into it, must never serve a later admission);
+        each removed node drops its pool reference. Quarantine the pages
+        first, so the unrefs retire them. Returns the nodes removed."""
+        pages = set(int(p) for p in pages)
+        removed = 0
+
+        def _drop_subtree(node: _Node) -> int:
+            n = 1
+            for child in node.children.values():
+                n += _drop_subtree(child)
+            self.pool.unref(node.page)
+            return n
+
+        stack: List[Tuple[Dict[Tuple[int, ...], _Node], _Node]] = \
+            [(self._root, n) for n in self._root.values()]
+        while stack:
+            siblings, node = stack.pop()
+            if node.page in pages:
+                del siblings[node.chunk]
+                removed += _drop_subtree(node)
+            else:
+                stack.extend((node.children, c)
+                             for c in node.children.values())
+        self._nodes -= removed
+        self.nodes_evicted += removed
+        return removed
+
     def clear(self) -> None:
         """Evict everything (drain-to-empty: after clear, a pool whose
         sequences have all released shows ``pages_in_use() == 0``)."""
         while self.evict_one():
             pass
+
+    def pages_held(self) -> int:
+        """Pages the tree references (one a node)."""
+        return self._nodes
 
     def stats(self) -> Dict[str, int]:
         """Tree-traffic counters + current size, as a plain dict."""

@@ -26,8 +26,10 @@ from repro_torch.kernels import lns_matmul as klns
 from repro_torch.kernels import (ops, quantize, ref, takum_attention,
                                  takum_codec, takum_matmul)
 from repro_torch.models import transformer
+from repro_torch.models import model
 from repro_torch.serve import graphs
 from repro_torch.serve.engine import ServeEngine, quantize_weights
+from repro_torch.serve.faults import FaultInjector
 
 pytestmark = pytest.mark.gpu
 
@@ -881,11 +883,11 @@ def _serve_twice(kv, wfmt=None):
         runner, rows = sched.step, []
 
         def rec(tok, pos, runner=runner, rows=rows, sched=sched):
-            logits = runner(tok, pos)
+            logits, head = runner(tok, pos)
             act = [i for i, s in enumerate(sched._slots)
                    if s is not None and s.state == "active"]
             rows.append((act, logits[act].clone()))
-            return logits
+            return logits, head
 
         sched.step = rec
         c0 = graphs._read_counters()
@@ -948,3 +950,184 @@ def test_a_step_that_cannot_be_captured_raises(dev, monkeypatch):
         eng.generate([[1, 2, 3]], 4)
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
     torch.cuda.synchronize()
+
+
+# -- lockstep, NaR containment and the replayed step's NaN flags ------------
+
+
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+def test_contiguous_attention_tq1_left_padded_matches_plain(dev, kv):
+    """A lockstep decode step: tq = 1, rows = G per KV head, per-row
+    left-pad ``start``; then NaR V words (NaN for a float cache) in every
+    padding position change nothing, on the card and in the plain
+    version."""
+    spec, dtype = kv
+    g = torch.Generator().manual_seed(11)
+    b, hkv, grp, hd, tmax = 3, 2, 4, 128, 300
+    q = torch.randn((b, 1, hkv * grp, hd), generator=g)
+    if dtype is not None:
+        q = q.to(dtype)
+    kw = _cache(spec, (b, tmax, hkv, hd), g, dtype)
+    vw = _cache(spec, (b, tmax, hkv, hd), g, dtype)
+    start = torch.tensor([0, 37, 260], dtype=torch.int32)
+    vp = vw.clone()
+    for i, st in enumerate(start.tolist()):
+        if spec.is_identity:
+            vp[i, :st] = float("nan")
+        else:
+            nar = spec.nar_word - ((1 << 16) if spec.n == 16 else 0)
+            carrier(vp)[i, :st] = nar
+    for pos in (270, 299):
+        kwargs = dict(pos=pos, start=start)
+        got = ops.takum_attention(q.to(dev), kw.to(dev), vw.to(dev), 0,
+                                  spec, **kwargs).cpu()
+        want = ref.attention_ref(*_plain_f32(spec, q, kw, vw), 0, spec,
+                                 **kwargs)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        padded = ops.takum_attention(q.to(dev), kw.to(dev), vp.to(dev), 0,
+                                     spec, **kwargs).cpu()
+        assert torch.equal(padded, got)
+        plain = ref.attention_ref(*_plain_f32(spec, q, kw, vp), 0, spec,
+                                  **kwargs)
+        assert torch.equal(plain, want)
+
+
+@pytest.mark.parametrize("kv", [(formats.get("takum8"), None),
+                                (formats.get("takum16"), None),
+                                (formats.get("none"), torch.bfloat16)],
+                         ids=_kv_id)
+def test_paged_nar_in_band_and_masked_pages(dev, kv):
+    """NaR K and NaR V words (NaN for a float cache) at valid positions
+    of in-band pages, in a later partition than the first, and NaR K and
+    V on a page past its sequence's pos (out of band): NaN in exactly the
+    plain version's rows, through the partitions and their merge; the
+    out-of-band words reach nothing."""
+    spec, dtype = kv
+    q, kw, vw, table, pos, start, window = _paged_edge_inputs(
+        spec, dtype, "page_boundary", 21)
+    clean = ops.paged_attention(q.to(dev), kw.to(dev), vw.to(dev),
+                                table.to(dev), spec, pos=pos.to(dev),
+                                start=start.to(dev)).cpu()
+    nar = float("nan") if spec.is_identity else takum.nar_word(spec.n)
+    kw[table[1, 6], 2, 0, 5] = nar       # seq 1, position 98 <= pos 127
+    vw[table[2, 9], 4, 1, 9] = nar       # seq 2, position 148 <= pos 191
+    kw[table[0, 3], 0, 1, 0] = nar       # seq 0, page 3: past pos 16
+    vw[table[0, 3], 1, 0, 0] = nar
+    got = ops.paged_attention(q.to(dev), kw.to(dev), vw.to(dev),
+                              table.to(dev), spec, pos=pos.to(dev),
+                              start=start.to(dev)).cpu()
+    want = ref.paged_attention_ref(*_plain_f32(spec, q, kw, vw), table, spec,
+                                   pos=pos, start=start)
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert nan[1, 0, :4].all() and nan[2, 0, 4:, 9].all()
+    assert int(nan.sum()) == 4 * 128 + 4
+    assert torch.equal(got[0], clean[0]) and torch.equal(got[3], clean[3])
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=0, atol=2e-5)
+
+
+def _serve_faulted(mode, kv="takum8"):
+    """The reduced config served with one NaR injected into a live page
+    after the step has been captured: per step the active slots and the
+    step's head rows (greedy tokens, NaN flags); statuses; the runner."""
+    cfg, params = _reduced(kv)
+    rng = np.random.default_rng(9)
+    prompts = [list(rng.integers(0, cfg.vocab, n)) for n in (16, 9, 13)]
+    eng = ServeEngine(params, cfg, max_len=64, page_size=16,
+                      decode_batch=4, prefix_cache=False, device="cuda")
+    sched = eng.scheduler()
+    runner, heads = sched.step, []
+
+    def rec(tok, pos):
+        logits, head = runner(tok, pos)
+        act = [i for i, s in enumerate(sched._slots)
+               if s is not None and s.state == "active"]
+        heads.append((act, head[:, act].cpu()))
+        return logits, head
+
+    sched.step = rec
+    inj = FaultInjector(sched.pool, rate=1.0, seed=2, kind="nar",
+                        target="live", max_faults=1)
+    with (graphs.disable_graphs() if mode == "eager" else
+          contextlib.nullcontext()):
+        rids = [eng.submit(p, 12) for p in prompts]
+        for n, _ in enumerate(eng.run()):
+            if n == 9:                 # the step has been replayed by now
+                sched.injector = inj
+    torch.cuda.synchronize()
+    return dict(heads=heads, status=[eng.status(r) for r in rids],
+                runner=runner, injected=inj.injected)
+
+
+def test_replayed_step_nan_flags_equal_the_eager_steps(dev):
+    """The NaN flag computed inside the captured step: per step the
+    replayed head (tokens and flags of the active rows) equals the eager
+    step's; the injected word poisons one request, through a replay,
+    and the graph is never captured again."""
+    g, e = _serve_faulted("graph"), _serve_faulted("eager")
+    assert g["injected"] == e["injected"] and len(g["injected"]) == 1
+    assert g["status"] == e["status"]
+    assert g["status"].count("poisoned") == 1
+    assert g["runner"].captures == 1 and g["runner"].replays >= 10
+    assert len(g["heads"]) == len(e["heads"])
+    flagged = 0
+    for (ag, hg), (ae, he) in zip(g["heads"], e["heads"]):
+        assert ag == ae and torch.equal(hg, he)
+        flagged += int(hg[1].sum())
+    assert flagged == 1
+
+
+def test_in_place_fault_write_is_seen_by_the_next_replay(dev):
+    """A NaR word written into the pool between two replays, in place:
+    the next replay reads it (that row's flag is set), the other rows
+    stay clean, no capture happens."""
+    cfg, params = _reduced("takum8")
+    eng = ServeEngine(params, cfg, max_len=64, page_size=16,
+                      decode_batch=2, prefix_cache=False, device="cuda")
+    rids = [eng.submit([5] * 12, 30), eng.submit([7] * 9, 30)]
+    sched = eng.scheduler()
+    stream = sched.run()
+    while sched.step.replays < 2:
+        next(stream)
+    pool = sched.pool
+    inj = FaultInjector(pool, rate=1.0, seed=0, kind="nar")
+    (rec,) = inj.step(sched._tick)
+    tok = torch.tensor([[1], [1]])
+    pos = torch.from_numpy(pool.pos[:, None].astype(np.int64))
+    pos_dev = pool.cache[0]["pos"].clone()
+    _, head = sched.step(tok, pos)
+    flags = head[1].tolist()
+    assert flags[rec.slot] == 1 and flags[1 - rec.slot] == 0
+    assert sched.step.captures == 1
+    pool.cache[0]["pos"].copy_(pos_dev)      # undo this probe's advance
+    rest = list(stream)
+    assert eng.status(rids[rec.slot]) == "poisoned"
+    assert eng.status(rids[1 - rec.slot]) == "done"
+    assert any(e.status == "poisoned" for e in rest)
+
+
+def test_lockstep_card_matches_cpu(dev):
+    """``generate_lockstep`` of a left-padded batch on the card (the
+    cache rounded to the KV tile, contiguous attention at tq = 1 every
+    step) gives the CPU run's tokens."""
+    cfg, params = _reduced("takum8")
+    rng = np.random.default_rng(3)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab, n)))
+               for n in (16, 9, 4, 13)]
+    outs = [ServeEngine(params, cfg, max_len=48, device=d)
+            .generate_lockstep(prompts, 8) for d in ("cpu", dev)]
+    assert outs[0] == outs[1]
+
+
+def test_capture_reaches_the_compile_watcher(dev):
+    from repro_torch.obs import ServeObs
+    obs = ServeObs()
+    cfg, params = _reduced("takum8")
+    eng = ServeEngine(params, cfg, max_len=32, page_size=16,
+                      decode_batch=2, device="cuda")
+    eng.generate([[1, 2, 3]], 6)
+    assert obs.compile_watcher.compiles == eng.scheduler().step.captures == 1
+    obs.arm_steady()
+    eng.generate([[4, 5, 6, 7]], 6)          # same shapes: no capture
+    assert obs.steady_state_recompiles == 0
+    obs.close()

@@ -242,7 +242,10 @@ def test_step_advances_device_pos_in_place():
     pool.push_tables()
     pos = pool.cache[0]["pos"]
     tok = torch.tensor([[3], [0], [0]])
-    logits = sched.step(tok, torch.from_numpy(pool.pos[:, None]).long())
+    logits, head = sched.step(tok, torch.from_numpy(pool.pos[:, None]).long())
     assert logits.shape == (3, cfg.vocab)
+    # the step's greedy tokens and per-row NaN flags, in one tensor
+    assert torch.equal(head, torch.stack([logits.argmax(-1),
+                                          logits.isnan().any(-1).long()]))
     assert pool.cache[0]["pos"] is pos
     np.testing.assert_array_equal(pos.numpy(), [6, 1, 1])

@@ -265,16 +265,17 @@ def test_quantize_weights_wires_the_projections():
 
 
 def test_engine_refuses_what_is_not_ported(wired):
+    """Multi-device serving (``shard=``) is the one part of the
+    reference's serving API the port refuses; preemption (the default),
+    deadlines and cancellation are served (tests/test_torch_faults.py)."""
     _, cfg = _cfgs("takum8")
     tp = wired["takum8"][1]
-    for kw in ({"preempt": True}, {"shard": object()}):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(tp, cfg, max_len=48, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ServeEngine(tp, cfg, max_len=48, device="cpu", shard=object())
     eng = ServeEngine(tp, cfg, max_len=48, page_size=16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit([1, 2], 2, deadline_ms=5.0)
-    with pytest.raises(NotImplementedError):
-        eng.cancel(0)
+    assert eng.preempt
+    rid = eng.submit([1, 2], 2, deadline_ms=5.0)
+    assert eng.cancel(rid) and eng.status(rid) == "cancelled"
     with pytest.raises(AdmissionError):
         eng.submit([1] * 40, 20)
 
