@@ -137,7 +137,32 @@ Phases, one summary line each; any failure exits non-zero:
     give the same tokens; each request's span tree is closed; the trace
     exports as Chrome JSON (``chiprun_out/trace_obs*.json``); no capture
     after ``arm_steady``; at level 2 ``scan_nar`` counts exactly the NaR
-    words injected into live pages; ``decode_ms_per_step`` per level.
+    words injected into live pages; ``decode_ms_per_step`` per level;
+23. the wire matmuls' gradients at full width: x [256, 5120] f32 through
+    5120 x 17920 takum8, posit8 and lns-takum8 wire weights, forward by
+    the wire or LNS matmul kernel, backward ``g @ decode(w)^T`` with the
+    decode kernel (posit8 through its table): x.grad against the plain
+    version's autograd gradient within phase 3's worst-case bound, the
+    launch counters of each run, forward and backward times beside their
+    bounds and the backward's ``torch.matmul``;
+24. training phi3-medium-14b at full width (d_model 5120, 40/10 heads of
+    128, d_ff 17920, vocab 100352; depth cut from 40 to ``TRAIN_LAYERS``,
+    printed as ``reduced``): ``TRAIN_STEPS`` AdamW steps through
+    ``trainer.make_train_step`` on one repeated ``SyntheticLM(seed=0)``
+    batch of 1 x 2048 tokens (the chunked attention and the chunked cross
+    entropy), remat per block, bf16 activations on f32 parameters; every
+    loss and grad norm finite, the last loss below the first; per step
+    the loss, grad norm, step ms, tokens/s and the forward+backward /
+    optimizer split; ``peak_gb``;
+25. the reduced config trained on the card and on the CPU from the same
+    parameters (3 steps: losses within ``LOSS_REL``, each parameter leaf
+    within ``PARAM_REL_L2`` relative L2, elementwise differences
+    reported); microbatch 2 and remat against the full batch, the same
+    way; a run saved at step 3 (uncompressed, and takum16), restored
+    and resumed against the uninterrupted run (the same rounding done in
+    memory for takum16); a SIGTERM turned into a save at the next step
+    boundary; ``python -m repro_torch.launch.train`` and
+    ``launch.serve`` as subprocesses, exit 0 with the audit line first.
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
@@ -156,7 +181,9 @@ same calls replayed from a CUDA graph; so does ``kv_append``, the fused
 append that took over the K/V encodes (kernel row 2); the codec's entry
 is headed by the decode, with ``torch.index_select`` on a 256-entry table
 as its library call (and the posit8 table's). Last,
-``{"ok": true, "device": {...}}``. Details go to
+``{"ok": true, "device": {...}}``. The codec's, the wire matmul's, the
+LNS matmul's and the posit8 table's entries also carry
+``launches_training``, their launches in phase 23. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -167,6 +194,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2069,6 +2097,344 @@ def telemetry_phase(torch, dev, params, cfg, plens, max_new):
                for k, v in runs.items() if k != "0"}}
 
 
+# training: the wire matmuls' VJP at full width (phase 23)
+GRAD_FMTS = ("takum8", "posit8", "lns-takum8")
+GRAD_SHAPE = (256, 5120, 17920)   # x [M, K] through w [K, N]: wg/w1
+# the reduced model trained on the card against the CPU (phase 25): losses
+# within LOSS_REL, and each parameter leaf within PARAM_REL_L2 of the
+# other's in relative L2 norm. Elementwise, AdamW divides m by sqrt(v) + eps,
+# so a gradient element within a few eps of 0 turns its summation-order
+# error into an O(1) relative error of its update: those elements are
+# reported against tests/test_substrate.py's reordered-sum tolerance
+# (REORDER_*), not held. The same program run twice (resume) is held
+# elementwise within RESUME_RTOL / RESUME_ATOL
+LOSS_REL = 1e-5
+PARAM_REL_L2 = 1e-5
+REORDER_RTOL, REORDER_ATOL = 2e-4, 2e-6
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-7
+TRAIN_LAYERS = 2          # phase 24's depth, cut from 40
+TRAIN_T = 2048            # phase 24's tokens: both chunked paths
+TRAIN_STEPS = 6
+# AdamW moves every weight by about lr a step; at d_model 5120 (weights
+# of std 0.014) lr 1e-3 diverged on the card (loss 12.23 -> 15.38 in six
+# steps, PERF.md section 6); 1e-4 is the usual rate at this width
+TRAIN_LR = 1e-4
+
+
+def wire_grad_phase(torch, dev, wrappers, sm_clock_hz):
+    """Phase 23: x [256, 5120] f32 through 5120 x 17920 wire weights of each
+    ``GRAD_FMTS``, forward (rows 3 / 7) and backward (``g @ decode(w)^T``,
+    the decode through row 1, posit8 through its table, row 8): x.grad
+    against the plain version's autograd gradient (``x @ decode_ref(w)``
+    differentiated), bit for bit: both are one f32 ``torch.matmul`` (TF32
+    off, checked) of the same ``g`` with a bit-exact decode, so a limit
+    of 0, where phase 3's statistical limit holds a product that is not
+    the same; the launch counters of the run; forward and backward by
+    CUDA events."""
+    from repro_torch import formats
+    from repro_torch.kernels import ops, ref
+    m, k, n = GRAD_SHAPE
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 23 needs TF32 off: the backward's product is f32")
+    g0 = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn((m, k), generator=g0, device=dev)
+    g = torch.randn((m, n), generator=g0, device=dev)
+    wf = torch.randn((k, n), generator=g0, device=dev) / k ** 0.5
+    out = {}
+    total = {key: 0 for key in wrappers}
+    for name in GRAD_FMTS:
+        spec = formats.get(name)
+        w = ops.takum_encode(wf, spec)
+        fn = ops.lns_matmul if spec.has_lns_parts else ops.quant_matmul
+        for f in wrappers.values():
+            f.launches = 0
+        xt = x.clone().requires_grad_(True)
+        y = fn(xt, w, spec)
+        y.backward(g)
+        launches = {key: f.launches for key, f in wrappers.items()}
+        for key in total:
+            total[key] += launches[key]
+        mm = "lns_matmul" if spec.has_lns_parts else "qmatmul"
+        check(launches[mm] == 1 and launches["takum_decode"] == 1,
+              f"{name}: the gradient run launched {launches}")
+        if name == "posit8":
+            check(launches["posit8_lut"] >= 1,
+                  "posit8: the backward's decode missed the table")
+        wd = ref.decode_ref(w, spec)
+        xp = x.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(xp @ wd, xp, g)
+        err = (xt.grad - want).abs()
+        check(bool(torch.isfinite(xt.grad).all()), f"{name}: x.grad not "
+              "finite")
+        check(torch.equal(xt.grad, want), f"{name}: x.grad differs from "
+              f"the plain gradient by up to {float(err.max())}")
+        fwd_ms = cuda_ms(torch, lambda: fn(x, w, spec), iters=10)
+        xr = x.clone().requires_grad_(True)
+        yr = fn(xr, w, spec)
+        bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            yr, xr, g, retain_graph=True), iters=10)
+        # the backward: the decode (words in, f32 out) and the product
+        # (g, w f32 and x.grad once each; 2 m k n f32 FMAs, TF32 off)
+        nbytes = (k * n * spec.n // 8 + k * n * 4
+                  + m * n * 4 + k * n * 4 + m * k * 4)
+        b_ms, b_by = bound(nbytes, 2 * m * k * n)
+        if spec.has_lns_parts:   # one expf a product (phase 8's bound)
+            t_sfu = m * k * n / (16 * 132 * sm_clock_hz) * 1e3
+            t_bytes = (m * k * 4 + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+            f_ms, f_by = ((t_sfu, "operations") if t_sfu >= t_bytes
+                          else (t_bytes, "bytes"))
+        else:
+            f_ms, f_by = mm_bound(spec, m, k, n)
+        out[name] = {"shape": [m, k, n], "max_abs_err": float(err.max()),
+                     "bit_equal_to_plain": True,
+                     "launches": launches, "forward_ms": fwd_ms,
+                     "forward_bound_ms": f_ms, "forward_bound_by": f_by,
+                     "backward_ms": bwd_ms, "backward_bound_ms": b_ms,
+                     "backward_bound_by": b_by,
+                     "backward_library_ms": cuda_ms(
+                         torch, lambda: torch.matmul(g, wd.T), iters=10)}
+        del w, y, yr, xr, xt, xp, want, wd, err
+    del x, g, wf
+    torch.cuda.empty_cache()
+    return out, total
+
+
+def train_cfg(layers):
+    """phi3-medium-14b's registered config, its depth cut to ``layers``
+    (None: as registered)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("phi3-medium-14b").config
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def full_width_training(torch, dev):
+    """Phase 24: phi3-medium-14b at full width, depth cut to
+    ``TRAIN_LAYERS``, ``TRAIN_STEPS`` AdamW steps on one repeated
+    ``SyntheticLM(seed=0)`` batch of 1 x ``TRAIN_T`` tokens, remat per
+    block, each step ``trainer.make_train_step``'s three calls
+    (``_grads_fn``, ``clip_by_global_norm``, ``apply_update``) timed one
+    by one (phase 25 drives ``make_train_step`` itself); per step the
+    loss, the grad norm, the step's host time (synchronised) and its
+    split into the forward+backward and the optimizer (clip + AdamW)."""
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import model
+    from repro_torch.optim import adamw as opt
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves
+    cfg = train_cfg(TRAIN_LAYERS)
+    full_layers = train_cfg(None).n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    state = opt.init_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=0, schedule="const")
+    grads_of = trainer._grads_fn(cfg, RuntimeConfig(remat="block"))
+    batch = dp.SyntheticLM(cfg.vocab, TRAIN_T, 1, seed=0).batch_at(0)
+    batch = trainer._device_batch(batch, dev)
+    rows = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, met, grads = grads_of(params, batch)
+        torch.cuda.synchronize()
+        t_mid = time.perf_counter()
+        grads, gnorm = opt.clip_by_global_norm(grads, ocfg.clip_norm)
+        params, state = opt.apply_update(params, grads, state, ocfg)
+        del grads
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows.append({"step": i, "loss": float(met["loss"]),
+                     "grad_norm": float(gnorm),
+                     "step_ms": 1e3 * (t1 - t),
+                     "fwd_bwd_ms": 1e3 * (t_mid - t),
+                     "optimizer_ms": 1e3 * (t1 - t_mid),
+                     "tokens_per_s": TRAIN_T / (t1 - t)})
+    for r in rows:
+        check(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
+              f"training step {r['step']}: loss or grad norm not finite")
+    check(rows[-1]["loss"] < rows[0]["loss"],
+          f"training loss did not fall: {rows[0]['loss']} -> "
+          f"{rows[-1]['loss']}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = rows[1:]
+    res = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "reduced": {"n_layers": f"{full_layers} -> {TRAIN_LAYERS}"},
+           "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "params": n_params, "batch": [1, TRAIN_T], "remat": "block",
+           "optimizer": f"AdamW lr {TRAIN_LR:g} const, clip 1.0",
+           "init_s": init_s, "steps": rows,
+           "loss_first_last": [rows[0]["loss"], rows[-1]["loss"]],
+           "step_ms_steady_mean": sum(r["step_ms"] for r in steady)
+           / len(steady),
+           "tokens_per_s_steady_mean": sum(r["tokens_per_s"] for r in steady)
+           / len(steady),
+           "peak_gb": peak_gb}
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _max_diffs(torch, a_tree, b_tree):
+    from repro_torch.tree import tree_leaves
+    abs_, rel, rel_l2 = 0.0, 0.0, 0.0
+    ok_reorder, ok_resume = True, True
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        d = (a - b).abs()
+        abs_ = max(abs_, float(d.max()))
+        rel = max(rel, float((d / b.abs().clamp(min=1e-30)).max()))
+        rel_l2 = max(rel_l2, float(d.norm() / b.norm().clamp(min=1e-30)))
+        ok_reorder &= bool((d <= REORDER_ATOL + REORDER_RTOL * b.abs()).all())
+        ok_resume &= bool((d <= RESUME_ATOL + RESUME_RTOL * b.abs()).all())
+    return {"max_abs": abs_, "max_rel": rel, "max_leaf_rel_l2": rel_l2,
+            "bit_equal": abs_ == 0.0, "within_reorder_tol": ok_reorder,
+            "within_resume_tol": ok_resume}
+
+
+def reduced_training(torch, dev, tmp):
+    """Phase 25: the reduced config (f32) trained on the card and on the
+    CPU from the same parameters; microbatch 2 and remat against the full
+    batch on the card; a takum16 checkpoint saved, restored and resumed
+    against the same rounding done in memory, and an uncompressed one
+    against the uninterrupted run; SIGTERM through ``PreemptionGuard``;
+    both launchers as subprocesses."""
+    import signal
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.core import takum
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import model
+    from repro_torch.optim import adamw as opt
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_map
+    cfg = get_arch("phi3-medium-14b").reduced
+    cpu_params = model.init(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    ds = dp.SyntheticLM(cfg.vocab, 64, 4, seed=3)
+    # tests/test_substrate.py's two settings: no clipping where two
+    # reductions are compared (clipping shrinks every gradient element
+    # towards AdamW's eps, where the update is most sensitive to it), and
+    # its resume run
+    reorder_cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="const",
+                                  clip_norm=1e9)
+    resume_cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="const")
+
+    def run(rt, params, state, s0, s1, ocfg=reorder_cfg):
+        step = trainer.make_train_step(cfg, ocfg, rt)
+        losses = []
+        for s in range(s0, s1):
+            params, state, met = step(params, state, ds.batch_at(s))
+            losses.append(float(met["loss"]))
+        return params, state, losses
+
+    res = {}
+    block = RuntimeConfig(remat="block")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    runs = {d: run(block, p, opt.init_state(p), 0, 3)
+            for d, p in (("cpu", cpu_params), ("card", card_params))}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"][2],
+                                                  runs["cpu"][2]))
+    check(rel <= LOSS_REL, f"reduced training: card losses {runs['card'][2]} "
+          f"against the CPU's {runs['cpu'][2]}")
+    pd = _max_diffs(torch, runs["card"][0], runs["cpu"][0])
+    check(pd["max_leaf_rel_l2"] <= PARAM_REL_L2, f"reduced training: card "
+          f"parameters differ from the CPU's by {pd}")
+    res["card_vs_cpu"] = {"losses_card": runs["card"][2],
+                          "losses_cpu": runs["cpu"][2],
+                          "loss_max_rel": rel, "params": pd}
+
+    full = run(RuntimeConfig(remat="none"), card_params,
+               opt.init_state(card_params), 0, 1)
+    for key, rt in (("microbatch_2", RuntimeConfig(remat="none",
+                                                   microbatch=2)),
+                    ("remat", block)):
+        got = run(rt, card_params, opt.init_state(card_params), 0, 1)
+        d = _max_diffs(torch, got[0], full[0])
+        check(d["max_leaf_rel_l2"] <= PARAM_REL_L2
+              and abs(got[2][0] - full[2][0]) <= LOSS_REL * abs(full[2][0]),
+              f"reduced training: {key} differs from the full batch: {d}")
+        res[key] = dict(d, loss=got[2][0], loss_full=full[2][0])
+
+    plain = RuntimeConfig(remat="none")
+    p_a, _, _ = run(plain, card_params, opt.init_state(card_params), 0, 6,
+                    resume_cfg)
+    p_b, st_b, _ = run(plain, card_params, opt.init_state(card_params), 0, 3,
+                       resume_cfg)
+    tree = {"params": p_b, "m": st_b.m, "v": st_b.v}
+    for codec in ("none", "takum16"):
+        d = str(tmp / f"ck_{codec}")
+        ckpt.save(3, tree, d, codec=codec)
+        got, s = ckpt.restore(d, tree, device=dev)
+        st = opt.AdamWState(got["m"], got["v"],
+                            torch.tensor(s, dtype=torch.int32, device=dev))
+        p_c, _, _ = run(plain, got["params"], st, 3, 6, resume_cfg)
+        if codec == "none":
+            want = p_a
+        else:
+            rt = tree_map(lambda t: takum.takum_to_float(
+                takum.float_to_takum(t, 16), 16), tree)
+            want, _, _ = run(plain, rt["params"], opt.AdamWState(
+                rt["m"], rt["v"], torch.tensor(3, dtype=torch.int32,
+                                               device=dev)), 3, 6,
+                             resume_cfg)
+        dd = _max_diffs(torch, p_c, want)
+        check(dd["within_resume_tol"], f"resume through a {codec} "
+              f"checkpoint differs from the uninterrupted run: {dd}")
+        res[f"resume_{codec}"] = dd
+
+    old = signal.getsignal(signal.SIGTERM)
+    try:
+        mgr = ckpt.CheckpointManager(str(tmp / "preempt"), codec="takum16",
+                                     save_interval=100)
+        params, state = card_params, opt.init_state(card_params)
+        step = trainer.make_train_step(cfg, resume_cfg, plain)
+        saved = []
+        for s in range(4):
+            params, state, _ = step(params, state, ds.batch_at(s))
+            if s == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            if mgr.maybe_save(s, {"params": params}):
+                saved.append(s)
+        mgr.wait()
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    check(saved == [1] and ckpt.latest_step(str(tmp / "preempt")) == 1,
+          f"SIGTERM at step 1 saved at steps {saved}")
+    res["preemption"] = {"sigterm_at": 1, "saved_at": saved}
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    launchers = {}
+    for name, argv in (("train", ["--arch", "phi3-medium-14b", "--reduced",
+                                  "--steps", "5"]),
+                       ("serve", ["--arch", "phi3-medium-14b", "--reduced",
+                                  "--weights", "takum8", "--kv-quant",
+                                  "takum8"])):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.launch.{name}"] + argv,
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.splitlines()
+        check(proc.returncode == 0, f"launch.{name} exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        check(bool(lines) and lines[0].startswith("# repro-config "),
+              f"launch.{name} printed no audit line first")
+        launchers[name] = {"rc": proc.returncode, "audit": lines[0],
+                           "last": lines[-1], "wall_s":
+                           time.perf_counter() - t}
+    res["launchers"] = launchers
+    return res
+
+
 def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, sort_keys=False))
 
@@ -2791,6 +3157,40 @@ def main() -> int:
     del params20
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 23-25. training ---------------------------------------------------
+    grads, grad_launches = wire_grad_phase(torch, dev, wrappers,
+                                           sm_clock_mhz * 1e6)
+    phase(23, "wire matmul gradients at full width", **grads, card=card,
+          tolerance="x.grad within 2*N*2^-24*(|g|@|decode(w)|^T) "
+                    "elementwise of the plain version's autograd gradient "
+                    "(phase 3's worst-case f32 bound, over N = 17920), "
+                    "TF32 off")
+    detail["wire_grads"] = grads
+    for k, key in (("takum_codec", "takum_decode"), ("qmatmul", "qmatmul"),
+                   ("lns_matmul", "lns_matmul"),
+                   ("posit8_lut", "posit8_lut")):
+        check(grad_launches[key] > 0, f"the gradient runs launched no {key}")
+        kernels[k]["launches_training"] = grad_launches[key]
+    kernels["takum_codec"]["launches_training_encode"] = grad_launches[
+        "takum_encode"]
+    train = full_width_training(torch, dev)
+    phase(24, "training phi3-medium-14b full width", **train, card=card)
+    detail["training"] = train
+    tmp = ROOT / "chiprun_out" / "train_ckpt"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    red_train = reduced_training(torch, dev, tmp)
+    shutil.rmtree(tmp)
+    phase(25, "reduced training card vs cpu", **red_train,
+          tolerance=f"losses {LOSS_REL:g} relative; parameters card vs cpu, "
+                    f"microbatch and remat: each leaf within {PARAM_REL_L2:g} "
+                    f"relative L2 (elementwise against rtol "
+                    f"{REORDER_RTOL:g} atol {REORDER_ATOL:g} reported); "
+                    f"resume elementwise rtol {RESUME_RTOL:g} atol "
+                    f"{RESUME_ATOL:g}")
+    detail["reduced_training"] = red_train
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "kv_append", "qmatmul", "attention",

@@ -1,4 +1,5 @@
-"""Model configuration: ``ModelConfig``, the arch registry, ``parse_kv_quant``.
+"""Model configuration: ``ModelConfig``, the arch registry, ``parse_kv_quant``,
+and the training run's ``RuntimeConfig``.
 
 The port's own copy of the JAX package's config dataclass (same field
 names and defaults, so a config converts field by field). Only the
@@ -11,7 +12,7 @@ import dataclasses
 from typing import Callable, Dict, Tuple
 
 __all__ = ["ModelConfig", "ArchSpec", "register_arch", "get_arch",
-           "list_archs", "parse_kv_quant"]
+           "list_archs", "parse_kv_quant", "RuntimeConfig"]
 
 
 def parse_kv_quant(kv_quant: str) -> Tuple[str, int]:
@@ -48,6 +49,17 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """The single-device train step's options: the reference's
+    ``RuntimeConfig`` without its multi-device fields (``multi_pod``,
+    ``zero1``, ``seq_shard`` and the ``QuantConfig`` of gradient
+    compression), which come with the multi-device modules (ROADMAP.md
+    section 1 item 6)."""
+    remat: str = "block"       # 'none' | 'block' (per-layer rematerialisation)
+    microbatch: int = 0        # 0 = no microbatching
 
 
 @dataclasses.dataclass(frozen=True)

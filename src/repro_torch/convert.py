@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters over into this package's layout.
+"""Carry parameters and optimizer state between the JAX package's layout
+and this package's.
 
 ``params_from_numpy`` takes the reference's parameter pytree flattened to
 nested dicts and lists of numpy arrays (the caller does the flattening:
@@ -7,7 +8,12 @@ this package never imports JAX), with each wire leaf given as a
 ``device`` (``cuda`` unless the caller names one). The reference stacks
 the layers of its scan group on a leading axis
 (``params["groups"][0]["b0"]``); here they are split into one dict per
-layer.
+layer. ``params_to_numpy`` goes the other way (numpy leaves in the
+reference's stacked layout, wire leaves as ``(words, format_name)``), so
+gradients compare leaf by leaf and a state trained in one package
+resumes in the other; ``adamw_state_from_numpy`` carries the reference's
+AdamW moments (``m``, ``v``: trees of the parameters' layout) and step
+over.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import WireMatrix
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "adamw_state_from_numpy"]
 
 
 def _leaf(x, device):
@@ -56,3 +62,47 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     out["final_norm"] = {"scale": _leaf(tree["final_norm"]["scale"], device)}
     out["layers"] = [_layer(stack, i, device) for i in range(cfg.n_layers)]
     return out
+
+
+def _host(x):
+    if isinstance(x, WireMatrix):
+        return (_host(x.words), x.spec.name)
+    t = x.detach().cpu()
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _stack(leaves):
+    if isinstance(leaves[0], dict):
+        return {k: _stack([leaf[k] for leaf in leaves]) for k in leaves[0]}
+    hosts = [_host(leaf) for leaf in leaves]
+    if isinstance(hosts[0], tuple):
+        return (np.stack([h[0] for h in hosts]), hosts[0][1])
+    return np.stack(hosts)
+
+
+def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
+                    ) -> Dict[str, Any]:
+    """This package's dense-family params -> the reference's layout as
+    numpy: the layers stacked on a leading axis under
+    ``["groups"][0]["b0"]``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not in the port")
+    out = {k: _host(params[k]) for k in ("embed_tokens", "unembed")
+           if k in params}
+    out["final_norm"] = {"scale": _host(params["final_norm"]["scale"])}
+    out["groups"] = [{"b0": _stack(params["layers"])}]
+    return out
+
+
+def adamw_state_from_numpy(m: Dict[str, Any], v: Dict[str, Any], step: int,
+                           cfg: ModelConfig, device=None):
+    """The reference's AdamW state (``m``/``v`` in its stacked layout, as
+    numpy; ``step``) -> this package's ``AdamWState`` on ``device``."""
+    from repro_torch.optim.adamw import AdamWState
+    device = resolve_device(device)
+    return AdamWState(m=params_from_numpy(m, cfg, device),
+                      v=params_from_numpy(v, cfg, device),
+                      step=torch.tensor(int(step), dtype=torch.int32,
+                                        device=device))

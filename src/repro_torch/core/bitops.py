@@ -25,6 +25,8 @@ def lanes(x) -> torch.Tensor:
     x = torch.as_tensor(x)
     if x.dtype == torch.uint16:
         return x.view(torch.int16).to(LANE) & 0xFFFF
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32).to(LANE) & 0xFFFFFFFF
     return x.to(LANE)
 
 

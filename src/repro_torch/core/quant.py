@@ -1,25 +1,27 @@
 """Quantisation with power-of-two scales: ``QuantSpec``, ``QTensor``,
-``quantize``, ``dequantize``.
+``quantize``, ``dequantize``, ``fake_quant``.
 
-The port's copy of the JAX package's ``core/quant.py`` for what the
-serving path needs: the per-tensor (or per-channel) scale exponent that
-centres a tensor where takum precision peaks (|x| ~ 1), applied with
-``ldexp`` (a multiply by an exact power of two: no rounding of its own
-while results stay normal), and the round trip through a wire format.
-Round to nearest even only; the STE ``fake_quant`` for training is not
-in the port yet.
+The port's copy of the JAX package's ``core/quant.py``: the per-tensor
+(or per-channel) scale exponent that centres a tensor where takum
+precision peaks (|x| ~ 1), applied with ``ldexp`` (a multiply by an
+exact power of two: no rounding of its own while results stay normal),
+and the round trip through a wire format. Linear takum words may round
+stochastically (``rounding="sr"``, n >= 12), from uniform bits drawn
+from an explicit ``torch.Generator``. ``fake_quant`` is the round trip
+with the straight-through gradient (the backward returns ``g``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from repro_torch.core import posit, takum
 
 __all__ = ["QuantSpec", "QTensor", "absmax", "exponent_of", "scale_exponent",
-           "exp2i", "quantize", "dequantize"]
+           "exp2i", "quantize", "dequantize", "fake_quant"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +30,7 @@ class QuantSpec:
     n: int = 16                 # word width
     scale: str = "per_tensor"   # 'none' | 'per_tensor' | 'per_channel'
     axis: int = -1              # channel axis for per_channel
-    rounding: str = "rne"       # 'rne' only in the port
+    rounding: str = "rne"       # 'rne' | 'sr' (linear takum, n >= 12)
 
 
 @dataclasses.dataclass
@@ -83,17 +85,38 @@ def _ldexp(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return x * exp2i(k).to(x.device)
 
 
-def quantize(x, spec: QuantSpec) -> QTensor:
+def _rng_bits(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Uniform uint32 lanes of ``x``'s shape, drawn from ``generator``
+    (on ``x``'s device)."""
+    r = torch.randint(0, 1 << 32, x.shape, generator=generator,
+                      dtype=torch.int64, device=x.device)
+    return torch.where(r >= 1 << 31, r - (1 << 32), r).to(
+        torch.int32).view(torch.uint32)
+
+
+def quantize(x, spec: QuantSpec, *,
+             generator: Optional[torch.Generator] = None) -> QTensor:
+    """``x`` -> words and scale exponent. ``spec.rounding == "sr"`` draws
+    the stochastic rounding's bits from ``generator`` (required: there is
+    no global seed), and takes linear takum words only."""
     x = torch.as_tensor(x).to(torch.float32)
-    if spec.rounding != "rne":
-        raise NotImplementedError(f"rounding={spec.rounding!r}: only 'rne' "
-                                  "is in the port")
+    if spec.rounding not in ("rne", "sr"):
+        raise ValueError(f"unknown rounding {spec.rounding!r}")
     if spec.fmt == "none":
         return QTensor(x, torch.zeros((), dtype=torch.int32), spec, x.shape)
     k = scale_exponent(x, spec)
     y = _ldexp(x, k)
+    rng_bits = None
+    if spec.rounding == "sr":
+        if generator is None:
+            raise ValueError("sr quantisation needs a torch.Generator")
+        if spec.fmt != "takum":
+            raise ValueError(f"sr rounding is defined for linear takum "
+                             f"words, not {spec.fmt!r}")
+        rng_bits = _rng_bits(y, generator)
     if spec.fmt == "takum":
-        words = takum.float_to_takum(y, spec.n)
+        words = takum.float_to_takum(y, spec.n, rounding=spec.rounding,
+                                     rng_bits=rng_bits)
     elif spec.fmt == "takum_lns":
         words = takum.float_to_lns_takum(y, spec.n)
     elif spec.fmt == "posit":
@@ -116,3 +139,24 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     else:
         raise ValueError(f"unknown format {spec.fmt}")
     return _ldexp(y, -qt.scale_exp).to(dtype)
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Quantise-dequantise forward, straight-through backward."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        ctx.dtype = x.dtype
+        return dequantize(quantize(x, spec))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None   # STE: takum's range never clips
+
+
+def fake_quant(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """``dequantize(quantize(x, spec))`` (f32) with a straight-through
+    gradient: the backward passes ``g`` through unchanged, as the JAX
+    package's ``custom_vjp`` does. Used for quantisation-aware
+    training."""
+    return _FakeQuant.apply(x, spec)

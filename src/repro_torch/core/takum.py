@@ -11,7 +11,10 @@ is the plain version that the CUDA device functions in
   ``frac_width(n) = max(n, 12) - 5`` bits, plus the zero/NaR flags.
 * ``encode``/``encode_linear`` round (S, c, mant) to n-bit words:
   round-to-nearest, ties to the even word, saturating (a finite nonzero
-  value never rounds onto the 0 or NaR words).
+  value never rounds onto the 0 or NaR words); or, for n >= 12,
+  stochastically (``rounding="sr"``): up with probability discarded/ulp,
+  from caller-given uniform ``rng_bits``, so the words are a function of
+  those bits.
 * ``takum_to_float`` assembles the IEEE-754 float32 word directly:
   sign | biased exponent | fraction, with RNE gradual underflow and
   overflow to inf; NaR decodes to the quiet NaN 0x7FC00000.
@@ -121,11 +124,31 @@ def decode_linear(words, n: int) -> TakumDecoded:
 
 
 def encode(s, c, mant, n: int, *, wm: int, is_zero=None,
-           is_nar=None) -> torch.Tensor:
+           is_nar=None, hw_path: bool = False, rounding: str = "rne",
+           rng_bits=None) -> torch.Tensor:
     """Round (S, c, barred mantissa of ``wm`` bits) to n-bit takum words.
 
     Out-of-range characteristics saturate to the largest or smallest
-    magnitude (never to 0 or NaR). Returns words in ``word_dtype(n)``."""
+    magnitude (never to 0 or NaR). Returns words in ``word_dtype(n)``.
+
+    ``rounding="sr"`` rounds up with probability discarded/2^cut: the
+    carry out of (discarded bits + the low ``cut`` bits of ``rng_bits``,
+    uniform uint32 lanes of the input's shape), still saturating. It
+    needs ``rng_bits`` and n >= 12 (the cut then always lies in the
+    mantissa). ``hw_path`` (the paper's section V-B..E dataflow) is not
+    in the port: the direct path gives the same words."""
+    if rounding not in ("rne", "sr"):
+        raise ValueError(f"unknown rounding {rounding!r}")
+    if rounding == "sr":
+        if hw_path:
+            raise ValueError("sr rounding is only on the direct path")
+        if n < 12:
+            raise ValueError("sr rounding requires n >= 12")
+        if rng_bits is None:
+            raise ValueError("sr rounding requires rng_bits")
+    if hw_path:
+        raise NotImplementedError("the hw_path encoder is not in the port; "
+                                  "the direct path gives the same words")
     _validate_n(n)
     if not 1 <= wm <= 27:
         raise ValueError(f"wm={wm} out of range")
@@ -169,8 +192,15 @@ def encode(s, c, mant, n: int, *, wm: int, is_zero=None,
     low = mask(n - 1)
     underflow_down = (rd & low) == 0         # RD would be the 0/NaR word
     overflow_up = (ru & low) == 0            # RU would wrap onto 0/NaR
-    round_up = underflow_down | (~overflow_up & (g == 1)
-                                 & (rest_nz | ((rd & 1) == 1)))
+    if rounding == "sr":
+        # the carry out of (discarded + uniform); n >= 12: always case A
+        discarded = torch.where(cut >= 1, mant & mask(cut), zero)
+        u = lanes(rng_bits).to(mant.device) & mask(cut)
+        carry = (safe_shr(discarded + u, cut) != 0) & (cut >= 1)
+        round_up = underflow_down | (~overflow_up & carry)
+    else:
+        round_up = underflow_down | (~overflow_up & (g == 1)
+                                     & (rest_nz | ((rd & 1) == 1)))
     word = torch.where(round_up, ru, rd)
     if is_zero is not None:
         word = torch.where(torch.as_tensor(is_zero), zero, word)
@@ -181,16 +211,20 @@ def encode(s, c, mant, n: int, *, wm: int, is_zero=None,
 
 
 def encode_linear(s, e, frac, n: int, *, wm: int, is_zero=None,
-                  is_nar=None) -> torch.Tensor:
+                  is_nar=None, hw_path: bool = False, rounding: str = "rne",
+                  rng_bits=None) -> torch.Tensor:
     """Encode from (S, e, f): c is e conditionally negated on S."""
     s = lanes(s)
     e = lanes(e)
     c = torch.where(s == 1, ~e, e)
-    return encode(s, c, frac, n, wm=wm, is_zero=is_zero, is_nar=is_nar)
+    return encode(s, c, frac, n, wm=wm, is_zero=is_zero, is_nar=is_nar,
+                  hw_path=hw_path, rounding=rounding, rng_bits=rng_bits)
 
 
-def float_to_takum(x, n: int) -> torch.Tensor:
-    """Round float32 values to n-bit linear takum words (RNE, saturating).
+def float_to_takum(x, n: int, *, rounding: str = "rne",
+                   rng_bits=None) -> torch.Tensor:
+    """Round float32 values to n-bit linear takum words (RNE, or
+    stochastic from ``rng_bits`` with ``rounding="sr"``; saturating).
 
     NaN -> NaR, +-inf -> the largest magnitude of that sign, +-0 -> 0."""
     _validate_n(n)
@@ -217,7 +251,7 @@ def float_to_takum(x, n: int) -> torch.Tensor:
     e = torch.where(is_inf, torch.full_like(e, 10_000), e)
     e = torch.where(is_nan | is_zero, torch.zeros_like(e), e)
     return encode_linear(s, e, f_field, n, wm=23, is_zero=is_zero,
-                         is_nar=is_nan)
+                         is_nar=is_nan, rounding=rounding, rng_bits=rng_bits)
 
 
 def _unbar(dec: TakumDecoded, n: int):

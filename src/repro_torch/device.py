@@ -9,12 +9,11 @@ __all__ = ["resolve_device", "check_generator"]
 
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller names a device; no quiet CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the port runs on the GPU; "
-                               "pass device='cpu' to run its plain versions")
-        device = "cuda"
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU; "
+                           "pass device='cpu' to run its plain versions")
+    return device
 
 
 def check_generator(gen: torch.Generator, device: torch.device) -> None:

@@ -7,7 +7,8 @@ and puts the tensors into the kernel's layout. The kernel wrappers of
 ``takum_codec``/``takum_matmul``/``lns_matmul``/``takum_attention``/
 ``quantize`` choose the path: CUDA tensors launch the hand-written
 kernel (or raise: there is no fallback), CPU tensors run the plain
-version of ``kernels/ref.py``.
+version of ``kernels/ref.py``. The two wire matmuls are
+``torch.autograd.Function``s with the reference's VJP.
 """
 
 from __future__ import annotations
@@ -78,30 +79,62 @@ def _lns_wire_spec(fmt):
     return spec
 
 
+class _WireMatmul(torch.autograd.Function):
+    """A wire matmul's forward (``fwd(x2, w_words)`` on the rows of x) and
+    the reference's VJP: the weights are wire-format constants, so the
+    only cotangent is ``g @ decode(w)^T`` (straight through any rounding
+    of x on the way in), the decode through the codec kernel on CUDA."""
+
+    @staticmethod
+    def forward(ctx, x, w_words, spec, fwd):
+        ctx.save_for_backward(w_words)
+        ctx.spec, ctx.dtype = spec, x.dtype
+        out = fwd(x.reshape(-1, x.shape[-1]), w_words)
+        return out.reshape(*x.shape[:-1], w_words.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (w_words,) = ctx.saved_tensors
+        w = takum_decode(w_words, ctx.spec)
+        return torch.matmul(g, w.t()).to(ctx.dtype), None, None, None
+
+
 def quant_matmul(x: torch.Tensor, w_words: torch.Tensor, fmt) -> torch.Tensor:
-    """x [..., K] @ decode(w_words [K, N]) -> [..., N] f32 (forward only);
-    rows of any leading shape are flattened into the kernel's M. Linear
-    takum and posit words: LNS words are refused (see :func:`lns_matmul`)."""
+    """x [..., K] @ decode(w_words [K, N]) -> [..., N] f32; rows of any
+    leading shape are flattened into the kernel's M. Linear takum and
+    posit words: LNS words are refused (see :func:`lns_matmul`).
+    Differentiable in x (``g @ decode(w)^T``); ``w_words`` gets no
+    gradient."""
     spec = _dense_wire_spec(fmt)
-    out = takum_matmul.qmatmul(x.reshape(-1, x.shape[-1]), w_words, spec)
-    return out.reshape(*x.shape[:-1], w_words.shape[1])
+    return _WireMatmul.apply(
+        x, w_words, spec, lambda x2, w: takum_matmul.qmatmul(x2, w, spec))
 
 
 def lns_matmul(x: torch.Tensor, w_words: torch.Tensor, fmt,
                accum: str = "linear") -> torch.Tensor:
     """x [..., K] (x) decode(w_words [K, N]) -> [..., N] f32 on the LNS
-    ell_bar datapath (forward only).
+    ell_bar datapath.
 
     ``w_words`` are logarithmic takum words; ``x`` (any float dtype) is
     encoded to the same LNS grid on the way in (the codec's LNS encode
     kernel on CUDA), so every product is one int32 add. ``accum="linear"``
     converts each product and sums in f32; ``"gauss"`` folds the products
     through the Gauss-log table and converts once per output. Linear takum
-    words are refused (see :func:`quant_matmul`)."""
+    words are refused (see :func:`quant_matmul`). Differentiable in x
+    with a straight-through estimate through the activation encode
+    (``g @ decode(w)^T``); on the plain path ``"gauss"`` refuses a
+    gradient, as the reference's plain fallback does."""
     spec = _lns_wire_spec(fmt)
-    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    out = klns.lns_matmul(takum_codec.encode(x2, spec), w_words, spec, accum)
-    return out.reshape(*x.shape[:-1], w_words.shape[1])
+    if (accum == "gauss" and not x.is_cuda and torch.is_grad_enabled()
+            and x.requires_grad):
+        raise ValueError("accum='gauss' has no gradient on the plain path: "
+                         "differentiate the kernel path (CUDA tensors) or "
+                         "accumulate with accum='linear'")
+
+    def fwd(x2, w):
+        xw = takum_codec.encode(x2.to(torch.float32), spec)
+        return klns.lns_matmul(xw, w, spec, accum)
+    return _WireMatmul.apply(x, w_words, spec, fwd)
 
 
 def _check_heads(h: int, hkv: int) -> None:
@@ -153,7 +186,8 @@ class WireMatrix:
     product to :meth:`__rmatmul__`, which routes it through
     :func:`lns_matmul` for LNS words (the ell_bar-datapath kernel on CUDA,
     linear accumulation) and :func:`quant_matmul` for linear takum and
-    posit words (the wire-weight kernel on CUDA)."""
+    posit words (the wire-weight kernel on CUDA); both are
+    differentiable in x."""
 
     def __init__(self, words: torch.Tensor, n=None, *, fmt="linear"):
         self.spec = formats.resolve_wire(fmt, n)

@@ -41,7 +41,8 @@ from repro_torch.kernels import ops
 __all__ = ["DTYPES", "dense_init", "rmsnorm_init", "rmsnorm", "rope",
            "attn_init", "attention", "mlp_init", "mlp", "embed_init",
            "embed", "unembed", "padded_vocab", "VOCAB_PAD", "put_words",
-           "causal_mask", "ATTN_CHUNK_T", "QC", "KC", "CAUSAL_SKIP"]
+           "causal_mask", "ATTN_CHUNK_T", "QC", "KC", "CAUSAL_SKIP",
+           "token_nll", "xent_loss"]
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 VOCAB_PAD = 128   # embedding tables padded so the vocab dim tiles evenly
@@ -320,3 +321,21 @@ def unembed(params, x: torch.Tensor, vocab: Optional[int] = None):
         logits = logits[..., :vocab]     # drop the vocab padding
     return logits
 
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood in f32; labels [B, T] integer."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - gold
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32; labels [B, T] integer."""
+    nll = token_nll(logits, labels)
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import formats
 from repro_torch.configs.base import ModelConfig
@@ -130,26 +131,44 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
             for _ in range(cfg.n_layers)]
 
 
+def _block(p, x, cfg, positions, cache=None, mask=None,
+           prefill_fresh=False):
+    """One pre-norm block: (x, new cache or None)."""
+    h, cache = L.attention(p["attn"], L.rmsnorm(p["ln1"], x), cfg,
+                           positions, cache=cache, mask=mask,
+                           prefill_fresh=prefill_fresh)
+    x = x + h
+    x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), cfg.activation)
+    return x, cache
+
+
 def _layers(params, x, cfg, positions, caches, *, mask=None,
-            prefill_fresh=False):
-    """Every block in order; returns (x, new caches or None)."""
+            prefill_fresh=False, remat=False):
+    """Every block in order; returns (x, new caches or None). ``remat``
+    (uncached only) keeps each block's input and recomputes the rest of
+    it in the backward, the counterpart of the reference's
+    ``jax.checkpoint(..., nothing_saveable)`` per scanned block."""
     new_caches = []
     for i, p in enumerate(params["layers"]):
+        if remat and caches is None:
+            x = checkpoint(_block, p, x, cfg, positions, None, mask,
+                           use_reentrant=False)[0]
+            continue
         cache = None if caches is None else caches[i]
-        h, cache = L.attention(p["attn"], L.rmsnorm(p["ln1"], x), cfg,
-                               positions, cache=cache, mask=mask,
-                               prefill_fresh=prefill_fresh)
-        x = x + h
-        x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), cfg.activation)
+        x, cache = _block(p, x, cfg, positions, cache, mask, prefill_fresh)
         new_caches.append(cache)
     return x, (new_caches if caches is not None else None)
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig):
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            remat: bool = False, features: bool = False):
     """Uncached forward: tokens [B, T] -> (logits [B, T, V] f32, aux).
     ``aux`` is the reference's auxiliary loss, 0 for the dense family.
     Below ``ATTN_CHUNK_T`` tokens attention runs under a causal mask;
-    from there on the chunked attention builds its own bands."""
+    from there on the chunked attention builds its own bands. ``remat``
+    recomputes each block in the backward; ``features`` returns the
+    final-norm hidden states [B, T, d] instead of logits (the chunked
+    cross entropy unembeds them a chunk at a time)."""
     _check_family(cfg)
     dtype = L.DTYPES[cfg.dtype]
     params = cast_params(params, dtype)
@@ -158,9 +177,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig):
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     mask = (L.causal_mask(t, t, device=tokens.device)
             if t < L.ATTN_CHUNK_T else None)
-    x, _ = _layers(params, x, cfg, positions, None, mask=mask)
+    x, _ = _layers(params, x, cfg, positions, None, mask=mask, remat=remat)
     x = L.rmsnorm(params["final_norm"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if features:
+        return x, aux
     return L.unembed(params, x, vocab=cfg.vocab), aux
 
 
