@@ -162,7 +162,25 @@ Phases, one summary line each; any failure exits non-zero:
     and resumed against the uninterrupted run (the same rounding done in
     memory for takum16); a SIGTERM turned into a save at the next step
     boundary; ``python -m repro_torch.launch.train`` and
-    ``launch.serve`` as subprocesses, exit 0 with the audit line first.
+    ``launch.serve`` as subprocesses, exit 0 with the audit line first;
+26. serving granite-moe-3b-a800m at full width and depth (32 layers, d
+    1536, 24/8 heads of 64, 40 experts top-8 of d_ff 512, capacity
+    factor 1.25; f32 expert stacks fake-quantised to takum8 in place at
+    set-up by the fake-quant kernel, bf16 compute copies; takum8 wire
+    attention projections and KV): phase 5's requests, TTFT, token gaps,
+    the replayed ``decode_ms_per_step``, prefill per chunk, ``peak_gb``
+    and the launch counts; the replayed step against the eager one over
+    >= 64 steps (phase 19's check, bit for bit); the reduced config
+    served on the card and on the CPU (tokens equal, logits 1e-4);
+27. serving kimi-k2-1t-a32b at full width, depth cut to 1 of 61 layers
+    (d 7168, 64/8 heads of 112, 384 experts top-8 of d_ff 2048, capacity
+    factor 1.0; one layer's expert stacks, 16.9 G parameters, made in
+    bf16 and fake-quantised a slice at a time, printed as ``layers`` and
+    ``layers_of``): phase 5's requests as in phase 26, ``peak_gb``; then
+    hd 112 through the append and both attention kernels at the served
+    shapes (a 256-token chunk at pos 768, a decode step of 4 over
+    256-position pages), each against its plain version, with times,
+    bounds and SDPA's time (the kernels line's ``hd112`` entries).
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
@@ -183,7 +201,9 @@ is headed by the decode, with ``torch.index_select`` on a 256-entry table
 as its library call (and the posit8 table's). Last,
 ``{"ok": true, "device": {...}}``. The codec's, the wire matmul's, the
 LNS matmul's and the posit8 table's entries also carry
-``launches_training``, their launches in phase 23. Details go to
+``launches_training``, their launches in phase 23; the append, the wire
+matmul and both attention kernels ``launches_moe`` (phases 26 and 27),
+fake-quant ``launches_moe_setup``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -483,7 +503,7 @@ def eager_mode(eager: bool):
 
 
 def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
-                     wrappers, seed=5, eager=False, params=None):
+                     wrappers, seed=5, eager=False, params=None, cfg=None):
     """Serve phi3-medium-14b at full width (all 40 layers, random weights
     from a seeded generator on the card, ``wfmt`` wire weights, a ``kv``
     KV cache, page size 256, decode batch 4): one request per prompt
@@ -494,11 +514,13 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
     the shortest request's first token is the argmax of a fresh prefill.
     ``decode_ms_per_step`` leaves out the step that captured the graph
     (an eager step and the capture: ``capture_step_ms``). ``params``
-    (from :func:`full_width_params`) are built here when not given."""
+    (from :func:`full_width_params`) are built here when not given;
+    ``cfg`` (default phi3-medium-14b's with ``kv``) serves another model
+    with the ``params`` given."""
     from repro_torch.models import model
     from repro_torch.serve.engine import ServeEngine
     ps = 256
-    cfg = full_width_cfg(kv)
+    cfg = full_width_cfg(kv) if cfg is None else cfg
     torch.cuda.reset_peak_memory_stats()
     weights_s = 0.0
     if params is None:
@@ -577,7 +599,8 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
     check(int(row.argmax()) == outs[0][plens[0]],
           "served first token differs from a fresh prefill's argmax")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    serve = {"weights": wfmt, "kv": kv, "layers": cfg.n_layers,
+    serve = {"arch": cfg.name, "weights": wfmt, "kv": kv,
+             "layers": cfg.n_layers,
              "d_model": cfg.d_model, "prompt_tokens": sum(plens),
              "generated_tokens": n_events,
              "weights_s": round(weights_s, 2), "serve_s": round(serve_s, 3),
@@ -682,8 +705,9 @@ def encode_tap(torch, replay=None):
               "times than the CPU")
 
 
-def reduced_card_vs_cpu(torch, dev, *, wfmt, kv, free_tol=1e-4, tol=1e-4):
-    """The reduced config served on the card and on the CPU (plain
+def reduced_card_vs_cpu(torch, dev, *, wfmt, kv, free_tol=1e-4, tol=1e-4,
+                        arch="phi3-medium-14b"):
+    """The reduced config of ``arch`` served on the card and on the CPU (plain
     versions): identical greedy tokens (two generate calls: prefix tree
     cold and warm), and the prefill logits of one prompt within ``tol``
     once the card's encodes replay the CPU run's words (``encode_tap``),
@@ -692,8 +716,7 @@ def reduced_card_vs_cpu(torch, dev, *, wfmt, kv, free_tol=1e-4, tol=1e-4):
     from repro_torch.configs import get_arch
     from repro_torch.models import model
     from repro_torch.serve.engine import ServeEngine, quantize_weights
-    rcfg = dataclasses.replace(get_arch("phi3-medium-14b").reduced,
-                               kv_quant=kv)
+    rcfg = dataclasses.replace(get_arch(arch).reduced, kv_quant=kv)
     rparams = quantize_weights(model.init(torch.Generator().manual_seed(0),
                                           rcfg, device="cpu"), wfmt,
                                mode="wire", verbose=False)
@@ -722,7 +745,7 @@ def reduced_card_vs_cpu(torch, dev, *, wfmt, kv, free_tol=1e-4, tol=1e-4):
     same = toks_by["cpu"] == toks_by[str(dev)]
     free_err = float((cpu_row - card_free).abs().max())
     forced_err = float((cpu_row - card_forced).abs().max())
-    what = f"reduced model ({wfmt} weights, {kv} KV)"
+    what = f"reduced {arch} ({wfmt} weights, {kv} KV)"
     check(same, f"{what}: card and CPU tokens differ")
     check(forced_err <= tol, f"{what}: card and CPU logits differ by "
           f"{forced_err} with the CPU's words forced")
@@ -730,7 +753,8 @@ def reduced_card_vs_cpu(torch, dev, *, wfmt, kv, free_tol=1e-4, tol=1e-4):
           f"{free_err} free-running")
     check(free_err <= 1e-4 or seen["differ"] > 0, f"{what}: free-running "
           f"logits differ by {free_err} and no encoded word differs")
-    return {"weights": wfmt, "kv": kv, "tokens_identical": same,
+    return {"arch": arch, "weights": wfmt, "kv": kv,
+            "tokens_identical": same,
             "logits_max_abs_err": free_err, "tolerance": free_tol,
             "forced_logits_max_abs_err": forced_err, "forced_tolerance": tol,
             "encoded_words": seen["words"], "words_differing": seen["differ"],
@@ -1439,16 +1463,18 @@ def same_cache(torch, got, want) -> bool:
     return torch.equal(carrier(got), carrier(want))
 
 
-def kv_append_inputs(torch, dev, spec, dtype, in_dtype, mode, seed):
+def kv_append_inputs(torch, dev, spec, dtype, in_dtype, mode, seed,
+                     hkv=10, hd=128):
     """Fresh K/V at the main path's shapes (a decode step [4, 1, 10, 128]
     into a 24-page pool of 256 positions, or a prefill chunk [1, 256, 10,
-    128] into a 1280-position cache) with zeros, infinities and a NaN
-    among them, stale cache words, and where they go: the paged table and
-    pos of phase 4 (an idle slot whose stale pos 4000 lies past its
-    table), or position 256 of the contiguous cache."""
+    128] into a 1280-position cache; ``hkv``/``hd`` another model's heads)
+    with zeros, infinities and a NaN among them, stale cache words, and
+    where they go: the paged table and pos of phase 4 (an idle slot whose
+    stale pos 4000 lies past its table), or position 256 of the
+    contiguous cache."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    shape = (4, 1, 10, 128) if mode == "paged" else (1, 256, 10, 128)
-    cshape = (24, 256, 10, 128) if mode == "paged" else (1, 1280, 10, 128)
+    shape = (4, 1, hkv, hd) if mode == "paged" else (1, 256, hkv, hd)
+    cshape = (24, 256, hkv, hd) if mode == "paged" else (1, 1280, hkv, hd)
     k, v = (torch.randn(shape, generator=g, device=dev)
             * torch.pow(2.0, torch.randint(-20, 20, shape, generator=g,
                                            device=dev).float())
@@ -2435,6 +2461,260 @@ def reduced_training(torch, dev, tmp):
     return res
 
 
+# -- phases 26-27: the moe family -----------------------------------------------
+
+# (arch, layers served: None = all) of phases 26 and 27; kimi-k2's depth is
+# cut to 1 of 61 layers (one layer's experts are 16.9 G parameters, 33.8 GB
+# in bf16), its widths are the config's
+MOE_PHASES = (("granite-moe-3b-a800m", None), ("kimi-k2-1t-a32b", 1))
+MOE_LATE = (72, 24, 72, 72)      # phase 19's requests for graph vs eager
+
+
+def moe_cfg(arch, layers):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).config
+    return dataclasses.replace(cfg, kv_quant="takum8",
+                               n_layers=layers or cfg.n_layers)
+
+
+def moe_params(torch, dev, cfg, dtype):
+    """A moe model's weights at full width, random from a seeded
+    generator on the card (embeddings bf16, the layers in ``dtype``:
+    None = the config's ``param_dtype``), through ``quantize_weights(params, "takum8",
+    mode="wire", in_place=True)``: the attention projections wired, the
+    router and the expert stacks fake-quantised in place (one exponent a
+    leaf over every layer, as the reference's stacked leaf; a slice of
+    the expert axis at a time). Returns (params, seconds, fake-quant
+    launches)."""
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import quantize_weights
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=torch.bfloat16,
+                          device=dev)
+    params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
+    params["layers"] = [transformer.init_layer(gen, cfg, device=dev, dtype=dtype)
+                        for _ in range(cfg.n_layers)]
+    kquant.fake_quant.launches = 0
+    params = quantize_weights(params, "takum8", mode="wire", verbose=False,
+                              in_place=True)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0, kquant.fake_quant.launches
+
+
+def attention_check(torch, dev, hkv, grp, hd, seed):
+    """Both attention kernels at Hkv ``hkv``, G ``grp``, head dim ``hd``
+    over takum8 words, at the shapes a serving run gives them: the last
+    256-token chunk of a 1024-token prompt (pos 768 of a 1280-position
+    cache), and a decode step of 4 sequences (pos 76, 520, 1023 and an
+    idle slot at a stale 4000) over 256-position pages. Each is held to
+    its plain version on the same inputs (ATTN_ATOL), with NaR words: a K
+    word of the paged pool (seq 1, position 266, head 3: that row NaN,
+    every other finite, as the plain version's) and the contiguous
+    kernel's :func:`contiguous_nar_check`. Each is timed beside its bound
+    and its library call, scaled_dot_product_attention on K/V decoded
+    beforehand. Returns (contiguous entry, paged entry, NaR fields)."""
+    from repro_torch import formats
+    from repro_torch.core import takum
+    from repro_torch.kernels import ref, takum_codec
+    from repro_torch.kernels import takum_attention as kattn
+    t8 = formats.get("takum8")
+    ps, tq, pos0, tcache = 256, 256, 768, 1280
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # contiguous
+    q = torch.randn((1, tq, hkv * grp, hd), generator=g, device=dev)
+    kc = takum_codec.encode(torch.randn((1, tcache, hkv, hd), generator=g,
+                                        device=dev), t8)
+    vc = takum_codec.encode(torch.randn((1, tcache, hkv, hd), generator=g,
+                                        device=dev), t8)
+    start0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    q4 = kattn.to_rows(q, hkv).contiguous()
+
+    def contiguous():
+        return kattn.attention(q4, kc, vc, pos0, start0, spec=t8, bk=ps,
+                               tq=tq)
+
+    got = contiguous()
+    want = kattn.to_rows(ref.attention_ref(q, kc, vc, 8, t8, pos=pos0,
+                                           start=start0), hkv)
+    c_err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and c_err <= ATTN_ATOL,
+          f"hd {hd} contiguous attention off by {c_err}")
+    nar_nans, nar_err = contiguous_nar_check(torch, q, kc, vc, t8, pos0,
+                                             start0)
+    keys_needed = sum(pos0 + r + 1 for r in range(tq)) * grp * hkv
+    b_ms, b_by = bound(q4.numel() * 4 * 2 + 2 * (pos0 + tq) * hkv * hd,
+                       4 * hd * keys_needed * tf32_products(t8), TF32_FLOPS)
+    kf = ref.decode_ref(kc, t8)[:, :pos0 + tq].transpose(1, 2)
+    vf = ref.decode_ref(vc, t8)[:, :pos0 + tq].transpose(1, 2)
+    qf = q.transpose(1, 2)
+    causal = (torch.arange(pos0 + tq, device=dev)[None, :]
+              <= (pos0 + torch.arange(tq, device=dev))[:, None])
+    cont = {"shape": list(q4.shape), "max_abs_err": c_err,
+            "ms": cuda_ms(torch, contiguous),
+            "plain_ms": cuda_ms(torch, lambda: ref.attention_ref(
+                q, kc, vc, 8, t8, pos=pos0, start=start0), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(torch, lambda: sdpa(
+                qf, kf, vf, attn_mask=causal, enable_gqa=True))}
+    del kc, vc, kf, vf, qf, q, q4, got, want
+    # paged
+    npg, pool_pages = 5, 24
+    kp = takum_codec.encode(torch.randn((pool_pages, ps, hkv, hd),
+                                        generator=g, device=dev), t8)
+    vp = takum_codec.encode(torch.randn((pool_pages, ps, hkv, hd),
+                                        generator=g, device=dev), t8)
+    table = torch.tensor([[1, 2, 0, 0, 0], [3, 4, 5, 0, 0],
+                          [6, 7, 8, 9, 10], [0, 0, 0, 0, 0]],
+                         dtype=torch.int32, device=dev)
+    pos = torch.tensor([76, 520, 1023, 4000], dtype=torch.int32, device=dev)
+    startp = torch.zeros(4, dtype=torch.int32, device=dev)
+    kp[4, 10, 3, 7] = takum.nar_word(8)       # seq 1, position 266, head 3
+    qd = torch.randn((4, 1, hkv * grp, hd), generator=g, device=dev)
+    qd4 = kattn.to_rows(qd, hkv).contiguous()
+
+    def paged():
+        return kattn.paged_attention(qd4, kp, vp, pos, startp, table, spec=t8)
+
+    gotp = paged()
+    wantp = kattn.to_rows(ref.paged_attention_ref(qd, kp, vp, table, t8,
+                                                  pos=pos, start=startp), hkv)
+    nan_ok = torch.equal(torch.isnan(gotp), torch.isnan(wantp))
+    poisoned = bool(torch.isnan(gotp[1, 3]).all())
+    clean = int(torch.isnan(gotp).sum()) == grp * hd
+    fin = torch.isfinite(wantp)
+    p_err = float((gotp[fin] - wantp[fin]).abs().max())
+    check(nan_ok and poisoned and clean and p_err <= ATTN_ATOL,
+          f"hd {hd} paged attention: nan_ok={nan_ok} poisoned={poisoned} "
+          f"clean={clean} err={p_err}")
+    need = [min(int(p) + 1, npg * ps) for p in pos.tolist()]
+    b_ms, b_by = bound(qd4.numel() * 4 * 2 + sum(need) * hkv * hd * 2,
+                       4 * hd * grp * hkv * sum(need))
+    # the library call: each sequence's in-band pages gathered and decoded
+    # beforehand, padded to the longest, under its own boolean mask
+    lens = [min(int(p) // ps, npg - 1) * ps + ps for p in pos.tolist()]
+    kg = torch.zeros((4, hkv, max(lens), hd), device=dev)
+    vg = torch.zeros_like(kg)
+    keep = torch.zeros((4, 1, 1, max(lens)), dtype=torch.bool, device=dev)
+    for i, n_keys in enumerate(lens):
+        pages = table[i, :n_keys // ps].long()
+        kg[i, :, :n_keys] = ref.decode_ref(kp[pages], t8).reshape(
+            n_keys, hkv, hd).transpose(0, 1)
+        vg[i, :, :n_keys] = ref.decode_ref(vp[pages], t8).reshape(
+            n_keys, hkv, hd).transpose(0, 1)
+        j = torch.arange(n_keys, device=dev)
+        keep[i, 0, 0, :n_keys] = (j <= pos[i]) & (j >= startp[i])
+    qg = qd.transpose(1, 2)                  # [B, H, 1, hd]
+
+    def paged_library():
+        return sdpa(qg, kg, vg, attn_mask=keep, enable_gqa=True)
+
+    lib_out = kattn.to_rows(paged_library().transpose(1, 2), hkv)
+    lib_fin = torch.isfinite(lib_out) & torch.isfinite(gotp)
+    pag = {"shape": list(qd4.shape), "max_abs_err": p_err,
+           "partition_keys": kattn.paged_partition_keys(hd, 8),
+           "ms": cuda_ms(torch, paged, iters=100),
+           "device_ms": graph_ms(torch, paged, iters=100),
+           "plain_ms": cuda_ms(torch, lambda: ref.paged_attention_ref(
+               qd, kp, vp, table, t8, pos=pos, start=startp), iters=5),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(torch, paged_library, iters=100),
+           "library_device_ms": graph_ms(torch, paged_library, iters=100),
+           "library_max_abs_err": float(
+               (lib_out - gotp)[lib_fin].abs().max())}
+    del kp, vp, kg, vg, keep, qg, qd, qd4, gotp, wantp, lib_out, lib_fin
+    torch.cuda.empty_cache()
+    return cont, pag, {"contiguous_nar_nans": nar_nans,
+                       "contiguous_nar_max_abs_err": nar_err,
+                       "nar_rows_poisoned": poisoned}
+
+
+def hd_attention_check(torch, dev, cfg):
+    """Both attention kernels (:func:`attention_check`) and the append at
+    ``cfg``'s heads (kimi-k2: Hkv 8, G 8, hd 112), takum8 words: the
+    append of a decode step and of a chunk held bit for bit to the plain
+    append, and timed."""
+    from repro_torch import formats
+    from repro_torch.kernels import ref, takum_codec
+    t8 = formats.get("takum8")
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    grp = cfg.n_heads // hkv
+    cont, pag, nar = attention_check(torch, dev, hkv, grp, hd, seed=27)
+    # the append, both modes, against the plain append
+    app = {}
+    for mode in ("paged", "contiguous"):
+        k, v, kc, vc, where = kv_append_inputs(
+            torch, dev, t8, None, torch.bfloat16, mode, 270, hkv=hkv, hd=hd)
+        gk, gv = kc.clone(), vc.clone()
+        takum_codec.kv_append(k, v, gk, gv, t8, **where)
+        wk, wv = kc.clone(), vc.clone()
+        ref.kv_append_ref(k, v, wk, wv, t8, **where)
+        ok = same_cache(torch, gk, wk) and same_cache(torch, gv, wv)
+        check(ok, f"hd {hd} kv_append {mode}: differs from the plain append")
+        app[mode] = {"shape": list(k.shape), "bit_exact": True,
+                     "ms": cuda_ms(torch, lambda: takum_codec.kv_append(
+                         k, v, gk, gv, t8, **where), iters=100)}
+        del k, v, kc, vc, gk, gv, wk, wv
+    torch.cuda.empty_cache()
+    return {"hd": hd, "hkv": hkv, "group": grp, "contiguous": cont,
+            "paged": pag, "nar": nar, "kv_append": app,
+            "tolerance": ATTN_ATOL}
+
+
+def moe_phase(torch, dev, arch, layers, wrappers):
+    """Phases 26 and 27: ``arch`` at full width (``layers`` of it: None =
+    all) with takum8 wire attention and a takum8 KV cache, phase 5's
+    requests served through the scheduler, the decode step replayed from
+    a CUDA graph; every wrapper's launches from that run. granite-moe
+    (26): the replayed step against the eager one over >= 64 steps, bit
+    for bit, and the reduced config card against CPU. kimi-k2 (27): its
+    hd 112 through both attention kernels and the append, each held to
+    its plain version at the served shapes (:func:`hd_attention_check`)."""
+    from repro_torch.configs import get_arch
+    cfg = moe_cfg(arch, layers)
+    # a full-width kimi-k2 layer's expert stacks fit the card only in bf16
+    dtype = None if layers is None else torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    params, weights_s, fq = moe_params(torch, dev, cfg, dtype)
+    check(fq > 0, f"{arch}: quantize_weights launched no fake-quant kernel")
+    serve = serve_full_width(torch, dev, wfmt="takum8", kv="takum8",
+                             plens=PHASE5_PLENS, max_new=16, max_len=1280,
+                             wrappers=wrappers, params=params, cfg=cfg)
+    serve["weights_s"] = round(weights_s, 2)
+    serve["experts"] = {"n": cfg.n_experts, "top_k": cfg.top_k,
+                        "d_ff": cfg.d_ff,
+                        "capacity_factor": cfg.capacity_factor,
+                        "dtype": str(params["layers"][0]["moe"]
+                                     ["experts_w1"].dtype)[6:]}
+    serve["layers_of"] = get_arch(arch).config.n_layers
+    serve["fake_quant_launches_setup"] = fq
+    launches = serve["launches"]
+    for k in ("kv_append", "qmatmul", "attention", "paged_attention"):
+        check(launches[k] > 0, f"{arch}: kernel {k} was not launched by the "
+              "serving run")
+    check(launches["takum_encode"] == 0 and launches["takum_decode"] == 0,
+          f"{arch}: the serving run launched the standalone codec")
+    out = {"serving": serve}
+    if layers is None:
+        out["graph_vs_eager"] = graph_vs_eager(
+            torch, dev, params, cfg, plens=PHASE5_PLENS, max_new=MOE_LATE,
+            late_at=40, late_plen=150, late_new=32)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["reduced_card_vs_cpu"] = reduced_card_vs_cpu(
+            torch, dev, wfmt="takum8", kv="takum8", arch=arch)
+    else:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["hd_kernels"] = hd_attention_check(torch, dev, cfg)
+    return out
+
+
 def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, sort_keys=False))
 
@@ -2453,7 +2733,6 @@ def main() -> int:
     t_start = time.perf_counter()
 
     from repro_torch import formats
-    from repro_torch.core import takum
     from repro_torch.core.bitops import carrier, to_words
     from repro_torch.kernels import build
     from repro_torch.kernels import lns_matmul as klns
@@ -2558,54 +2837,14 @@ def main() -> int:
     detail["matmul_checks"] = mm
 
     # -- 4. attention -----------------------------------------------------
-    hkv, grp, hd, ps = 10, 4, 128, 256
-    g = torch.Generator(device=dev).manual_seed(4)
-    # contiguous: the last 256-token chunk of a 1024-token prompt
-    tq, pos0, tcache = 256, 768, 1280
-    q = torch.randn((1, tq, hkv * grp, hd), generator=g, device=dev)
-    kc = takum_codec.encode(torch.randn((1, tcache, hkv, hd), generator=g,
-                                        device=dev), t8)
-    vc = takum_codec.encode(torch.randn((1, tcache, hkv, hd), generator=g,
-                                        device=dev), t8)
-    start0 = torch.zeros(1, dtype=torch.int32, device=dev)
-    q4 = kattn.to_rows(q, hkv).contiguous()
-    got = kattn.attention(q4, kc, vc, pos0, start0, spec=t8, bk=ps, tq=tq)
-    want = kattn.to_rows(ref.attention_ref(q, kc, vc, 8, t8, pos=pos0,
-                                           start=start0), hkv)
-    attn_err = float((got - want).abs().max())
-    check(bool(torch.isfinite(got).all()) and attn_err <= ATTN_ATOL,
-          f"contiguous attention off by {attn_err}")
-    nar_nans, nar_err = contiguous_nar_check(torch, q, kc, vc, t8, pos0,
-                                             start0)
-    # paged: 4 sequences, one idle slot with a stale pos, one NaR word
-    npg, pool_pages = 5, 24
-    kp = takum_codec.encode(torch.randn((pool_pages, ps, hkv, hd), generator=g,
-                                        device=dev), t8)
-    vp = takum_codec.encode(torch.randn((pool_pages, ps, hkv, hd), generator=g,
-                                        device=dev), t8)
-    table = torch.tensor([[1, 2, 0, 0, 0], [3, 4, 5, 0, 0],
-                          [6, 7, 8, 9, 10], [0, 0, 0, 0, 0]],
-                         dtype=torch.int32, device=dev)
-    pos = torch.tensor([76, 520, 1023, 4000], dtype=torch.int32, device=dev)
-    startp = torch.zeros(4, dtype=torch.int32, device=dev)
-    kp[4, 10, 3, 7] = takum.nar_word(8)       # seq 1, position 266, head 3
-    qd = torch.randn((4, 1, hkv * grp, hd), generator=g, device=dev)
-    qd4 = kattn.to_rows(qd, hkv).contiguous()
-    gotp = kattn.paged_attention(qd4, kp, vp, pos, startp, table, spec=t8)
-    wantp = kattn.to_rows(ref.paged_attention_ref(qd, kp, vp, table, t8,
-                                                  pos=pos, start=startp), hkv)
-    nan_ok = torch.equal(torch.isnan(gotp), torch.isnan(wantp))
-    poisoned = bool(torch.isnan(gotp[1, 3]).all())
-    clean = int(torch.isnan(gotp).sum()) == grp * hd
-    fin = torch.isfinite(wantp)
-    paged_err = float((gotp[fin] - wantp[fin]).abs().max())
-    check(nan_ok and poisoned and clean and paged_err <= ATTN_ATOL,
-          f"paged attention: nan_ok={nan_ok} poisoned={poisoned} "
-          f"clean={clean} err={paged_err}")
-    phase(4, "attention", contiguous_rows=q4.shape[2],
-          contiguous_max_abs_err=attn_err, contiguous_nar_nans=nar_nans,
-          contiguous_nar_max_abs_err=nar_err, paged_max_abs_err=paged_err,
-          nar_rows_poisoned=poisoned, tolerance=ATTN_ATOL)
+    att, patt, att_nar = attention_check(torch, dev, hkv=10, grp=4, hd=128,
+                                         seed=4)
+    phase(4, "attention", contiguous_rows=att["shape"][2],
+          contiguous_max_abs_err=att["max_abs_err"],
+          contiguous_nar_nans=att_nar["contiguous_nar_nans"],
+          contiguous_nar_max_abs_err=att_nar["contiguous_nar_max_abs_err"],
+          paged_max_abs_err=patt["max_abs_err"],
+          nar_rows_poisoned=att_nar["nar_rows_poisoned"], tolerance=ATTN_ATOL)
 
     # -- kernel times at the main path's shapes ---------------------------
     # the codec pair (decode and encode kernels of codec.cu) is one entry,
@@ -2705,85 +2944,30 @@ def main() -> int:
                  "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
                  "device_ms": pre["device_ms"],
                  "library_device_ms": pre["library_device_ms"]})
-    # contiguous attention: the 1024-row chunk above; its products run on
-    # the tensor cores, tf32_products per multiply-add
-    keys_needed = sum(pos0 + r + 1 for r in range(tq)) * grp * hkv
-    b_ms, b_by = bound(q4.numel() * 4 * 2 + 2 * (pos0 + tq) * hkv * hd,
-                       4 * hd * keys_needed * tf32_products(t8), TF32_FLOPS)
-    kf = ref.decode_ref(kc, t8)[:, :pos0 + tq].transpose(1, 2)
-    vf = ref.decode_ref(vc, t8)[:, :pos0 + tq].transpose(1, 2)
-    qf = q.transpose(1, 2)
-    causal = (torch.arange(pos0 + tq, device=dev)[None, :]
-              <= (pos0 + torch.arange(tq, device=dev))[:, None])
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the attention kernels at phase 4's shapes (attention_check): the
+    # contiguous one on the tensor cores, tf32_products per multiply-add
     kernels["attention"] = dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/takum_attention.py:158",
         redesigned="split-TF32 tensor cores",
         bound_note=f"{tf32_products(t8)} TF32 tensor-core products per "
                    "multiply-add at 495 TFLOP/s over the keys each row needs",
-        max_abs_err=attn_err, shape=list(q4.shape),
-        ms=cuda_ms(torch, lambda: kattn.attention(q4, kc, vc, pos0, start0,
-                                                  spec=t8, bk=ps, tq=tq)),
-        plain_ms=cuda_ms(torch, lambda: ref.attention_ref(
-            q, kc, vc, 8, t8, pos=pos0, start=start0), iters=5),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(torch, lambda: sdpa(qf, kf, vf, attn_mask=causal,
-                                               enable_gqa=True)),
         library_call="scaled_dot_product_attention on K/V decoded to f32 "
-                     "beforehand (decode not timed)")
-    # paged attention: the decode step above (keys each sequence needs)
-    need = [min(int(p) + 1, npg * ps) for p in pos.tolist()]
-    b_ms, b_by = bound(qd4.numel() * 4 * 2 + sum(need) * hkv * hd * 2,
-                       4 * hd * grp * hkv * sum(need))
-    # the library call: each sequence's in-band pages gathered and decoded
-    # beforehand, padded to the longest, under its own boolean mask
-    lens = [min(int(p) // ps, npg - 1) * ps + ps for p in pos.tolist()]
-    kg = torch.zeros((4, hkv, max(lens), hd), device=dev)
-    vg = torch.zeros_like(kg)
-    keep = torch.zeros((4, 1, 1, max(lens)), dtype=torch.bool, device=dev)
-    for i, n_keys in enumerate(lens):
-        pages = table[i, :n_keys // ps].long()
-        kg[i, :, :n_keys] = ref.decode_ref(kp[pages], t8).reshape(
-            n_keys, hkv, hd).transpose(0, 1)
-        vg[i, :, :n_keys] = ref.decode_ref(vp[pages], t8).reshape(
-            n_keys, hkv, hd).transpose(0, 1)
-        j = torch.arange(n_keys, device=dev)
-        keep[i, 0, 0, :n_keys] = (j <= pos[i]) & (j >= startp[i])
-    qg = qd.transpose(1, 2)                  # [B, H, 1, hd]
-
-    def paged_library():
-        return sdpa(qg, kg, vg, attn_mask=keep, enable_gqa=True)
-
-    def paged_kernel():
-        return kattn.paged_attention(qd4, kp, vp, pos, startp, table, spec=t8)
-
-    lib_out = kattn.to_rows(paged_library().transpose(1, 2), hkv)
-    lib_fin = torch.isfinite(lib_out) & torch.isfinite(gotp)
+                     "beforehand (decode not timed)", **att)
     kernels["paged_attention"] = dict(
         route="cuda", source="src/repro_torch/csrc/attention.cu",
         replaces="src/repro/kernels/takum_attention.py:301",
-        redesigned="flash-decoding: partitions of 8192 / hd keys, merged "
-                   "in order by the last block of each (sequence, KV head)",
-        max_abs_err=paged_err, shape=list(qd4.shape),
-        ms=cuda_ms(torch, paged_kernel, iters=100),
-        device_ms=graph_ms(torch, paged_kernel, iters=100),
-        plain_ms=cuda_ms(torch, lambda: ref.paged_attention_ref(
-            qd, kp, vp, table, t8, pos=pos, start=startp), iters=5),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(torch, paged_library, iters=100),
-        library_device_ms=graph_ms(torch, paged_library, iters=100),
+        redesigned="flash-decoding: partitions of (bits / 2) x 4 x "
+                   "(32 // lanes a key) keys (8192 / hd at a power-of-two "
+                   "hd, 64 at hd 112), merged in order by the last block of "
+                   "each (sequence, KV head)",
         library_call="scaled_dot_product_attention(enable_gqa=True) over "
                      "each sequence's in-band pages gathered and decoded to "
                      "f32 beforehand (not timed), padded to the longest, "
                      "with that sequence's boolean causal/start mask",
-        library_max_abs_err=float((lib_out - gotp)[lib_fin].abs().max()),
         timing_note="ms: CUDA events over back-to-back calls (the host's "
                     "time where it is the slower side); device_ms: the same "
-                    "calls replayed from a CUDA graph")
-    del kg, vg, keep, qg, lib_out, lib_fin
-    del kc, vc, kp, vp, kf, vf, q, q4, qd, qd4, got, want, gotp, wantp
-    torch.cuda.empty_cache()
+                    "calls replayed from a CUDA graph", **patt)
 
     # -- 5. serving at full width -----------------------------------------
     wrappers = {"takum_decode": takum_codec.decode,
@@ -3191,6 +3375,29 @@ def main() -> int:
                     f"resume elementwise rtol {RESUME_RTOL:g} atol "
                     f"{RESUME_ATOL:g}")
     detail["reduced_training"] = red_train
+
+    # -- 26-27. the moe family -------------------------------------------
+    for n, (arch, layers) in zip((26, 27), MOE_PHASES):
+        res = moe_phase(torch, dev, arch, layers, wrappers)
+        launches = res["serving"]["launches"]
+        for k in ("kv_append", "qmatmul", "attention", "paged_attention"):
+            kernels[k].setdefault("launches_moe", {})[str(n)] = launches[k]
+        kernels["fake_quant"].setdefault("launches_moe_setup", {})[str(n)] = \
+            res["serving"]["fake_quant_launches_setup"]
+        kernels["kv_append"]["launches_by_phase"][str(n)] = \
+            launches["kv_append"]
+        what = (f"serving {arch} full width" if layers is None else
+                f"serving {arch} full width, {layers} of "
+                f"{res['serving']['layers_of']} layers")
+        phase(n, what, **res, card=card)
+        detail[f"moe_{arch}"] = res
+        if "hd_kernels" in res:
+            hk = res["hd_kernels"]
+            for k, key in (("attention", "contiguous"),
+                           ("paged_attention", "paged")):
+                kernels[k][f"hd{hk['hd']}"] = dict(
+                    hk[key], hkv=hk["hkv"], group=hk["group"])
+            kernels["kv_append"][f"hd{hk['hd']}"] = hk["kv_append"]
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "kv_append", "qmatmul", "attention",

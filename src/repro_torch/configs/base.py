@@ -29,7 +29,7 @@ def parse_kv_quant(kv_quant: str) -> Tuple[str, int]:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense (the only family served here)
+    family: str                  # dense | moe (the families served here)
     n_layers: int
     d_model: int
     n_heads: int                 # query heads
@@ -39,6 +39,10 @@ class ModelConfig:
     head_dim: int = 0            # 0 -> d_model // n_heads
     activation: str = "swiglu"   # the only MLP served here
     rope_base: float = 10_000.0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     dtype: str = "bf16"          # activation compute dtype
     param_dtype: str = "f32"
     # serving: KV-cache wire format, a repro_torch.formats name

@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import WireMatrix
+from repro_torch.models.transformer import paged_supported
 
 __all__ = ["params_from_numpy", "params_to_numpy", "adamw_state_from_numpy"]
 
@@ -46,16 +47,24 @@ def _layer(tree, i: int, device):
     return _leaf(tree[i], device)
 
 
+def _check_plan(cfg: ModelConfig) -> None:
+    if not paged_supported(cfg):
+        raise NotImplementedError(f"family {cfg.family!r} is not in the port")
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device=None) -> Dict[str, Any]:
-    """Reference dense-family params (numpy) -> this package's params."""
+    """Reference dense- or moe-family params (numpy) -> this package's
+    params. Both plans are one scan group of one block kind (``self`` or
+    ``moe``: ``attn`` and ``mlp`` or ``moe`` leaves)."""
     device = resolve_device(device)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not in the port")
+    _check_plan(cfg)
     groups = tree["groups"]
-    if len(groups) != 1 or set(groups[0]) != {"b0"}:
-        raise ValueError("expected the dense layer plan: one scan group "
-                         "with one block kind")
+    ffn = "moe" if cfg.family == "moe" else "mlp"
+    if (len(groups) != 1 or set(groups[0]) != {"b0"}
+            or ffn not in groups[0]["b0"]):
+        raise ValueError(f"expected the {cfg.family} layer plan: one scan "
+                         f"group of blocks with {ffn!r} leaves")
     stack = groups[0]["b0"]
     out = {k: _leaf(tree[k], device)
            for k in ("embed_tokens", "unembed") if k in tree}
@@ -84,11 +93,10 @@ def _stack(leaves):
 
 def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
                     ) -> Dict[str, Any]:
-    """This package's dense-family params -> the reference's layout as
-    numpy: the layers stacked on a leading axis under
+    """This package's dense- or moe-family params -> the reference's
+    layout as numpy: the layers stacked on a leading axis under
     ``["groups"][0]["b0"]``."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not in the port")
+    _check_plan(cfg)
     out = {k: _host(params[k]) for k in ("embed_tokens", "unembed")
            if k in params}
     out["final_norm"] = {"scale": _host(params["final_norm"]["scale"])}

@@ -37,7 +37,8 @@
 // * Each key's hd words are read as 16-byte cp.async copies (LPK lanes a
 //   key: 8 for takum8 at hd 128, 16 for 16-bit words, 32 for f32), every
 //   copy of the block issued at its start into shared memory (8192 K
-//   words and as many V words a partition: PK = 8192 / hd keys), each
+//   words and as many V words a partition at a power-of-two hd: PK =
+//   8192 / hd keys; see Geo for the other head dims), each
 //   lane reading back only what it copied, and decoded in registers
 //   (wire::Codec, the 8-bit tables in shared memory). Staging the words
 //   there rather than in registers keeps a block under 128 registers (4
@@ -82,6 +83,15 @@ __device__ __forceinline__ float nanmax(float a, float b) {
     return (a != a || b != b) ? __uint_as_float(0x7FC00000u) : fmaxf(a, b);
 }
 
+// The partition geometry of hd-wide keys of N-bit words. A key is LPK
+// lanes of 16 bytes; a warp holds KPW = 32 / LPK whole keys (rounded
+// down: at hd 112, 7 lanes a takum8 key and 4 keys a warp, lanes 28-31
+// idle; a power-of-two hd leaves no lane idle). Each lane loads SLOTS
+// 16-byte pieces of K and as many of V, so a partition is PK = SLOTS x
+// NWARP x KPW keys: 8192 / hd at a power-of-two hd, 64 at hd 112 for
+// every word width. Another hd that is a multiple of 16 needs only its
+// case line in dispatch_hd (and shared memory within the card's limit)
+// as long as a key fits one warp (LPK <= 32: hd * N <= 4096).
 template <int N, int HD>
 struct Geo {
     static constexpr int LPK = HD * N / 128;    // lanes a key (16 bytes each)
@@ -89,10 +99,40 @@ struct Geo {
     static constexpr int KPW = 32 / LPK;        // keys a warp loads at once
     static constexpr int KB = NWARP * KPW;      // keys a block loads at once
     static constexpr int SLOTS = 4 * N / 8;     // loads a lane, of K and of V
-    static constexpr int PK = SLOTS * KB;       // keys of a partition: 8192 / HD
+    static constexpr int PK = SLOTS * KB;       // keys of a partition
     static constexpr int RAW = SLOTS * NT * 16; // bytes of K (and of V) words
-    static_assert(LPK >= 1 && WPL * N == 128 && PK * HD == 8192, "geometry");
+    static constexpr bool POW2 = (LPK & (LPK - 1)) == 0;
+    // the largest power of two below KPW: the first step of the tree sum
+    // over a warp's keys
+    static constexpr int KTOP = KPW > 16 ? 16 : KPW > 8 ? 8
+                              : KPW > 4 ? 4 : KPW > 2 ? 2 : 1;
+    static_assert(HD * N % 128 == 0 && LPK >= 1 && LPK <= 32
+                  && WPL * N == 128 && WPL % 4 == 0, "geometry");
 };
+
+// Sum over the LPK lanes of each key (lanes kslot * LPK .. + LPK - 1):
+// every lane gets it by butterflies when LPK is a power of two; otherwise
+// a tree by shuffles down, whose total lands on the key's first lane.
+template <int LPK, int R>
+__device__ __forceinline__ void key_sum(float (&v)[R], int part) {
+    if constexpr ((LPK & (LPK - 1)) == 0) {
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o /= 2)
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                v[r] += __shfl_xor_sync(0xffffffffu, v[r], o);
+    } else {
+#pragma unroll
+        for (int o = 16; o > 0; o /= 2) {
+            if (o >= LPK) continue;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const float u = __shfl_down_sync(0xffffffffu, v[r], o);
+                if (part + o < LPK) v[r] += u;
+            }
+        }
+    }
+}
 
 // The in-band pages of a sequence at `pos`: first..last (first > last:
 // none); returns its number of partitions of pk keys.
@@ -142,8 +182,11 @@ attn_kernel(const float* __restrict__ q4, const wire::WordT<N>* __restrict__ kw,
     const int k0 = first * ps + p * PK;
     const int k1 = min(k0 + PK, (last + 1) * ps);
     const int kslot = lane / LPK, part = lane % LPK;
-    // key c of slot s of this thread (c >= k1: none)
-    auto key = [&](int s) { return k0 + s * G::KB + warp * KPW + kslot; };
+    // key c of slot s of this thread (c >= k1: none; an idle lane, past
+    // the warp's KPW keys, holds none)
+    auto key = [&](int s) {
+        return kslot < KPW ? k0 + s * G::KB + warp * KPW + kslot : k1;
+    };
 
     // every K and V load of the block, at once, straight into shared memory
 #pragma unroll
@@ -198,11 +241,7 @@ attn_kernel(const float* __restrict__ q4, const wire::WordT<N>* __restrict__ kw,
                     dot[r] = fmaf(qv.w, kv[3], dot[r]);
                 }
             }
-#pragma unroll
-            for (int o = LPK / 2; o > 0; o /= 2)
-#pragma unroll
-                for (int r = 0; r < RB; ++r)
-                    dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
+            key_sum<LPK>(dot, part);
             const int c = key(s);
             if (part == 0 && c < k1) {
                 bool msk = c <= pos && c >= start;
@@ -263,13 +302,29 @@ attn_kernel(const float* __restrict__ q4, const wire::WordT<N>* __restrict__ kw,
                     acc[r][e] = fmaf(pr[r], vv, acc[r][e]);
             }
         }
+        if constexpr (G::POW2) {
 #pragma unroll
-        for (int o = 16; o >= LPK; o /= 2)
+            for (int o = 16; o >= LPK; o /= 2)
 #pragma unroll
-            for (int r = 0; r < RB; ++r)
+                for (int r = 0; r < RB; ++r)
 #pragma unroll
-                for (int e = 0; e < WPL; ++e)
-                    acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+                    for (int e = 0; e < WPL; ++e)
+                        acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e],
+                                                     o);
+        } else {
+            // the KPW keys' lanes of one column sit LPK apart: a tree by
+            // shuffles down onto the first key's lanes (kslot 0)
+#pragma unroll
+            for (int o = G::KTOP; o > 0; o /= 2)
+#pragma unroll
+                for (int r = 0; r < RB; ++r)
+#pragma unroll
+                    for (int e = 0; e < WPL; ++e) {
+                        const float u = __shfl_down_sync(
+                            0xffffffffu, acc[r][e], o * LPK);
+                        if (kslot + o < KPW) acc[r][e] += u;
+                    }
+        }
         if (kslot == 0)
 #pragma unroll
             for (int r = 0; r < RB; ++r)
@@ -377,6 +432,7 @@ int dispatch_hd(int hd, const float* q4, const void* kw, const void* vw,
         case 16: return launch<N, K, 16>(ARGS);
         case 32: return launch<N, K, 32>(ARGS);
         case 64: return launch<N, K, 64>(ARGS);
+        case 112: return launch<N, K, 112>(ARGS);
         case 128: return launch<N, K, 128>(ARGS);
     }
 #undef ARGS
@@ -390,7 +446,7 @@ int dispatch_hd(int hd, const float* q4, const void* kw, const void* vw,
 // 3 posit8 through the table, 4 identity: bf16 at n = 16, f32 at n = 32).
 // Pool kw/vw [P, ps, Hkv, hd] (16-byte aligned); pos/start [B]; table
 // [B, npg]. nparts_all partitions a (b, h) at most (ceil(npg * ps / PK),
-// PK = 4 x 4 x 32 / max(1, hd * n / 128) keys), part_acc [B, Hkv,
+// PK = (n / 2) x 4 x (32 / (hd * n / 128)) keys: Geo), part_acc [B, Hkv,
 // nparts_all, rows, hd] and part_ml [B, Hkv, nparts_all, rows, 2] f32 the
 // workspace; counter [B * Hkv] int32, zero before the launch and zero
 // again after it (the last block of each (b, h) resets its own).

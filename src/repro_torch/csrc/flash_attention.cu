@@ -404,6 +404,7 @@ int dispatch_hd(int hd, const float* q4, const void* kw, const void* vw,
         case 16: return launch<N, K, 16>(ARGS);
         case 32: return launch<N, K, 32>(ARGS);
         case 64: return launch<N, K, 64>(ARGS);
+        case 112: return launch<N, K, 112>(ARGS);
         case 128: return launch<N, K, 128>(ARGS);
     }
 #undef ARGS

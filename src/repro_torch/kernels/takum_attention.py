@@ -46,7 +46,7 @@ __all__ = ["attention", "paged_attention", "to_rows", "from_rows",
            "paged_partitions"]
 
 DEFAULT_BK = 256           # contiguous-cache KV tile (keys), as on the TPU
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry point of each library
 _SIGNATURES = {
@@ -155,14 +155,20 @@ def _per_seq(x, b: int, dev) -> torch.Tensor:
 
 def paged_partition_keys(hd: int, bits: int) -> int:
     """Keys of a paged-attention partition for ``hd``-wide keys of
-    ``bits``-bit words: 8192 / hd, so a partition holds 8192 K words and
-    as many V words at every width (``csrc/attention.cu``: a key is read
-    by hd * bits / 128 lanes of 16 bytes, and each of a block's 128
-    threads loads 4 * bits / 8 such pieces of K and of V)."""
-    if hd * bits < 128:
-        raise ValueError(f"paged attention reads keys of at least 16 bytes, "
-                         f"got hd {hd} x {bits} bits")
-    return 8192 // hd
+    ``bits``-bit words (``csrc/attention.cu``, ``Geo``): a key is read by
+    ``lpk = hd * bits / 128`` lanes of 16 bytes, a warp holds ``32 //
+    lpk`` whole keys (at hd 112 a takum8 key is 7 lanes, 4 keys a warp
+    and 4 lanes idle), and each of a block's 4 warps loads ``bits / 2``
+    such sets of K and of V. That is 8192 / hd keys at a power-of-two hd
+    (8192 K words and as many V words), 64 at hd 112 for every width."""
+    if hd * bits < 128 or hd * bits % 128:
+        raise ValueError(f"paged attention reads keys of whole 16-byte "
+                         f"pieces, got hd {hd} x {bits} bits")
+    lpk = hd * bits // 128
+    if lpk > 32:
+        raise ValueError(f"a key of hd {hd} x {bits} bits does not fit "
+                         "one warp's lanes")
+    return (bits // 2) * 4 * (32 // lpk)
 
 
 def paged_partitions(pos, ps: int, npg: int, window: int, pk: int):

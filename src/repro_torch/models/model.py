@@ -1,4 +1,4 @@
-"""Model API used by the serving layer (dense family)::
+"""Model API used by the serving layer (dense and moe families)::
 
     init(gen, cfg)                                  -> params
     init_cache(cfg, batch, max_len)                 -> contiguous cache

@@ -1,4 +1,5 @@
-"""Decoder-only dense transformer: parameters, caches, cached forward.
+"""Decoder-only transformer of the dense and moe families: parameters,
+caches, cached forward.
 
 Parameters are a plain dict::
 
@@ -8,6 +9,8 @@ Parameters are a plain dict::
 
 one entry of ``layers`` per layer (the JAX package stacks them on a
 leading axis and runs ``lax.scan``; here a Python loop walks the list).
+A moe layer holds ``"moe": {router, experts_wg, experts_w1, experts_w2}``
+(``models/moe.py``) in place of ``"mlp"``.
 ``forward`` runs without a cache, ``forward_cached`` with one.
 Caches are lists with one dict per layer, in the layout ``layers.attention``
 takes.
@@ -26,14 +29,26 @@ from repro_torch.core.bitops import zeros_words
 from repro_torch.device import check_generator, resolve_device
 from repro_torch.kernels.ops import WireMatrix
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 __all__ = ["cast_params", "init", "init_layer", "init_cache",
-           "init_paged_cache", "forward", "forward_cached"]
+           "init_paged_cache", "forward", "forward_cached",
+           "paged_supported", "FAMILIES"]
+
+FAMILIES = ("dense", "moe")
+
+
+def paged_supported(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s layers are all attention blocks (the reference's
+    ``self``/``moe`` kinds), the families this package serves and pages:
+    dense and moe."""
+    return cfg.family in FAMILIES
+
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if not paged_supported(cfg):
         raise NotImplementedError(f"family {cfg.family!r} is not in the port "
-                                  "yet (dense only)")
+                                  f"yet ({' and '.join(FAMILIES)} only)")
 
 
 def cast_params(params, dtype):
@@ -60,11 +75,16 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, *, device=None,
     check_generator(gen, device)
     dtype = L.DTYPES[cfg.param_dtype] if dtype is None else dtype
     d = cfg.d_model
-    return {"ln1": L.rmsnorm_init(d, device), "ln2": L.rmsnorm_init(d, device),
-            "attn": L.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                                dtype, device),
-            "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype,
-                              device)}
+    p = {"ln1": L.rmsnorm_init(d, device), "ln2": L.rmsnorm_init(d, device),
+         "attn": L.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                             dtype, device)}
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.moe_init(gen, d, cfg.d_ff, cfg.n_experts,
+                                    dtype, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.activation, dtype,
+                              device)
+    return p
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, *, device=None,
@@ -133,37 +153,51 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
 
 def _block(p, x, cfg, positions, cache=None, mask=None,
            prefill_fresh=False):
-    """One pre-norm block: (x, new cache or None)."""
+    """One pre-norm block: (x, aux, new cache or None); ``aux`` is the
+    moe block's load-balance term, None for a dense block (no op added
+    to a dense step)."""
     h, cache = L.attention(p["attn"], L.rmsnorm(p["ln1"], x), cfg,
                            positions, cache=cache, mask=mask,
                            prefill_fresh=prefill_fresh)
     x = x + h
-    x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), cfg.activation)
-    return x, cache
+    if "moe" in p:
+        h, aux = moe_mod.moe_apply(p["moe"], L.rmsnorm(p["ln2"], x),
+                                   n_experts=cfg.n_experts, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor)
+    else:
+        h = L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), cfg.activation)
+        aux = None
+    return x + h, aux, cache
 
 
 def _layers(params, x, cfg, positions, caches, *, mask=None,
             prefill_fresh=False, remat=False):
-    """Every block in order; returns (x, new caches or None). ``remat``
-    (uncached only) keeps each block's input and recomputes the rest of
-    it in the backward, the counterpart of the reference's
+    """Every block in order; returns (x, the moe blocks' summed aux or
+    None, new caches or None).
+    ``remat`` (uncached only) keeps each block's input and recomputes the
+    rest of it in the backward, the counterpart of the reference's
     ``jax.checkpoint(..., nothing_saveable)`` per scanned block."""
     new_caches = []
+    aux = None
     for i, p in enumerate(params["layers"]):
         if remat and caches is None:
-            x = checkpoint(_block, p, x, cfg, positions, None, mask,
-                           use_reentrant=False)[0]
-            continue
-        cache = None if caches is None else caches[i]
-        x, cache = _block(p, x, cfg, positions, cache, mask, prefill_fresh)
-        new_caches.append(cache)
-    return x, (new_caches if caches is not None else None)
+            x, aux_i, _ = checkpoint(_block, p, x, cfg, positions, None,
+                                     mask, use_reentrant=False)
+        else:
+            cache = None if caches is None else caches[i]
+            x, aux_i, cache = _block(p, x, cfg, positions, cache, mask,
+                                     prefill_fresh)
+            new_caches.append(cache)
+        if aux_i is not None:
+            aux = aux_i if aux is None else aux + aux_i
+    return x, aux, (new_caches if caches is not None else None)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             remat: bool = False, features: bool = False):
     """Uncached forward: tokens [B, T] -> (logits [B, T, V] f32, aux).
-    ``aux`` is the reference's auxiliary loss, 0 for the dense family.
+    ``aux`` is the reference's auxiliary loss: the moe blocks' summed
+    load-balance terms, 0 for the dense family.
     Below ``ATTN_CHUNK_T`` tokens attention runs under a causal mask;
     from there on the chunked attention builds its own bands. ``remat``
     recomputes each block in the backward; ``features`` returns the
@@ -177,9 +211,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     mask = (L.causal_mask(t, t, device=tokens.device)
             if t < L.ATTN_CHUNK_T else None)
-    x, _ = _layers(params, x, cfg, positions, None, mask=mask, remat=remat)
+    x, aux, _ = _layers(params, x, cfg, positions, None, mask=mask,
+                        remat=remat)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.rmsnorm(params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if features:
         return x, aux
     return L.unembed(params, x, vocab=cfg.vocab), aux
@@ -201,8 +237,8 @@ def forward_cached(params, tokens: torch.Tensor, cfg: ModelConfig, caches,
     x = L.embed(params, tokens, dtype)
     ar = torch.arange(t, device=tokens.device)
     positions = (torch.as_tensor(pos, device=tokens.device) + ar).expand(b, t)
-    x, new_caches = _layers(params, x, cfg, positions, caches,
-                            prefill_fresh=t > 1)
+    x, _, new_caches = _layers(params, x, cfg, positions, caches,
+                               prefill_fresh=t > 1)
     x = L.rmsnorm(params["final_norm"], x)
     if last_only:
         x = x[:, t - 1:t]

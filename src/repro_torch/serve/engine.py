@@ -70,6 +70,42 @@ _WIRE_LEAVES = {"wq", "wk", "wv", "wo", "wg", "w1", "w2"}
 _PER_TENSOR = quant.QuantSpec(fmt="takum", scale="per_tensor")
 # each format's largest finite magnitude (every word decoded once)
 _FMT_MAX: dict = {}
+# elements of one slice of a stacked (3D) leaf: fake-quant and its absmax
+# go a slice of the leading (expert) axis at a time, so a stack's f32
+# temporaries stay this small (a kimi-k2 expert stack is 5.6 G elements)
+_SLICE = 1 << 26
+
+
+def _slices(leaf: torch.Tensor):
+    """``leaf`` as consecutive slices of its leading axis (3D and up;
+    a 2D leaf is one slice)."""
+    if leaf.ndim < 3:
+        yield slice(None)
+        return
+    step = max(1, _SLICE // max(1, leaf[0].numel()))
+    for i in range(0, leaf.shape[0], step):
+        yield slice(i, i + step)
+
+
+def _absmax(leaf: torch.Tensor) -> torch.Tensor:
+    """The f32 max |x| of ``leaf``, a slice at a time."""
+    return torch.stack([quant.absmax(leaf[sl].to(torch.float32), _PER_TENSOR)
+                        for sl in _slices(leaf)]).max()
+
+
+def _fake_leaf(spec, leaf: torch.Tensor, scale_exp, in_place: bool):
+    """``spec.fake_quant`` of ``leaf`` in its dtype, a slice at a time
+    (linear takum with the whole leaf's exponent, or ``scale_exp``);
+    written into ``leaf`` itself when ``in_place``."""
+    if spec.kind == "linear" and scale_exp is None:
+        scale_exp = int(quant.exponent_of(_absmax(leaf)))
+    if leaf.ndim < 3 and not in_place:
+        return spec.fake_quant(leaf, dtype=leaf.dtype, scale_exp=scale_exp)
+    out = leaf if in_place else torch.empty_like(leaf)
+    for sl in _slices(leaf):
+        out[sl] = spec.fake_quant(leaf[sl], dtype=leaf.dtype,
+                                  scale_exp=scale_exp)
+    return out
 
 
 def _format_max(spec) -> float:
@@ -87,7 +123,8 @@ def _format_max(spec) -> float:
 
 
 def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
-                     skip_substrings=_DEFAULT_SKIP, verbose: bool = True):
+                     skip_substrings=_DEFAULT_SKIP, verbose: bool = True,
+                     in_place: bool = False):
     """Quantise a served model's weight matrices to a wire format.
 
     ``mode="wire"`` replaces every 2D float leaf named ``wq``/``wk``/
@@ -108,7 +145,15 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
     so its scale is taken over that leaf in every layer (the largest
     absmax), as the reference's over its stacked leaf. Names containing a
     ``skip_substrings`` entry (embeddings, norms) and leaves below 2D stay
-    as they are.
+    as they are. A stacked (3D) leaf, such as a moe layer's expert stack,
+    is rounded a slice of its leading axis at a time; ``in_place`` writes
+    the rounded values into the float leaves themselves (the returned tree
+    shares them), so a model whose weights fill most of the card is not
+    held twice.
+
+    The printed audit counts leaves as the reference's stacked tree
+    holds them: a leaf of the ``params["layers"]`` list once, not once
+    per layer.
 
     Under ``REPRO_OBS`` >= 1 the process-wide registry counts the weights
     beyond the format's finite range (``quant.saturated``, of
@@ -154,7 +199,7 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
         absmax = {}
         for path, leaf in leaves(("layers",), layers):
             if action(path, leaf) == "fake":
-                m = quant.absmax(leaf.to(torch.float32), _PER_TENSOR)
+                m = _absmax(leaf)
                 absmax[path[2:]] = torch.maximum(absmax[path[2:]], m) \
                     if path[2:] in absmax else m
         stack_exp = {k: int(quant.exponent_of(m)) for k, m in absmax.items()}
@@ -169,7 +214,8 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
             return type(leaf)(visit(path + (str(i),), v)
                               for i, v in enumerate(leaf))
         act = action(path, leaf)
-        counts[act] += 1
+        if path[:1] != ("layers",) or path[1:2] == ("0",):
+            counts[act] += 1      # a layer-stack leaf counts once
         if (fmax < float("inf") and act in ("wired", "fake")
                 and leaf.is_floating_point()):
             METRICS.counter("quant.saturated").inc(
@@ -179,8 +225,7 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
             return ops.WireMatrix.encode(leaf, fmt=spec)
         if act == "fake":
             key = path[2:] if path[:1] == ("layers",) else None
-            return spec.fake_quant(leaf, dtype=leaf.dtype,
-                                   scale_exp=stack_exp.get(key))
+            return _fake_leaf(spec, leaf, stack_exp.get(key), in_place)
         return leaf
 
     out = visit((), params)

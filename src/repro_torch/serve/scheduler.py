@@ -72,6 +72,7 @@ import torch
 from repro_torch.ft.watchdog import Heartbeat, Watchdog
 from repro_torch.models import model
 from repro_torch.models.layers import ATTN_CHUNK_T
+from repro_torch.models.transformer import paged_supported
 from repro_torch.obs import obs_from_env
 from repro_torch.obs.trace import SCHED_TRACK, RequestTiming
 from repro_torch.serve.faults import injector_from_env
@@ -205,7 +206,7 @@ class Scheduler:
                  prefix_cache: bool = True, preempt: bool = True,
                  now_fn: Optional[Callable[[], float]] = None,
                  stall_after: float = 60.0, injector="env"):
-        if engine.cfg.family != "dense":
+        if not paged_supported(engine.cfg):
             raise ValueError(f"continuous batching needs an attention-only "
                              f"model; family {engine.cfg.family!r}")
         if page_size >= ATTN_CHUNK_T:

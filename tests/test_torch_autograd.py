@@ -16,6 +16,7 @@ on the CPU.
   plain path refuses a gauss gradient.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

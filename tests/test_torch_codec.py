@@ -8,6 +8,7 @@ own tests run it (Pallas kernels in interpret mode). Also here: the test
 that keeps JAX and the reference package out of the port.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import re
 from pathlib import Path
 

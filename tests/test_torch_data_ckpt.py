@@ -13,6 +13,7 @@ package's, on the CPU.
   SIGTERM into a save at the next step boundary.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import json
 import os
 import signal

@@ -23,6 +23,7 @@ phi3 config. Tolerances, each with its reason:
   rounding boundary).
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

@@ -25,6 +25,7 @@ a reference fault record replays into the port's pool, and a bit flip
 changes one bit. The watchdog is held to tests/test_ft.py's cases.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

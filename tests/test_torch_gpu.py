@@ -10,6 +10,7 @@ no CPU mode). Run on a GPU host with::
 This file imports no JAX: the card's host has none.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import contextlib
 import dataclasses
 
@@ -191,7 +192,7 @@ BF16_ATOL = 2e-2
 
 
 @pytest.mark.parametrize("kv", KV, ids=_kv_id)
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("window", [0, 24])
 def test_contiguous_attention_matches_plain(dev, kv, hd, window):
     spec, dtype = kv
@@ -278,9 +279,8 @@ def test_wrappers_count_launches(dev):
     assert takum_attention.paged_attention.launches == n0 + 1
 
 
-def _reduced(kv, wfmt=None):
-    cfg = dataclasses.replace(get_arch("phi3-medium-14b").reduced,
-                              kv_quant=kv)
+def _reduced(kv, wfmt=None, arch="phi3-medium-14b"):
+    cfg = dataclasses.replace(get_arch(arch).reduced, kv_quant=kv)
     params = transformer.init(torch.Generator().manual_seed(0), cfg,
                               device="cpu")
     return cfg, quantize_weights(params, wfmt or kv, mode="wire",
@@ -479,16 +479,16 @@ PAGED_EDGES = {
 }
 
 
-def _paged_edge_inputs(spec, dtype, case, seed):
+def _paged_edge_inputs(spec, dtype, case, seed, hd=128):
     ps, npg, pos, start, window = PAGED_EDGES[case]
     g = torch.Generator().manual_seed(seed)
     pages = 4 * npg + 1
-    kw = _cache(spec, (pages, ps, 2, 128), g, dtype)
-    vw = _cache(spec, (pages, ps, 2, 128), g, dtype)
+    kw = _cache(spec, (pages, ps, 2, hd), g, dtype)
+    vw = _cache(spec, (pages, ps, 2, hd), g, dtype)
     table = (torch.randperm(pages - 1, generator=g)[:4 * npg] + 1)
     table = table.reshape(4, npg).to(torch.int32)
     table[3] = 0                               # the idle slot's scratch page
-    q = torch.randn((4, 1, 8, 128), generator=g)
+    q = torch.randn((4, 1, 8, hd), generator=g)
     if dtype is not None:
         q = q.to(dtype)
     return (q, kw, vw, table, torch.tensor(pos, dtype=torch.int32),
@@ -513,6 +513,32 @@ def test_paged_attention_partition_edges_match_plain(dev, kv, case):
     split = ref.paged_attention_ref(
         *plain, table, spec, pos=pos, start=start, window=window,
         partitions=takum_attention.paged_partition_keys(128, bits))
+    torch.testing.assert_close(got, split, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", list(PAGED_EDGES))
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+def test_paged_attention_hd112_matches_plain(dev, kv, case):
+    """Head dim 112 (kimi-k2's): a key is 7, 14 or 28 lanes of 16 bytes,
+    4, 2 or 1 whole keys a warp with the rest of the lanes idle, and 64
+    keys a partition at every width; against the plain version and its
+    split at the kernel's partitions."""
+    spec, dtype = kv
+    q, kw, vw, table, pos, start, window = _paged_edge_inputs(
+        spec, dtype, case, 15, hd=112)
+    got = ops.paged_attention(q.to(dev), kw.to(dev), vw.to(dev),
+                              table.to(dev), spec, pos=pos.to(dev),
+                              start=start.to(dev), window=window).cpu()
+    plain = _plain_f32(spec, q, kw, vw)
+    want = ref.paged_attention_ref(*plain, table, spec, pos=pos, start=start,
+                                   window=window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    bits = 32 if dtype == torch.float32 else 16 if dtype else spec.n
+    pk = takum_attention.paged_partition_keys(112, bits)
+    assert pk == 64
+    split = ref.paged_attention_ref(*plain, table, spec, pos=pos, start=start,
+                                    window=window, partitions=pk)
     torch.testing.assert_close(got, split, rtol=0, atol=2e-5)
 
 
@@ -855,6 +881,30 @@ def test_kv_append_paged_matches_plain(dev, kv, in_dtype):
     assert _same_cache(gk, wk) and _same_cache(gv, wv)
 
 
+@pytest.mark.parametrize("mode", ["paged", "contiguous"])
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+def test_kv_append_hd112_matches_plain(dev, kv, mode):
+    """The append at head dim 112, bf16 K/V as served: a decode step into
+    pages (an idle slot past its table) and a chunk into a contiguous
+    cache."""
+    if mode == "paged":
+        k, v, kc, vc = _append_inputs(kv, (4, 1, 8, 112), (7, 8, 8, 112),
+                                      23, torch.bfloat16)
+        where = dict(pos=torch.tensor([11, 3, 0, 999], dtype=torch.int32,
+                                      device=dev),
+                     table=torch.tensor([[1, 2], [3, 4], [0, 0], [5, 6]],
+                                        dtype=torch.int32, device=dev))
+    else:
+        k, v, kc, vc = _append_inputs(kv, (1, 16, 8, 112), (1, 48, 8, 112),
+                                      24, torch.bfloat16)
+        where = dict(pos=19)
+    wk, wv = kc.to(dev), vc.to(dev)
+    _plain_append(kv, k.to(dev), v.to(dev), wk, wv, **where)
+    gk, gv = kc.to(dev), vc.to(dev)
+    takum_codec.kv_append(k.to(dev), v.to(dev), gk, gv, kv[0], **where)
+    assert _same_cache(gk, wk) and _same_cache(gv, wv)
+
+
 @pytest.mark.parametrize("kv", KV, ids=_kv_id)
 def test_kv_append_contiguous_matches_plain(dev, kv):
     k, v, kc, vc = _append_inputs(kv, (2, 5, 2, 16), (2, 24, 2, 16), 22,
@@ -866,13 +916,13 @@ def test_kv_append_contiguous_matches_plain(dev, kv):
     assert _same_cache(gk, wk) and _same_cache(gv, wv)
 
 
-def _serve_twice(kv, wfmt=None):
+def _serve_twice(kv, wfmt=None, arch="phi3-medium-14b"):
     """The reduced config served on the card with the step replayed from
     a graph and under ``disable_graphs``: four requests, one finishing
     early, a fifth submitted mid-run and admitted when a slot frees (a
     push_tables between replays). Per mode: tokens, each step's (active
     slots, their logits), the pool, the launch counts, the step runner."""
-    cfg, params = _reduced(kv, wfmt)
+    cfg, params = _reduced(kv, wfmt, arch)
     rng = np.random.default_rng(5)
     prompts = [list(rng.integers(0, cfg.vocab, n)) for n in (16, 9, 4, 13, 7)]
     out = {}
@@ -922,6 +972,40 @@ def test_graph_replay_matches_eager(dev, kv, wfmt):
     for lg, le in zip(g["pool"].cache, e["pool"].cache):
         for key in ("k", "v", "table", "pos", "start"):
             assert torch.equal(_kv_bits(lg[key]), _kv_bits(le[key])), key
+
+
+MOE_ARCHS = ["granite-moe-3b-a800m", "kimi-k2-1t-a32b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_graph_replay_matches_eager(dev, arch):
+    """The moe decode step (routing, sort, dispatch and combine of one
+    group of the 4 slots) captured and replayed: active-row logits and
+    pools bit for bit against the eager step."""
+    out = _serve_twice("takum8", arch=arch)
+    g, e = out["graph"], out["eager"]
+    assert g["runner"].captures == 1 and g["runner"].replays >= 20
+    assert g["toks"] == e["toks"]
+    assert len(g["rows"]) == len(e["rows"])
+    for (ag, lg), (ae, le) in zip(g["rows"], e["rows"]):
+        assert ag == ae
+        assert torch.equal(lg.view(torch.int32), le.view(torch.int32))
+    for lg, le in zip(g["pool"].cache, e["pool"].cache):
+        for key in ("k", "v", "table", "pos", "start"):
+            assert torch.equal(_kv_bits(lg[key]), _kv_bits(le[key])), key
+    assert g["counts"] == e["counts"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_reduced_moe_serving_card_matches_cpu(dev, arch):
+    cfg, params = _reduced("takum8", None, arch)
+    rng = np.random.default_rng(3)
+    prompts = [list(rng.integers(0, cfg.vocab, n)) for n in (16, 9, 4, 13)]
+    outs = {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(params, cfg, max_len=48, page_size=16, device=d)
+        outs[str(d)] = (eng.generate(prompts, 6), eng.generate(prompts, 6))
+    assert outs["cpu"] == outs["cuda"]
 
 
 def test_launch_counts_equal_under_replay(dev):
@@ -1002,9 +1086,23 @@ def test_paged_nar_in_band_and_masked_pages(dev, kv):
     V on a page past its sequence's pos (out of band): NaN in exactly the
     plain version's rows, through the partitions and their merge; the
     out-of-band words reach nothing."""
+    _check_paged_nar_in_band(kv, 128)
+
+
+@pytest.mark.parametrize("kv", [(formats.get("takum8"), None),
+                                (formats.get("takum16"), None),
+                                (formats.get("none"), torch.bfloat16)],
+                         ids=_kv_id)
+def test_paged_nar_in_band_and_masked_pages_hd112(dev, kv):
+    """The check above at head dim 112 (idle lanes in every warp)."""
+    _check_paged_nar_in_band(kv, 112)
+
+
+def _check_paged_nar_in_band(kv, hd):
+    dev = "cuda"
     spec, dtype = kv
     q, kw, vw, table, pos, start, window = _paged_edge_inputs(
-        spec, dtype, "page_boundary", 21)
+        spec, dtype, "page_boundary", 21, hd=hd)
     clean = ops.paged_attention(q.to(dev), kw.to(dev), vw.to(dev),
                                 table.to(dev), spec, pos=pos.to(dev),
                                 start=start.to(dev)).cpu()
@@ -1021,7 +1119,7 @@ def test_paged_nar_in_band_and_masked_pages(dev, kv):
     nan = torch.isnan(got)
     assert torch.equal(nan, torch.isnan(want))
     assert nan[1, 0, :4].all() and nan[2, 0, 4:, 9].all()
-    assert int(nan.sum()) == 4 * 128 + 4
+    assert int(nan.sum()) == 4 * hd + 4
     assert torch.equal(got[0], clean[0]) and torch.equal(got[3], clean[3])
     torch.testing.assert_close(got[~nan], want[~nan], rtol=0, atol=2e-5)
 

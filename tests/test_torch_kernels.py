@@ -10,6 +10,7 @@ paths and launch counters, ``WireMatrix``, and the paged append of
 ``models/layers.py``.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax.numpy as jnp

@@ -17,6 +17,7 @@ and the serving pieces a CUDA graph of the decode step relies on:
 the CPU ``disable_graphs()`` and the default serve the same tokens.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

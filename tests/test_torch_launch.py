@@ -14,6 +14,7 @@
   multi-device fields.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import json
 import re
 import signal

@@ -20,6 +20,7 @@ with its reason:
   kernels do), so the subnormal band is held to the float64 oracle.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@ the CPU: the checks of tests/test_torch_lns_serve.py (tokens, layer-0
 K/V words, step logits; tolerances and their reasons there), with
 lns-takum8, lns-takum16 and takum8 KV caches."""
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import pytest
 
 from test_torch_lns_serve import KVS, check_combo, wired_for

@@ -18,6 +18,7 @@ its wrappers take for CPU tensors. Tolerances, each with its reason:
   rounding per product than the kernel): ``rtol=2e-5, atol=1e-6``.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import importlib
 
 import jax.numpy as jnp
@@ -263,7 +264,8 @@ def test_quantize_weights_wires_lns_projections(capsys):
     cfg = get_arch("phi3-medium-14b").reduced
     params = model.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     wp = quantize_weights(params, "lns-takum16", mode="wire")
-    assert "quantize_weights[lns-takum16/wire]: 21 wired" in \
+    # one count a stacked leaf, as the reference's audit (7 projections)
+    assert "quantize_weights[lns-takum16/wire]: 7 wired" in \
         capsys.readouterr().out
     layer = wp["layers"][0]
     for name in ("wq", "wk", "wv", "wo"):

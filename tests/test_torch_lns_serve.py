@@ -39,6 +39,7 @@ format and shape and an input within ``INPUT_ATOL`` of the reference's
 then replace the port's, so the logits are held at 1e-4.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import contextlib
 import dataclasses
 

@@ -26,6 +26,7 @@ where the weights are wire words and carried over with
   logits and tokens equal those of clean padding.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

@@ -19,6 +19,7 @@ drives ``record_capture`` directly (tests/test_torch_gpu.py drives a real
 capture).
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 import io
 import json

@@ -12,6 +12,7 @@ idle slot, windows, NaR words, an all-masked row, one-key partitions and
 partitions that visit no key.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import functools
 
 import jax.numpy as jnp
@@ -87,10 +88,16 @@ def test_partition_plan_is_fixed():
 @pytest.mark.parametrize("hd,bits,pk", [(128, 8, 64), (128, 16, 64),
                                         (128, 32, 64), (64, 8, 128),
                                         (16, 8, 512), (16, 16, 512),
-                                        (16, 32, 512), (32, 32, 256)])
+                                        (16, 32, 512), (32, 32, 256),
+                                        (112, 8, 64), (112, 16, 64),
+                                        (112, 32, 64)])
 def test_partition_keys_follow_the_kernel_geometry(hd, bits, pk):
-    """A partition holds 8192 K words: 8192 / hd keys."""
+    """A partition holds 8192 K words (8192 / hd keys) at a power-of-two
+    hd; at hd 112 a key is 7, 14 or 28 lanes of 16 bytes, a warp holds 4,
+    2 or 1 whole keys, and a partition 64 keys at every width."""
     assert kattn.paged_partition_keys(hd, bits) == pk
+    lpk = hd * bits // 128
+    assert pk == (bits // 2) * 4 * (32 // lpk)
 
 
 # -- the split reference against the Pallas kernel ------------------------------

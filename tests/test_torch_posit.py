@@ -12,6 +12,7 @@ reference's table with ``REPRO_LUT_DECODE`` on and off, and the
 registry's names and spellings.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,7 @@ matmul (tests/test_kernels.py), ``atol=2e-5`` for attention
 (tests/test_paged_attention.py); NaNs must sit in the same places.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ size 16), with {posit8 weights, posit8 KV}, {posit16, posit16} and
   words order like two's complement), at most 1% of them.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

@@ -16,6 +16,7 @@ size 16; a pool large enough that the reference never preempts):
   reference's on the same operation sequences.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import dataclasses
 
 import jax

@@ -23,6 +23,7 @@ by leaf. Checked:
 * the manual data-parallel step raises, naming the roadmap item.
 """
 
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

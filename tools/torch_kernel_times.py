@@ -2,8 +2,8 @@
 build-time choices of its kernels, on one CUDA card.
 
     python3 tools/torch_kernel_times.py [--src DIR] [--attention] [--lns]
-        [--paged] [--serve N [--eager]] [--step-trace] [--variants]
-        [--out F]
+        [--paged] [--serve N [--eager]] [--step-trace] [--moe-trace]
+        [--variants] [--out F]
 
 Times ``takum_matmul.qmatmul`` for takum8, takum16, posit8 (through the
 table) and posit16 words at every projection shape of a phi3-medium-14b
@@ -42,7 +42,9 @@ replays the captured step alone: its device time per step (CUDA events
 over back-to-back replays) and a ``torch.profiler`` trace of a few
 replays, the device time summed by kernel (the port's kernels by name,
 cuBLAS, and the PyTorch ops between them): where a replayed step's time
-goes.
+goes. ``--moe-trace`` does the same for phase 26's (granite-moe-3b-a800m)
+and phase 27's (kimi-k2-1t-a32b, 1 layer) step, with the moe block's
+ops grouped (expert products, routing sorts, dispatch and combine).
 
 ``--variants`` (this checkout's kernels only) also builds the sources
 again with the defines that undo one choice each, and times them against
@@ -270,7 +272,20 @@ TRACE_GROUPS = (("kv_append_kernel", "kv_append"),
                 ("stream_kernel", "wire / LNS matmul, streaming"),
                 ("gemm", "cuBLAS (bf16 unembed)"),
                 ("xmma", "cuBLAS (bf16 unembed)"),
-                ("cutlass", "cuBLAS (bf16 unembed)"))
+                ("cutlass", "cuBLAS (bf16 unembed)"),
+                ("nvjet", "cuBLAS (bf16 unembed)"))
+# the moe block's ops, for --moe-trace: cuBLAS there is the experts'
+# batched products (and the router and unembed), the sorts are routing
+MOE_GROUPS = (("gemm", "cuBLAS (expert bmm, router, unembed)"),
+              ("xmma", "cuBLAS (expert bmm, router, unembed)"),
+              ("cutlass", "cuBLAS (expert bmm, router, unembed)"),
+              ("nvjet", "cuBLAS (expert bmm, router, unembed)"),
+              ("sort", "sorts (top-k, argsort, combine order)"),
+              ("Sort", "sorts (top-k, argsort, combine order)"),
+              ("radix", "sorts (top-k, argsort, combine order)"),
+              ("scatter", "dispatch / combine gathers and scatters"),
+              ("gather", "dispatch / combine gathers and scatters"),
+              ("index", "dispatch / combine gathers and scatters"))
 
 
 def step_trace(torch, dev, replays=50, traced=5):
@@ -278,63 +293,96 @@ def step_trace(torch, dev, replays=50, traced=5):
     decode step of those phases' serving runs, replayed alone."""
     from chip_smoke import (PHASE5_PLENS, PHASE10_PLENS, full_width_cfg,
                             full_width_params)
-    from repro_torch.serve.engine import ServeEngine
     out = {}
     for name, fmt, plens in (("phase 5 takum8", "takum8", PHASE5_PLENS),
                              ("phase 10 lns-takum8", "lns-takum8",
                               PHASE10_PLENS)):
         cfg = full_width_cfg(fmt)
         params, _ = full_width_params(torch, dev, cfg, fmt)
-        eng = ServeEngine(params, cfg, max_len=1280, page_size=256,
-                          decode_batch=4, device=dev)
-        sched = eng.scheduler()
-        g = torch.Generator().manual_seed(5)
-        for n in plens:
-            eng.submit(torch.randint(0, cfg.vocab, (n,), generator=g)
-                       .tolist(), 64)
-        run = eng.run()
-        while sched.step.replays < 3:       # the step captured, replayed
-            next(run)
-        run.close()                         # the replays below move pos
-        graph = next(iter(sched.step._graphs.values())).graph
-        graph.replay()
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(replays):
-            graph.replay()
-        t1.record()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(traced):
-                graph.replay()
-            torch.cuda.synchronize()
-        by_kernel = {}
-        for e in prof.key_averages():
-            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-                continue        # host ops: their kernels are counted below
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = getattr(e, "self_cuda_time_total", 0)
-            if t > 0:
-                by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e3 / traced
-        groups = {}
-        for key, ms in by_kernel.items():
-            group = next((g for frag, g in TRACE_GROUPS if frag in key),
-                         "PyTorch ops between the kernels")
-            groups[group] = groups.get(group, 0.0) + ms
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-        out[name] = {"replay_device_ms": t0.elapsed_time(t1) / replays,
-                     "traced_device_ms": sum(by_kernel.values()) or None,
-                     "by_group_ms": groups,
-                     "top_kernels_ms": [[k[:120], v] for k, v in top],
-                     "kernels_traced": len(by_kernel)}
-        del eng, sched, graph, params, run
+        out[name] = trace_step(torch, dev, cfg, params, plens, replays,
+                               traced)
+        del params
         torch.cuda.empty_cache()
     return out
+
+
+def moe_trace(torch, dev, replays=50, traced=5):
+    """{"phase 26 granite-moe-3b-a800m" | "phase 27 kimi-k2-1t-a32b": ...}:
+    the captured decode step of chip_smoke.py's moe phases, replayed
+    alone, the moe block's ops grouped."""
+    from chip_smoke import MOE_PHASES, PHASE5_PLENS, moe_cfg, moe_params
+    out = {}
+    for n, (arch, layers) in zip((26, 27), MOE_PHASES):
+        cfg = moe_cfg(arch, layers)
+        params, _, _ = moe_params(torch, dev, cfg, torch.float32
+                                  if layers is None else torch.bfloat16)
+        out[f"phase {n} {arch}"] = trace_step(
+            torch, dev, cfg, params, PHASE5_PLENS, replays, traced,
+            groups=MOE_GROUPS + TRACE_GROUPS)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def trace_step(torch, dev, cfg, params, plens, replays, traced,
+               groups=TRACE_GROUPS):
+    """Serve ``plens`` until the decode step has been captured, then replay
+    the captured step alone: CUDA events over ``replays`` back-to-back
+    replays and a ``torch.profiler`` trace of ``traced``, the device time
+    summed by kernel and by the first of ``groups`` whose fragment the
+    kernel's name holds."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(params, cfg, max_len=1280, page_size=256,
+                      decode_batch=4, device=dev)
+    sched = eng.scheduler()
+    g = torch.Generator().manual_seed(5)
+    for n in plens:
+        eng.submit(torch.randint(0, cfg.vocab, (n,), generator=g)
+                   .tolist(), 64)
+    run = eng.run()
+    while sched.step.replays < 3:       # the step captured, replayed
+        next(run)
+    run.close()                         # the replays below move pos
+    graph = next(iter(sched.step._graphs.values())).graph
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(traced):
+            graph.replay()
+        torch.cuda.synchronize()
+    by_kernel, launches = {}, 0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue        # host ops: their kernels are counted below
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e3 / traced
+            launches += e.count
+    by_group = {}
+    for key, ms in by_kernel.items():
+        group = next((g for frag, g in groups if frag in key),
+                     "PyTorch ops between the kernels")
+        by_group[group] = by_group.get(group, 0.0) + ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    res = {"replay_device_ms": t0.elapsed_time(t1) / replays,
+           "traced_device_ms": sum(by_kernel.values()) or None,
+           "by_group_ms": by_group,
+           "top_kernels_ms": [[k[:120], v] for k, v in top],
+           "kernels_traced": len(by_kernel),
+           "kernel_launches_per_step": launches / traced}
+    del eng, sched, graph, run
+    return res
 
 
 def takum8_times(torch, dev):
@@ -483,6 +531,7 @@ def main() -> int:
     ap.add_argument("--serve", type=int, default=0, metavar="N")
     ap.add_argument("--eager", action="store_true")
     ap.add_argument("--step-trace", action="store_true")
+    ap.add_argument("--moe-trace", action="store_true")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -523,6 +572,8 @@ def main() -> int:
         res["serve"] = serve_times(torch, dev, args.serve, args.eager)
     if args.step_trace:
         res["step_trace"] = step_trace(torch, dev)
+    if args.moe_trace:
+        res["moe_trace"] = moe_trace(torch, dev)
     if args.variants:
         res["variants_ms"] = variant_times(torch, dev)
     if args.out:
