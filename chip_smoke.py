@@ -6,7 +6,7 @@
 Phases, one summary line each; any failure exits non-zero:
 
 1. device and build: the card, its power limit, and the nvcc build of
-   every ``src/repro_torch/csrc/*.cu`` for sm_90a (six libraries, one nvcc
+   every ``src/repro_torch/csrc/*.cu`` for sm_90a (seven libraries, one nvcc
    each, all started together; registers and spills from ``-Xptxas -v``);
 2. codec: the decode and encode kernels against the plain torch codec on
    the card, bit-exact, over every takum8/takum16 word and >= 1M floats
@@ -180,7 +180,34 @@ Phases, one summary line each; any failure exits non-zero:
     hd 112 through the append and both attention kernels at the served
     shapes (a 256-token chunk at pos 768, a decode step of 4 over
     256-position pages), each against its plain version, with times,
-    bounds and SDPA's time (the kernels line's ``hd112`` entries).
+    bounds and SDPA's time (the kernels line's ``hd112`` entries);
+28. serving nemotron-4-340b at full width (d 18432, 96/8 heads of 192,
+    d_ff 73728, relu2, vocab 256000), depth cut to ``NEMOTRON_LAYERS`` of
+    96 (each layer made in bf16 and encoded to takum8 wire words; printed
+    as ``layers`` and ``layers_of``), a takum8 KV cache: phase 5's
+    requests as in phase 26 (TTFT, token gaps, the replayed
+    ``decode_ms_per_step``, prefill per chunk, ``peak_gb``, launch
+    counts), the replayed step against the eager one bit for bit, the
+    wire matmul at the relu2 MLP's shapes (``NEMOTRON_MM``: K up to 73728,
+    M 4 and 256) against its plain version under phase 3's limits and
+    controls, hd 192 through the append and both attention kernels at the
+    served shapes (Hkv 8, G 12) with NaR words, and the reduced config
+    card vs CPU;
+29. serving recurrentgemma-2b at full width and depth (26 layers of
+    (rec, rec, attn), d 2560, MQA 10/1 heads of 256, window 2048, RG-LRU
+    width 2560, gelu, tied vocab 256000; takum8 wire attention and MLP,
+    the RG-LRU matrices fake-quantised at set-up, a takum8 KV cache):
+    ``RG_BATCH`` prompts of ``RG_PLEN`` tokens, ``RG_NEW`` new each,
+    through ``ServeEngine.generate``, which routes the family to lockstep
+    (prefill seconds, the eager ``decode_ms_per_step``, ``peak_gb``); the
+    wire matmul at the prefill's MLP shapes (``RG_MM``, M 9200) as in
+    phase 28; hd 256 through the append and both attention kernels under the window
+    (phase 4's shapes, NaR words), the contiguous kernel at the served
+    shapes (tq 2300 from pos 0 and tq 1, Hkv 1, G 10, window 2048)
+    against its plain version with its bound and SDPA's time (the kernels
+    line's ``hd192``/``hd256`` entries); and the reduced
+    recurrentgemma-2b, minitron-4b and starcoder2-15b served on the card
+    and on the CPU (tokens equal, logits 1e-4).
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
@@ -202,14 +229,16 @@ as its library call (and the posit8 table's). Last,
 ``{"ok": true, "device": {...}}``. The codec's, the wire matmul's, the
 LNS matmul's and the posit8 table's entries also carry
 ``launches_training``, their launches in phase 23; the append, the wire
-matmul and both attention kernels ``launches_moe`` (phases 26 and 27),
-fake-quant ``launches_moe_setup``. Details go to
+matmul and both attention kernels ``launches_moe`` (phases 26 and 27)
+and ``launches_new_families`` (phases 28 and 29), fake-quant
+``launches_moe_setup`` and ``launches_recurrentgemma_setup``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -417,22 +446,42 @@ def ulps(torch, a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-def wire_matmul_check(torch, dev, spec, m, k, n):
+def decode_rows(torch, w, spec):
+    """The plain decode of ``w`` [K, N] to f32, a block of rows at a time:
+    its integer temporaries are several times the words, so a 1.36 G-word
+    leaf decoded whole would not fit the card."""
+    from repro_torch.kernels import ref
+    step = max(1, (1 << 27) // w.shape[1])
+    out = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    for i in range(0, w.shape[0], step):
+        out[i:i + step] = ref.decode_ref(w[i:i + step], spec)
+    return out
+
+
+def plain_qmatmul(torch, x, w, spec):
+    """``ref.qmatmul_ref`` with its decode a block of rows at a time
+    (:func:`decode_rows`): the same f32 x f32 product with an f32 sum."""
+    return x.to(torch.float32) @ decode_rows(torch, w, spec)
+
+
+def wire_matmul_check(torch, dev, spec, m, k, n, timed=False):
     """The wire matmul kernel at [m, k] x [k, n] against its plain version
     on seeded operands (``spec`` words of N(0, 1/k) weights): within the
     worst-case f32 bound and the statistical limit, with controls (x
-    rounded to TF32 and bf16) that must break the latter."""
-    from repro_torch.kernels import ref, takum_codec, takum_matmul
+    rounded to TF32 and bf16) that must break the latter. ``timed`` adds
+    the kernel's time beside its bound, the plain version's and
+    torch.matmul's on the weights decoded beforehand (TF32 off)."""
+    from repro_torch.kernels import takum_codec, takum_matmul
     g = torch.Generator(device=dev).manual_seed(m + k + n)
     x = torch.randn((m, k), generator=g, device=dev)
     w = takum_codec.encode(torch.randn((k, n), generator=g,
                                        device=dev) / k ** 0.5, spec)
-    wf = ref.decode_ref(w, spec)
+    wf = decode_rows(torch, w, spec)
     got = takum_matmul.qmatmul(x, w, spec)
     again = takum_matmul.qmatmul(x, w, spec)
     check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
           f"qmatmul {spec.name} {m}x{k}x{n}: two calls differ")
-    want = ref.qmatmul_ref(x, w, spec)
+    want = x @ wf                       # ref.qmatmul_ref's product
     # worst case: two f32 sums of the same K products in any order
     # differ by at most 2 K u sum|x_k w_k| (u = 2^-24), elementwise
     tol = 2 * k * U32 * (x.abs() @ wf.abs())
@@ -449,22 +498,34 @@ def wire_matmul_check(torch, dev, spec, m, k, n):
     ctrl = {}
     for key, drop in (("tf32_x", 13), ("bf16_x", 16)):
         xe = round_mantissa(torch, x, drop)
-        e = (ref.qmatmul_ref(xe, w, spec) - want).abs()
+        e = (xe @ wf - want).abs()
         ctrl[key] = float((e / stat).max())
         check(ctrl[key] > 1.0, f"qmatmul {spec.name} {m}x{k}x{n}: a "
               f"{key} product passes the statistical limit")
-    return {"fmt": spec.name, "m": m, "k": k, "n": n,
-            "variant": takum_matmul.launch_plan(m, k, n, spec.n)[0],
-            "repeatable": True, "max_abs_err": float(err.max()),
-            "max_err_over_bound": float((err / tol).max()),
-            "max_err_over_stat_limit": r_kernel,
-            "control_max_err_over_stat_limit": ctrl}
+    row = {"fmt": spec.name, "m": m, "k": k, "n": n,
+           "variant": takum_matmul.launch_plan(m, k, n, spec.n)[0],
+           "repeatable": True, "max_abs_err": float(err.max()),
+           "max_err_over_bound": float((err / tol).max()),
+           "max_err_over_stat_limit": r_kernel,
+           "control_max_err_over_stat_limit": ctrl}
+    if timed:
+        del tol, stat, err, got, again, want
+        b_ms, b_by = mm_bound(spec, m, k, n)
+        row.update(
+            ms=cuda_ms(torch, lambda: takum_matmul.qmatmul(x, w, spec)),
+            plain_ms=cuda_ms(torch, lambda: plain_qmatmul(torch, x, w, spec),
+                             iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(torch, lambda: torch.matmul(x, wf)))
+    return row
 
 
-def full_width_params(torch, dev, cfg, wfmt):
-    """phi3-medium-14b's weights at full width (all layers), random from a
-    seeded generator on the card, every projection ``wfmt`` wire words,
-    embeddings bf16: (params, seconds)."""
+def full_width_params(torch, dev, cfg, wfmt, dtype=None):
+    """phi3-medium-14b's weights at full width (all layers; ``cfg``
+    another dense config), random from a seeded generator on the card,
+    every projection ``wfmt`` wire words, embeddings bf16; each layer made
+    in ``dtype`` (None: the config's ``param_dtype``) before its encode:
+    (params, seconds)."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer
     from repro_torch.serve.engine import quantize_weights
@@ -475,7 +536,7 @@ def full_width_params(torch, dev, cfg, wfmt):
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
     params["layers"] = []
     for _ in range(cfg.n_layers):
-        layer = transformer.init_layer(gen, cfg, device=dev)
+        layer = transformer.init_layer(gen, cfg, device=dev, dtype=dtype)
         params["layers"].append(quantize_weights(layer, wfmt, mode="wire",
                                                  verbose=False))
         del layer
@@ -719,7 +780,7 @@ def reduced_card_vs_cpu(torch, dev, *, wfmt, kv, free_tol=1e-4, tol=1e-4,
     rcfg = dataclasses.replace(get_arch(arch).reduced, kv_quant=kv)
     rparams = quantize_weights(model.init(torch.Generator().manual_seed(0),
                                           rcfg, device="cpu"), wfmt,
-                               mode="wire", verbose=False)
+                               mode="wire", cfg=rcfg, verbose=False)
     rng = torch.Generator().manual_seed(3)
     rprompts = [torch.randint(0, rcfg.vocab, (n,), generator=rng).tolist()
                 for n in (16, 9, 4, 13)]
@@ -1005,35 +1066,40 @@ def lns_matmul_phase(torch, dev, sm_clock_hz):
             "nar_row_column": nar, "max_abs_err": worst}
 
 
-def contiguous_nar_check(torch, q, kc, vc, spec, pos0, start0):
+def contiguous_nar_check(torch, q, kc, vc, spec, pos0, start0, window=0):
     """The contiguous kernel at phase 4's chunk shape with a NaR word (NaN
     for a float cache) in K at position 100 of KV head 3, valid for every
     row, and in V at position 1000 of KV head 6, a visited tile's key that
     most rows mask (p = 0): NaN in the plain version's places (every row
     of head 3, column 2 of every row of head 6), the rest within
-    ATTN_ATOL. Returns (NaN count, largest error on the finite rest)."""
+    ATTN_ATOL. With fewer KV heads the words go to the last head (one KV
+    head: both in head 0, every row NaN). Returns (NaN count, largest
+    error on the finite rest)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import takum_attention as kattn
     hkv, tq = kc.shape[2], q.shape[1]
+    kh, vh = min(3, hkv - 1), min(6, hkv - 1)
     nar = float("nan") if spec.is_identity else spec.nar_word
     kc, vc = kc.clone(), vc.clone()
-    kc[0, 100, 3, 7] = nar
-    vc[0, 1000, 6, 2] = nar
+    kc[0, 100, kh, 7] = nar
+    vc[0, 1000, vh, 2] = nar
     q4 = kattn.to_rows(q, hkv).contiguous()
-    got = kattn.attention(q4, kc, vc, pos0, start0, spec=spec, bk=256, tq=tq)
+    got = kattn.attention(q4, kc, vc, pos0, start0, spec=spec, bk=256, tq=tq,
+                          window=window)
     if spec.is_identity:       # the kernels' semantics: f32 values, f32 dots
         q, kc, vc = q.float(), kc.float(), vc.float()
     want = kattn.to_rows(ref.attention_ref(q, kc, vc, spec.n, spec, pos=pos0,
-                                           start=start0), hkv)
+                                           start=start0, window=window), hkv)
     nan = torch.isnan(got)
     rows, hd = got.shape[2], got.shape[3]
-    check(torch.equal(nan, torch.isnan(want)) and bool(nan[0, 3].all())
-          and bool(nan[0, 6, :, 2].all())
-          and int(nan.sum()) == rows * hd + rows,
+    check(torch.equal(nan, torch.isnan(want)) and bool(nan[0, kh].all())
+          and bool(nan[0, vh, :, 2].all())
+          and int(nan.sum()) == rows * hd + (rows if vh != kh else 0),
           f"contiguous attention over {spec.name} KV: NaR words poison "
           "other rows than the plain version's")
     fin = ~nan
-    err = float((got[fin] - want[fin]).abs().max())
+    # (one KV head: every row is NaN, nothing finite to hold)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
     check(err <= ATTN_ATOL, f"contiguous attention over {spec.name} KV with "
           f"NaR words: off by {err}")
     return int(nan.sum()), err
@@ -1692,11 +1758,11 @@ class FakeClock:
         return self.t
 
 
-def lockstep_traced(torch, eng, prompts, max_new):
-    """``eng.generate_lockstep`` with each forward timed (synchronised on
-    both sides) and its logits' two best values and tokens kept: (tokens,
-    [(top2 values [B, 2], top2 ids [B, 2]) per forward], prefill s, decode
-    ms per step)."""
+def lockstep_traced(torch, eng, prompts, max_new, call=None):
+    """``eng.generate_lockstep`` (or ``call``, such as ``eng.generate``)
+    with each forward timed (synchronised on both sides) and its logits'
+    two best values and tokens kept: (tokens, [(top2 values [B, 2], top2
+    ids [B, 2]) per forward], prefill s, decode ms per step)."""
     from repro_torch.models import model
     orig_prefill, orig_step = model.prefill, model.decode_step
     tops, walls = [], {"prefill": 0.0, "decode": 0.0, "steps": 0}
@@ -1717,7 +1783,7 @@ def lockstep_traced(torch, eng, prompts, max_new):
     model.prefill = timed(orig_prefill, "prefill")
     model.decode_step = timed(orig_step, "decode")
     try:
-        toks = eng.generate_lockstep(prompts, max_new)
+        toks = (call or eng.generate_lockstep)(prompts, max_new)
     finally:
         model.prefill, model.decode_step = orig_prefill, orig_step
     return (toks, tops, walls["prefill"],
@@ -2470,48 +2536,57 @@ MOE_PHASES = (("granite-moe-3b-a800m", None), ("kimi-k2-1t-a32b", 1))
 MOE_LATE = (72, 24, 72, 72)      # phase 19's requests for graph vs eager
 
 
-def moe_cfg(arch, layers):
+def served_cfg(arch, layers=None):
+    """``arch``'s full config with a takum8 KV cache, ``layers`` of its
+    layers (None: all)."""
     from repro_torch.configs import get_arch
     cfg = get_arch(arch).config
     return dataclasses.replace(cfg, kv_quant="takum8",
                                n_layers=layers or cfg.n_layers)
 
 
-def moe_params(torch, dev, cfg, dtype):
-    """A moe model's weights at full width, random from a seeded
-    generator on the card (embeddings bf16, the layers in ``dtype``:
-    None = the config's ``param_dtype``), through ``quantize_weights(params, "takum8",
-    mode="wire", in_place=True)``: the attention projections wired, the
-    router and the expert stacks fake-quantised in place (one exponent a
-    leaf over every layer, as the reference's stacked leaf; a slice of
-    the expert axis at a time). Returns (params, seconds, fake-quant
-    launches)."""
+def served_params(torch, dev, cfg, dtype):
+    """A model's weights at full width, random from a seeded generator on
+    the card (embeddings bf16, tied where the config ties them; the
+    layers in ``dtype``: None = the config's ``param_dtype``, each of its
+    block kind), through ``quantize_weights(params, "takum8",
+    mode="wire", in_place=True)``: the attention and MLP projections
+    wired; a moe layer's router and expert stacks and an RG-LRU's
+    matrices, ``conv`` and ``lam`` fake-quantised in place (one exponent
+    a stacked leaf of the reference: a scan group's block over its
+    repeats; an expert stack a slice of its expert axis at a time).
+    Returns (params, seconds, fake-quant launches, the audit line)."""
     from repro_torch.kernels import quantize as kquant
     from repro_torch.models import layers as L
     from repro_torch.models import transformer
     from repro_torch.serve.engine import quantize_weights
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=torch.bfloat16,
-                          device=dev)
+    params = L.embed_init(gen, cfg.vocab, cfg.d_model, cfg.tie_embeddings,
+                          dtype=torch.bfloat16, device=dev)
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
-    params["layers"] = [transformer.init_layer(gen, cfg, device=dev, dtype=dtype)
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [transformer.init_layer(gen, cfg, kind=kind,
+                                               device=dev, dtype=dtype)
+                        for kind in transformer.layer_kinds(cfg)]
     kquant.fake_quant.launches = 0
-    params = quantize_weights(params, "takum8", mode="wire", verbose=False,
-                              in_place=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        params = quantize_weights(params, "takum8", mode="wire", cfg=cfg,
+                                  in_place=True)
     torch.cuda.synchronize()
-    return params, time.perf_counter() - t0, kquant.fake_quant.launches
+    return (params, time.perf_counter() - t0, kquant.fake_quant.launches,
+            buf.getvalue().strip())
 
 
-def attention_check(torch, dev, hkv, grp, hd, seed):
+def attention_check(torch, dev, hkv, grp, hd, seed, window=0):
     """Both attention kernels at Hkv ``hkv``, G ``grp``, head dim ``hd``
     over takum8 words, at the shapes a serving run gives them: the last
     256-token chunk of a 1024-token prompt (pos 768 of a 1280-position
     cache), and a decode step of 4 sequences (pos 76, 520, 1023 and an
-    idle slot at a stale 4000) over 256-position pages. Each is held to
-    its plain version on the same inputs (ATTN_ATOL), with NaR words: a K
-    word of the paged pool (seq 1, position 266, head 3: that row NaN,
+    idle slot at a stale 4000) over 256-position pages, under a sliding
+    ``window`` (0: none). Each is held to its plain version on the same
+    inputs (ATTN_ATOL), with NaR words: a K word of the paged pool (seq
+    1, position 266, head 3, or the last head below 4: that row NaN,
     every other finite, as the plain version's) and the contiguous
     kernel's :func:`contiguous_nar_check`. Each is timed beside its bound
     and its library call, scaled_dot_product_attention on K/V decoded
@@ -2535,28 +2610,29 @@ def attention_check(torch, dev, hkv, grp, hd, seed):
 
     def contiguous():
         return kattn.attention(q4, kc, vc, pos0, start0, spec=t8, bk=ps,
-                               tq=tq)
+                               tq=tq, window=window)
 
     got = contiguous()
     want = kattn.to_rows(ref.attention_ref(q, kc, vc, 8, t8, pos=pos0,
-                                           start=start0), hkv)
+                                           start=start0, window=window), hkv)
     c_err = float((got - want).abs().max())
     check(bool(torch.isfinite(got).all()) and c_err <= ATTN_ATOL,
           f"hd {hd} contiguous attention off by {c_err}")
     nar_nans, nar_err = contiguous_nar_check(torch, q, kc, vc, t8, pos0,
-                                             start0)
-    keys_needed = sum(pos0 + r + 1 for r in range(tq)) * grp * hkv
+                                             start0, window)
+    keys_needed = sum(min(pos0 + r + 1, window or pos0 + r + 1)
+                      for r in range(tq)) * grp * hkv
     b_ms, b_by = bound(q4.numel() * 4 * 2 + 2 * (pos0 + tq) * hkv * hd,
                        4 * hd * keys_needed * tf32_products(t8), TF32_FLOPS)
     kf = ref.decode_ref(kc, t8)[:, :pos0 + tq].transpose(1, 2)
     vf = ref.decode_ref(vc, t8)[:, :pos0 + tq].transpose(1, 2)
     qf = q.transpose(1, 2)
-    causal = (torch.arange(pos0 + tq, device=dev)[None, :]
-              <= (pos0 + torch.arange(tq, device=dev))[:, None])
-    cont = {"shape": list(q4.shape), "max_abs_err": c_err,
+    causal = band_mask(torch, dev, pos0, tq, pos0 + tq, window)
+    cont = {"shape": list(q4.shape), "window": window, "max_abs_err": c_err,
             "ms": cuda_ms(torch, contiguous),
             "plain_ms": cuda_ms(torch, lambda: ref.attention_ref(
-                q, kc, vc, 8, t8, pos=pos0, start=start0), iters=5),
+                q, kc, vc, 8, t8, pos=pos0, start=start0, window=window),
+                iters=5),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(torch, lambda: sdpa(
                 qf, kf, vf, attn_mask=causal, enable_gqa=True))}
@@ -2572,25 +2648,31 @@ def attention_check(torch, dev, hkv, grp, hd, seed):
                          dtype=torch.int32, device=dev)
     pos = torch.tensor([76, 520, 1023, 4000], dtype=torch.int32, device=dev)
     startp = torch.zeros(4, dtype=torch.int32, device=dev)
-    kp[4, 10, 3, 7] = takum.nar_word(8)       # seq 1, position 266, head 3
+    nh = min(3, hkv - 1)
+    kp[4, 10, nh, 7] = takum.nar_word(8)      # seq 1, position 266, head 3
     qd = torch.randn((4, 1, hkv * grp, hd), generator=g, device=dev)
     qd4 = kattn.to_rows(qd, hkv).contiguous()
 
     def paged():
-        return kattn.paged_attention(qd4, kp, vp, pos, startp, table, spec=t8)
+        return kattn.paged_attention(qd4, kp, vp, pos, startp, table, spec=t8,
+                                     window=window)
 
     gotp = paged()
-    wantp = kattn.to_rows(ref.paged_attention_ref(qd, kp, vp, table, t8,
-                                                  pos=pos, start=startp), hkv)
+    wantp = kattn.to_rows(ref.paged_attention_ref(
+        qd, kp, vp, table, t8, pos=pos, start=startp, window=window), hkv)
     nan_ok = torch.equal(torch.isnan(gotp), torch.isnan(wantp))
-    poisoned = bool(torch.isnan(gotp[1, 3]).all())
+    poisoned = bool(torch.isnan(gotp[1, nh]).all())
     clean = int(torch.isnan(gotp).sum()) == grp * hd
     fin = torch.isfinite(wantp)
     p_err = float((gotp[fin] - wantp[fin]).abs().max())
     check(nan_ok and poisoned and clean and p_err <= ATTN_ATOL,
           f"hd {hd} paged attention: nan_ok={nan_ok} poisoned={poisoned} "
           f"clean={clean} err={p_err}")
-    need = [min(int(p) + 1, npg * ps) for p in pos.tolist()]
+    def keys_in(p):       # the valid keys of a sequence at pos p
+        hi = min(p + 1, (min(p // ps, npg - 1) + 1) * ps)
+        return max(hi - (max(p - window + 1, 0) if window else 0), 0)
+
+    need = [keys_in(p) for p in pos.tolist()]
     b_ms, b_by = bound(qd4.numel() * 4 * 2 + sum(need) * hkv * hd * 2,
                        4 * hd * grp * hkv * sum(need))
     # the library call: each sequence's in-band pages gathered and decoded
@@ -2606,7 +2688,8 @@ def attention_check(torch, dev, hkv, grp, hd, seed):
         vg[i, :, :n_keys] = ref.decode_ref(vp[pages], t8).reshape(
             n_keys, hkv, hd).transpose(0, 1)
         j = torch.arange(n_keys, device=dev)
-        keep[i, 0, 0, :n_keys] = (j <= pos[i]) & (j >= startp[i])
+        keep[i, 0, 0, :n_keys] = (j <= pos[i]) & (j >= startp[i]) & (
+            j > pos[i] - window if window else True)
     qg = qd.transpose(1, 2)                  # [B, H, 1, hd]
 
     def paged_library():
@@ -2614,12 +2697,13 @@ def attention_check(torch, dev, hkv, grp, hd, seed):
 
     lib_out = kattn.to_rows(paged_library().transpose(1, 2), hkv)
     lib_fin = torch.isfinite(lib_out) & torch.isfinite(gotp)
-    pag = {"shape": list(qd4.shape), "max_abs_err": p_err,
+    pag = {"shape": list(qd4.shape), "window": window, "max_abs_err": p_err,
            "partition_keys": kattn.paged_partition_keys(hd, 8),
            "ms": cuda_ms(torch, paged, iters=100),
            "device_ms": graph_ms(torch, paged, iters=100),
            "plain_ms": cuda_ms(torch, lambda: ref.paged_attention_ref(
-               qd, kp, vp, table, t8, pos=pos, start=startp), iters=5),
+               qd, kp, vp, table, t8, pos=pos, start=startp, window=window),
+               iters=5),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": cuda_ms(torch, paged_library, iters=100),
            "library_device_ms": graph_ms(torch, paged_library, iters=100),
@@ -2632,22 +2716,35 @@ def attention_check(torch, dev, hkv, grp, hd, seed):
                        "nar_rows_poisoned": poisoned}
 
 
-def hd_attention_check(torch, dev, cfg):
-    """Both attention kernels (:func:`attention_check`) and the append at
-    ``cfg``'s heads (kimi-k2: Hkv 8, G 8, hd 112), takum8 words: the
-    append of a decode step and of a chunk held bit for bit to the plain
-    append, and timed."""
+def band_mask(torch, dev, pos0, tq, tk, window=0):
+    """[tq, tk] bool: query row r at pos0 + r sees key j <= pos0 + r (and
+    j > pos0 + r - window with a window), as scaled_dot_product_attention's
+    mask."""
+    qpos = pos0 + torch.arange(tq, device=dev)[:, None]
+    j = torch.arange(tk, device=dev)[None, :]
+    keep = j <= qpos
+    return keep & (j > qpos - window) if window else keep
+
+
+def hd_attention_check(torch, dev, cfg, seed=27, window=0):
+    """Both attention kernels (:func:`attention_check`, under ``window``)
+    and the append at ``cfg``'s heads (kimi-k2: Hkv 8, G 8, hd 112;
+    nemotron-4-340b: 8, 12, 192; recurrentgemma-2b: 1, 10, 256), takum8
+    words: the append of a decode step and of a chunk held bit for bit to
+    the plain append, and timed."""
     from repro_torch import formats
     from repro_torch.kernels import ref, takum_codec
     t8 = formats.get("takum8")
     hkv, hd = cfg.n_kv_heads, cfg.hd
     grp = cfg.n_heads // hkv
-    cont, pag, nar = attention_check(torch, dev, hkv, grp, hd, seed=27)
+    cont, pag, nar = attention_check(torch, dev, hkv, grp, hd, seed=seed,
+                                     window=window)
     # the append, both modes, against the plain append
     app = {}
     for mode in ("paged", "contiguous"):
         k, v, kc, vc, where = kv_append_inputs(
-            torch, dev, t8, None, torch.bfloat16, mode, 270, hkv=hkv, hd=hd)
+            torch, dev, t8, None, torch.bfloat16, mode, 10 * seed, hkv=hkv,
+            hd=hd)
         gk, gv = kc.clone(), vc.clone()
         takum_codec.kv_append(k, v, gk, gv, t8, **where)
         wk, wv = kc.clone(), vc.clone()
@@ -2674,11 +2771,11 @@ def moe_phase(torch, dev, arch, layers, wrappers):
     hd 112 through both attention kernels and the append, each held to
     its plain version at the served shapes (:func:`hd_attention_check`)."""
     from repro_torch.configs import get_arch
-    cfg = moe_cfg(arch, layers)
+    cfg = served_cfg(arch, layers)
     # a full-width kimi-k2 layer's expert stacks fit the card only in bf16
     dtype = None if layers is None else torch.bfloat16
     torch.cuda.reset_peak_memory_stats()
-    params, weights_s, fq = moe_params(torch, dev, cfg, dtype)
+    params, weights_s, fq, _ = served_params(torch, dev, cfg, dtype)
     check(fq > 0, f"{arch}: quantize_weights launched no fake-quant kernel")
     serve = serve_full_width(torch, dev, wfmt="takum8", kv="takum8",
                              plens=PHASE5_PLENS, max_new=16, max_len=1280,
@@ -2712,6 +2809,235 @@ def moe_phase(torch, dev, arch, layers, wrappers):
         gc.collect()
         torch.cuda.empty_cache()
         out["hd_kernels"] = hd_attention_check(torch, dev, cfg)
+    return out
+
+
+# -- phases 28-29: the dense relu2/gelu configs and the hybrid RG-LRU family --
+
+# phase 28's depth, cut from nemotron-4-340b's 96 layers: a layer is 3.45 G
+# takum8 words, beside the two bf16 embedding tables' 18.9 GB
+NEMOTRON_LAYERS = 8
+# phase 29: recurrentgemma-2b's equal-length prompts, longer than its
+# 2048-token window and no multiple of 2048 (the contiguous kernel, not
+# the fresh branch, runs the prefill)
+RG_PLEN, RG_BATCH, RG_NEW = 2300, 4, 16
+# the wire matmul at the largest [K, N] of each phase's path, at the M of a
+# decode step (the streaming kernel) and of a prefill (the tensor-core
+# one): nemotron's relu2 MLP, 1.36 G words a leaf (K up to 73728, the
+# prefill's split-K); recurrentgemma's MLP at its lockstep prefill's M
+# (RG_BATCH x RG_PLEN rows)
+NEMOTRON_MM = ((4, 18432, 73728), (4, 73728, 18432), (256, 18432, 73728),
+               (256, 73728, 18432))
+RG_MM = ((RG_BATCH * RG_PLEN, 2560, 7680), (RG_BATCH * RG_PLEN, 7680, 2560))
+
+
+def served_matmul_check(torch, dev, shapes):
+    """The takum8 wire matmul at a served model's shapes
+    (:func:`wire_matmul_check`: the f32 bound, the statistical limit and
+    its TF32/bf16 controls), each timed beside its bound, the plain
+    version and torch.matmul."""
+    from repro_torch import formats
+    rows = []
+    for m, k, n in shapes:
+        rows.append(wire_matmul_check(torch, dev, formats.get("takum8"),
+                                      m, k, n, timed=True))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def nemotron_phase(torch, dev, wrappers):
+    """Phase 28: nemotron-4-340b at full width (d 18432, 96/8 heads of
+    192, d_ff 73728, relu2, vocab 256000), ``NEMOTRON_LAYERS`` of its 96
+    layers (each made in bf16, then encoded to takum8 wire words), a
+    takum8 KV cache: phase 5's requests through the scheduler with the
+    decode step replayed from a CUDA graph (the relu2 MLP's 1.36 G-word
+    leaves through the wire matmul's both regimes); the replayed step
+    against the eager one, bit for bit (phase 19's check); the wire
+    matmul at ``NEMOTRON_MM`` (:func:`served_matmul_check`); hd 192
+    through the append and both attention kernels at the served shapes
+    (Hkv 8, G 12), each against its plain version, with NaR words; the
+    reduced config served on the card and on the CPU."""
+    from repro_torch.configs import get_arch
+    cfg = served_cfg("nemotron-4-340b", NEMOTRON_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params, weights_s = full_width_params(torch, dev, cfg, "takum8",
+                                          dtype=torch.bfloat16)
+    serve = serve_full_width(torch, dev, wfmt="takum8", kv="takum8",
+                             plens=PHASE5_PLENS, max_new=16, max_len=1280,
+                             wrappers=wrappers, params=params, cfg=cfg)
+    serve["weights_s"] = round(weights_s, 2)
+    serve["layers_of"] = get_arch("nemotron-4-340b").config.n_layers
+    serve["activation"] = cfg.activation
+    serve["prefill_ms_per_chunk"] = round(
+        1e3 * serve["prefill_s"] / max(serve["prefill_chunks"], 1), 1)
+    launches = serve["launches"]
+    for k in ("kv_append", "qmatmul", "attention", "paged_attention"):
+        check(launches[k] > 0, f"nemotron-4-340b: kernel {k} was not "
+              "launched by the serving run")
+    check(launches["takum_encode"] == 0 and launches["takum_decode"] == 0,
+          "nemotron-4-340b: the serving run launched the standalone codec")
+    out = {"serving": serve}
+    out["graph_vs_eager"] = graph_vs_eager(
+        torch, dev, params, cfg, plens=PHASE5_PLENS, max_new=MOE_LATE,
+        late_at=40, late_plen=150, late_new=32)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wire_matmul"] = served_matmul_check(torch, dev, NEMOTRON_MM)
+    out["hd_kernels"] = hd_attention_check(torch, dev, cfg, seed=28)
+    out["reduced_card_vs_cpu"] = reduced_card_vs_cpu(
+        torch, dev, wfmt="takum8", kv="takum8", arch="nemotron-4-340b")
+    return out
+
+
+def window_attention_served(torch, dev, cfg, seed=29):
+    """Contiguous attention at recurrentgemma-2b's served shapes (Hkv 1, G
+    10, hd 256, its window of 2048): the lockstep prefill (tq = RG_PLEN
+    from pos 0) and a decode step (tq = 1 at the last step's pos), B =
+    RG_BATCH over a takum8 cache of the lockstep width, each against its
+    plain version (ATTN_ATOL), timed beside its bound and SDPA's time (K/V
+    decoded beforehand, the band as a boolean mask)."""
+    from repro_torch import formats
+    from repro_torch.kernels import ref, takum_codec
+    from repro_torch.kernels import takum_attention as kattn
+    from repro_torch.serve.engine import CACHE_SLACK
+    t8 = formats.get("takum8")
+    hkv, hd, win = cfg.n_kv_heads, cfg.hd, cfg.window
+    grp = cfg.n_heads // hkv
+    b = RG_BATCH
+    tmax = -(-(RG_PLEN + RG_NEW + CACHE_SLACK) // 256) * 256
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kc, vc = (takum_codec.encode(torch.randn((b, tmax, hkv, hd), generator=g,
+                                             device=dev), t8)
+              for _ in range(2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, tq, pos0 in (("prefill", RG_PLEN, 0),
+                           ("step", 1, RG_PLEN + RG_NEW - 1)):
+        q = torch.randn((b, tq, hkv * grp, hd), generator=g, device=dev)
+        q4 = kattn.to_rows(q, hkv).contiguous()
+
+        def kernel():
+            return kattn.attention(q4, kc, vc, pos0, None, spec=t8, tq=tq,
+                                   window=win)
+
+        got = kernel()
+        want = kattn.to_rows(ref.attention_ref(q, kc, vc, 8, t8, pos=pos0,
+                                               window=win), hkv)
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= ATTN_ATOL,
+              f"hd {hd} contiguous attention, window {win}, tq {tq}: off "
+              f"by {err}")
+        del want
+        lo = max(pos0 - win + 1, 0)           # the first key any row sees
+        keys = sum(min(pos0 + r + 1, win) for r in range(tq)) * grp * hkv * b
+        b_ms, b_by = bound(q4.numel() * 4 * 2
+                           + 2 * b * (pos0 + tq - lo) * hkv * hd,
+                           4 * hd * keys * tf32_products(t8), TF32_FLOPS)
+        kf = ref.decode_ref(kc, t8)[:, :pos0 + tq].transpose(1, 2)
+        vf = ref.decode_ref(vc, t8)[:, :pos0 + tq].transpose(1, 2)
+        qf = q.transpose(1, 2)
+        mask = band_mask(torch, dev, pos0, tq, pos0 + tq, win)
+
+        def library():
+            return sdpa(qf, kf, vf, attn_mask=mask, enable_gqa=True)
+
+        lib = kattn.to_rows(library().transpose(1, 2), hkv)
+        out[name] = {
+            "shape": list(q4.shape), "cache": [b, tmax, hkv, hd],
+            "pos": pos0, "window": win, "max_abs_err": err,
+            "ms": cuda_ms(torch, kernel, iters=20 if tq > 1 else 100),
+            "plain_ms": cuda_ms(torch, lambda: ref.attention_ref(
+                q, kc, vc, 8, t8, pos=pos0, window=win), iters=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(torch, library,
+                                  iters=20 if tq > 1 else 100),
+            "library_max_abs_err": float((lib - got).abs().max()),
+            "library_call": "scaled_dot_product_attention(enable_gqa=True) "
+                            "on K/V decoded to f32 beforehand (not timed), "
+                            "boolean band mask"}
+        if tq == 1:
+            out[name]["device_ms"] = graph_ms(torch, kernel, iters=100)
+        del q, q4, got, kf, vf, qf, mask, lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def recurrentgemma_phase(torch, dev, wrappers):
+    """Phase 29: recurrentgemma-2b at full width and depth (26 layers in
+    the (rec, rec, attn) pattern, d 2560, MQA 10/1 heads of 256, window
+    2048, RG-LRU width 2560, gelu, tied vocab 256000), takum8 wire
+    attention and MLP, the RG-LRU fake-quantised at set-up by the
+    fake-quant kernel, a takum8 KV cache: RG_BATCH prompts of RG_PLEN
+    tokens, RG_NEW new each, through ``ServeEngine.generate`` (routed to
+    lockstep: the scheduler refuses the family), every forward timed;
+    then the wire matmul at ``RG_MM`` (:func:`served_matmul_check`), hd
+    256 through the append and both attention kernels with the
+    window (:func:`hd_attention_check`) and the contiguous kernel at the
+    served shapes (:func:`window_attention_served`); and the reduced
+    recurrentgemma-2b, minitron-4b and starcoder2-15b served on the card
+    and on the CPU."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import CACHE_SLACK, ServeEngine
+    cfg = served_cfg("recurrentgemma-2b")
+    torch.cuda.reset_peak_memory_stats()
+    params, weights_s, fq, audit = served_params(torch, dev, cfg, None)
+    check(fq > 0, "recurrentgemma-2b: quantize_weights launched no "
+          "fake-quant kernel")
+    eng = ServeEngine(params, cfg, max_len=RG_PLEN + RG_NEW + CACHE_SLACK,
+                      device=dev)
+    g = torch.Generator().manual_seed(29)
+    prompts = [torch.randint(0, cfg.vocab, (RG_PLEN,), generator=g).tolist()
+               for _ in range(RG_BATCH)]
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks, tops, prefill_s, step_ms = lockstep_traced(
+        torch, eng, prompts, RG_NEW, call=eng.generate)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    check(eng._sched is None, "recurrentgemma-2b: generate did not route "
+          "to lockstep")
+    for p, o in zip(prompts, toks):
+        check(o[:RG_PLEN] == p and len(o) == RG_PLEN + RG_NEW
+              and all(0 <= t < cfg.vocab for t in o[RG_PLEN:]),
+              "recurrentgemma-2b: served output has the wrong shape or "
+              "tokens out of vocab")
+    check(all(bool(torch.isfinite(v).all()) for v, _ in tops),
+          "recurrentgemma-2b: logits not finite")
+    n_attn = transformer.layer_kinds(cfg).count("self")
+    calls = n_attn * len(tops)          # the prefill and every step
+    check(launches["attention"] == calls and launches["kv_append"] == calls,
+          f"recurrentgemma-2b: {launches['attention']} attention and "
+          f"{launches['kv_append']} append launches for {calls} calls")
+    check(launches["paged_attention"] == 0 and launches["qmatmul"] > 0
+          and launches["fake_quant"] == 0,
+          f"recurrentgemma-2b: launches {launches}")
+    serve = {"arch": cfg.name, "weights": "takum8 (attention, MLP; the "
+             "RG-LRU fake-quantised)", "kv": "takum8",
+             "layers": cfg.n_layers, "attention_layers": n_attn,
+             "d_model": cfg.d_model, "prompts": [RG_PLEN] * RG_BATCH,
+             "max_new": RG_NEW, "weights_s": round(weights_s, 2),
+             "quantize_audit": audit, "fake_quant_launches_setup": fq,
+             "generate_s": round(gen_s, 3), "prefill_s": round(prefill_s, 3),
+             "decode_ms_per_step": round(step_ms, 2),
+             "step": "eager (lockstep: the contiguous attention takes pos "
+                     "as a host int)",
+             "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
+             "launches": launches}
+    del eng, params, tops
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"serving": serve}
+    out["wire_matmul"] = served_matmul_check(torch, dev, RG_MM)
+    out["hd_kernels"] = hd_attention_check(torch, dev, cfg, seed=29,
+                                           window=cfg.window)
+    out["served_attention"] = window_attention_served(torch, dev, cfg)
+    out["reduced_card_vs_cpu"] = [
+        reduced_card_vs_cpu(torch, dev, wfmt="takum8", kv="takum8", arch=a)
+        for a in ("recurrentgemma-2b", "minitron-4b", "starcoder2-15b")]
     return out
 
 
@@ -2947,7 +3273,8 @@ def main() -> int:
     # the attention kernels at phase 4's shapes (attention_check): the
     # contiguous one on the tensor cores, tf32_products per multiply-add
     kernels["attention"] = dict(
-        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu "
+                             "(+ flash_attention.cuh)",
         replaces="src/repro/kernels/takum_attention.py:158",
         redesigned="split-TF32 tensor cores",
         bound_note=f"{tf32_products(t8)} TF32 tensor-core products per "
@@ -3398,6 +3725,42 @@ def main() -> int:
                 kernels[k][f"hd{hk['hd']}"] = dict(
                     hk[key], hkv=hk["hkv"], group=hk["group"])
             kernels["kv_append"][f"hd{hk['hd']}"] = hk["kv_append"]
+
+    # -- 28-29. the dense relu2/gelu configs and the hybrid RG-LRU family --
+    for n, fn in ((28, nemotron_phase), (29, recurrentgemma_phase)):
+        res = fn(torch, dev, wrappers)
+        launches = res["serving"]["launches"]
+        for k in ("kv_append", "qmatmul", "attention", "paged_attention"):
+            kernels[k].setdefault("launches_new_families", {})[str(n)] = \
+                launches[k]
+        kernels["kv_append"]["launches_by_phase"][str(n)] = \
+            launches["kv_append"]
+        hk = res["hd_kernels"]
+        for k, key, src in (
+                ("attention", "contiguous",
+                 "src/repro_torch/csrc/flash_attention_wide.cu "
+                 "(+ flash_attention.cuh)"),
+                ("paged_attention", "paged", "src/repro_torch/csrc/"
+                 "attention.cu")):
+            kernels[k][f"hd{hk['hd']}"] = dict(
+                hk[key], hkv=hk["hkv"], group=hk["group"], source=src,
+                launches=launches[k], launches_phase=n)
+        kernels["kv_append"][f"hd{hk['hd']}"] = hk["kv_append"]
+        kernels["qmatmul"].setdefault("served_shapes", {})[str(n)] = \
+            res["wire_matmul"]
+        kernels["qmatmul"]["max_abs_err"] = max(
+            kernels["qmatmul"]["max_abs_err"],
+            *(r["max_abs_err"] for r in res["wire_matmul"]))
+        if n == 29:
+            kernels["attention"]["hd256"]["served"] = res["served_attention"]
+            kernels["fake_quant"]["launches_recurrentgemma_setup"] = \
+                res["serving"]["fake_quant_launches_setup"]
+            what = "serving recurrentgemma-2b full width and depth, lockstep"
+        else:
+            what = (f"serving nemotron-4-340b full width, {NEMOTRON_LAYERS} "
+                    f"of {res['serving']['layers_of']} layers")
+        phase(n, what, **res, card=card)
+        detail[f"phase{n}"] = res
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "kv_append", "qmatmul", "attention",

@@ -1,7 +1,9 @@
 """Architecture configs served by the port (importing registers them)."""
 
 from repro_torch.configs import (granite_moe_3b_a800m,  # noqa: F401
-                                  kimi_k2_1t_a32b, phi3_medium_14b)
+                                  kimi_k2_1t_a32b, minitron_4b,
+                                  nemotron_4_340b, phi3_medium_14b,
+                                  recurrentgemma_2b, starcoder2_15b)
 from repro_torch.configs.base import (ArchSpec, ModelConfig, get_arch,
                                       list_archs, parse_kv_quant)
 

@@ -29,7 +29,7 @@ def parse_kv_quant(kv_quant: str) -> Tuple[str, int]:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe (the families served here)
+    family: str                  # dense | moe | hybrid_rglru (served here)
     n_layers: int
     d_model: int
     n_heads: int                 # query heads
@@ -37,12 +37,17 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0            # 0 -> d_model // n_heads
-    activation: str = "swiglu"   # the only MLP served here
+    activation: str = "swiglu"   # swiglu | relu2 | gelu
     rope_base: float = 10_000.0
+    tie_embeddings: bool = False  # unembed by embed_tokens^T
     # MoE
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # hybrid (RecurrentGemma): block pattern, e.g. ("rec", "rec", "attn")
+    block_pattern: Tuple[str, ...] = ()
+    lru_width: int = 0
+    window: int = 0              # sliding-window size of local attention
     dtype: str = "bf16"          # activation compute dtype
     param_dtype: str = "f32"
     # serving: KV-cache wire format, a repro_torch.formats name

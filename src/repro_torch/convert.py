@@ -6,9 +6,9 @@ nested dicts and lists of numpy arrays (the caller does the flattening:
 this package never imports JAX), with each wire leaf given as a
 ``(words, format_name)`` pair, and returns this package's parameters on
 ``device`` (``cuda`` unless the caller names one). The reference stacks
-the layers of its scan group on a leading axis
-(``params["groups"][0]["b0"]``); here they are split into one dict per
-layer. ``params_to_numpy`` goes the other way (numpy leaves in the
+the layers of each scan group on a leading axis, a stack per block of the
+group's super-block (``params["groups"][g]["b{i}"]``); here they are split
+into one dict per layer, in layer order. ``params_to_numpy`` goes the other way (numpy leaves in the
 reference's stacked layout, wire leaves as ``(words, format_name)``), so
 gradients compare leaf by leaf and a state trained in one package
 resumes in the other; ``adamw_state_from_numpy`` carries the reference's
@@ -26,7 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import WireMatrix
-from repro_torch.models.transformer import paged_supported
+from repro_torch.models.transformer import FAMILIES, layer_index, layer_plan
 
 __all__ = ["params_from_numpy", "params_to_numpy", "adamw_state_from_numpy"]
 
@@ -48,28 +48,34 @@ def _layer(tree, i: int, device):
 
 
 def _check_plan(cfg: ModelConfig) -> None:
-    if not paged_supported(cfg):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not in the port")
+
+
+# the leaf a block of each kind holds beside its norms
+_BLOCK_LEAF = {"self": "mlp", "moe": "moe", "rec": "rec"}
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device=None) -> Dict[str, Any]:
-    """Reference dense- or moe-family params (numpy) -> this package's
-    params. Both plans are one scan group of one block kind (``self`` or
-    ``moe``: ``attn`` and ``mlp`` or ``moe`` leaves)."""
+    """Reference params (numpy) of a ported family -> this package's
+    params: each scan group's stacked blocks ``groups[g]["b{i}"]`` split
+    into one dict a layer and interleaved in layer order."""
     device = resolve_device(device)
     _check_plan(cfg)
     groups = tree["groups"]
-    ffn = "moe" if cfg.family == "moe" else "mlp"
-    if (len(groups) != 1 or set(groups[0]) != {"b0"}
-            or ffn not in groups[0]["b0"]):
-        raise ValueError(f"expected the {cfg.family} layer plan: one scan "
-                         f"group of blocks with {ffn!r} leaves")
-    stack = groups[0]["b0"]
+    plan = layer_plan(cfg)
+    if len(groups) != len(plan) or any(
+            set(grp) != {f"b{i}" for i in range(len(pat))}
+            or any(_BLOCK_LEAF[k] not in grp[f"b{i}"]
+                   for i, k in enumerate(pat))
+            for grp, (pat, _) in zip(groups, plan)):
+        raise ValueError(f"expected the {cfg.family} layer plan {plan}")
     out = {k: _leaf(tree[k], device)
            for k in ("embed_tokens", "unembed") if k in tree}
     out["final_norm"] = {"scale": _leaf(tree["final_norm"]["scale"], device)}
-    out["layers"] = [_layer(stack, i, device) for i in range(cfg.n_layers)]
+    out["layers"] = [_layer(groups[g][f"b{i}"], r, device)
+                     for g, i, r in layer_index(cfg)]
     return out
 
 
@@ -93,14 +99,18 @@ def _stack(leaves):
 
 def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
                     ) -> Dict[str, Any]:
-    """This package's dense- or moe-family params -> the reference's
-    layout as numpy: the layers stacked on a leading axis under
-    ``["groups"][0]["b0"]``."""
+    """This package's params of a ported family -> the reference's layout
+    as numpy: each scan group's blocks stacked on a leading axis under
+    ``["groups"][g]["b{i}"]``."""
     _check_plan(cfg)
     out = {k: _host(params[k]) for k in ("embed_tokens", "unembed")
            if k in params}
     out["final_norm"] = {"scale": _host(params["final_norm"]["scale"])}
-    out["groups"] = [{"b0": _stack(params["layers"])}]
+    where: Dict[tuple, list] = {}
+    for j, (g, i, _) in enumerate(layer_index(cfg)):
+        where.setdefault((g, i), []).append(params["layers"][j])
+    out["groups"] = [{f"b{i}": _stack(where[(g, i)]) for i in range(len(pat))}
+                     for g, (pat, _) in enumerate(layer_plan(cfg))]
     return out
 
 

@@ -88,10 +88,12 @@ __device__ __forceinline__ float nanmax(float a, float b) {
 // down: at hd 112, 7 lanes a takum8 key and 4 keys a warp, lanes 28-31
 // idle; a power-of-two hd leaves no lane idle). Each lane loads SLOTS
 // 16-byte pieces of K and as many of V, so a partition is PK = SLOTS x
-// NWARP x KPW keys: 8192 / hd at a power-of-two hd, 64 at hd 112 for
-// every word width. Another hd that is a multiple of 16 needs only its
-// case line in dispatch_hd (and shared memory within the card's limit)
-// as long as a key fits one warp (LPK <= 32: hd * N <= 4096).
+// NWARP x KPW keys: 8192 / hd at a power-of-two hd, 64 at hd 112 and 32
+// at hd 192 for every word width (hd 192: 12 lanes a takum8 key, 2 keys a
+// warp, 8 lanes idle; 24 lanes a 16-bit key, one a warp). Another hd that
+// is a multiple of 16 needs only its case line in dispatch_hd (and shared
+// memory within the card's limit) as long as a key fits one warp (LPK <=
+// 32: hd * N <= 4096).
 template <int N, int HD>
 struct Geo {
     static constexpr int LPK = HD * N / 128;    // lanes a key (16 bytes each)
@@ -408,7 +410,15 @@ int launch(const float* q4, const void* kw, const void* vw, float* out,
     auto kern = attn_kernel<N, K, HD>;
     const size_t smem = std::max((size_t)2 * Geo<N, HD>::RAW,
                                  sizeof(float) * 2 * RB * (size_t)nparts_all);
-    if (smem > 48 * 1024) {
+    // the kernel's static arrays (qs, sc, red, the table) count against the
+    // 48 KB a block gets without opting in, beside the dynamic words: at hd
+    // 256 with 16-bit words they are 21 KB beside 32 KB
+    static const size_t static_smem = [] {
+        cudaFuncAttributes a;
+        return cudaFuncGetAttributes(&a, attn_kernel<N, K, HD>) == cudaSuccess
+            ? a.sharedSizeBytes : (size_t)48 * 1024;
+    }();
+    if (static_smem + smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
@@ -418,6 +428,22 @@ int launch(const float* q4, const void* kw, const void* vw, float* out,
         part_ml, out, counter, pos_v, start_v, table, Hkv, rows, ps, npg,
         window, scale);
     return (int)cudaGetLastError();
+}
+
+// A key must fit one warp's lanes (Geo: hd * N <= 4096): f32 words at hd
+// 192 and 256 do not, and are refused (the Python wrapper names them first)
+template <int N, int K, int HD>
+int launch_fitting(const float* q4, const void* kw, const void* vw,
+                   float* out, float* part_acc, float* part_ml, int* counter,
+                   const int* pos_v, const int* start_v, const int* table,
+                   int B, int Hkv, int rows, int ps, int npg, int window,
+                   float scale, int nparts_all, cudaStream_t st) {
+    if constexpr (HD * N <= 4096)
+        return launch<N, K, HD>(q4, kw, vw, out, part_acc, part_ml, counter,
+                                pos_v, start_v, table, B, Hkv, rows, ps, npg,
+                                window, scale, nparts_all, st);
+    else
+        return (int)cudaErrorInvalidValue;
 }
 
 template <int N, int K>
@@ -434,6 +460,8 @@ int dispatch_hd(int hd, const float* q4, const void* kw, const void* vw,
         case 64: return launch<N, K, 64>(ARGS);
         case 112: return launch<N, K, 112>(ARGS);
         case 128: return launch<N, K, 128>(ARGS);
+        case 192: return launch_fitting<N, K, 192>(ARGS);
+        case 256: return launch_fitting<N, K, 256>(ARGS);
     }
 #undef ARGS
     return (int)cudaErrorInvalidValue;

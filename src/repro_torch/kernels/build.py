@@ -35,8 +35,8 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "library", "check",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("codec", "qmatmul", "attention", "flash_attention", "lns_matmul",
-           "fake_quant")
+SOURCES = ("codec", "qmatmul", "attention", "flash_attention",
+           "flash_attention_wide", "lns_matmul", "fake_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,9 +2,11 @@
 ``csrc/flash_attention.cu`` and ``csrc/attention.cu``.
 
 Replaces ``repro/kernels/takum_attention.py::attention_kernel_call``
-(contiguous cache: cached prefill chunks, ``csrc/flash_attention.cu``, on
-the tensor cores) and ``::paged_attention_kernel_call`` (paged pool:
-decode steps, ``csrc/attention.cu``), over takum8/16, lns-takum8/16 and
+(contiguous cache: cached prefill chunks, ``csrc/flash_attention.cuh``,
+on the tensor cores; head dims 192 and 256 built from
+``flash_attention_wide.cu``, the others from ``flash_attention.cu``) and
+``::paged_attention_kernel_call`` (paged pool: decode steps,
+``csrc/attention.cu``), over takum8/16, lns-takum8/16 and
 posit8/16 KV words (posit8 through the shared-memory table when
 ``spec.lut_decode``) and the identity codec's bf16 or f32 float caches.
 Prefill chunks are bound by their products, decode steps by the KV
@@ -42,17 +44,26 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
 __all__ = ["attention", "paged_attention", "to_rows", "from_rows",
-           "DEFAULT_BK", "HEAD_DIMS", "paged_partition_keys",
+           "DEFAULT_BK", "HEAD_DIMS", "F32_REFUSED", "paged_partition_keys",
            "paged_partitions"]
 
 DEFAULT_BK = 256           # contiguous-cache KV tile (keys), as on the TPU
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 192, 256)
+# head dims whose f32 identity words neither kernel takes: a key of 192 or
+# 256 f32 words is more than a warp's 32 lanes of 16 bytes in the paged
+# kernel, and 258 KB of shared memory at hd 256 in the contiguous one (no
+# served config reaches it: the full configs cache bf16, the reduced ones
+# have head dims of 16 and 32)
+F32_REFUSED = (192, 256)
+# the contiguous kernel's head dims in csrc/flash_attention_wide.cu
+WIDE_HEAD_DIMS = (192, 256)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry point of each library
+_FLASH_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+               _I, _F, _P]
 _SIGNATURES = {
-    "flash_attention": {"takum_attention": [_I, _I, _I, _P, _P, _P, _P, _P,
-                                            _I, _I, _I, _I, _I, _I, _I, _I,
-                                            _F, _P]},
+    "flash_attention": {"takum_attention": _FLASH_ARGS},
+    "flash_attention_wide": {"takum_attention_wide": _FLASH_ARGS},
     "attention": {"takum_paged_attention": [_I, _I, _I, _P, _P, _P, _P, _P,
                                             _P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _I, _F, _I, _P]},
@@ -94,8 +105,13 @@ def _check(q4, kw, vw, spec):
     if kw.dtype != want or vw.dtype != want:
         raise TypeError(f"{spec.name} KV words must be {want}, got "
                         f"{kw.dtype} / {vw.dtype}")
-    if q4.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head_dim {q4.shape[-1]} not in {HEAD_DIMS}")
+    hd = q4.shape[-1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if spec.is_identity and kw.dtype == torch.float32 and hd in F32_REFUSED:
+        raise ValueError(f"the CUDA attention kernels take no f32 cache "
+                         f"({spec.name}, float32 words) at head_dim {hd}: "
+                         "a bf16 cache or a wire format serves it")
     for t in (kw, vw):
         if not t.is_cuda or t.device != q4.device:
             raise ValueError("q4 and the KV words must share a CUDA device")
@@ -129,7 +145,11 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
              torch.as_tensor(start, device=q4.device).reshape(b)
              .to(torch.int32).contiguous())
     out = torch.empty_like(q4)
-    err = _lib("flash_attention").takum_attention(
+    # head dims 192 and 256 are a library of their own (built in parallel)
+    entry = (_lib("flash_attention_wide").takum_attention_wide
+             if hd in WIDE_HEAD_DIMS else
+             _lib("flash_attention").takum_attention)
+    err = entry(
         bits, code, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
         out.data_ptr(), start.data_ptr(), b, hkv, rows, kw.shape[1],
         int(pos), tq, bk, window, hd ** -0.5, build.stream_of(q4))
@@ -160,7 +180,8 @@ def paged_partition_keys(hd: int, bits: int) -> int:
     lpk`` whole keys (at hd 112 a takum8 key is 7 lanes, 4 keys a warp
     and 4 lanes idle), and each of a block's 4 warps loads ``bits / 2``
     such sets of K and of V. That is 8192 / hd keys at a power-of-two hd
-    (8192 K words and as many V words), 64 at hd 112 for every width."""
+    (8192 K words and as many V words), 64 at hd 112 and 32 at hd 192 for
+    every width. f32 words at hd 192 and 256 do not fit a warp."""
     if hd * bits < 128 or hd * bits % 128:
         raise ValueError(f"paged attention reads keys of whole 16-byte "
                          f"pieces, got hd {hd} x {bits} bits")

@@ -52,7 +52,7 @@ def main(argv=None):
     params = model.init(torch.Generator(device=dev).manual_seed(0), cfg,
                         device=dev)
     if args.weights != "none":
-        params = quantize_weights(params, args.weights)
+        params = quantize_weights(params, args.weights, cfg=cfg)
 
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab, args.prompt_len)]

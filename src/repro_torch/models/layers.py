@@ -41,7 +41,7 @@ from repro_torch.kernels import ops
 __all__ = ["DTYPES", "dense_init", "rmsnorm_init", "rmsnorm", "rope",
            "attn_init", "attention", "mlp_init", "mlp", "embed_init",
            "embed", "unembed", "padded_vocab", "VOCAB_PAD", "put_words",
-           "causal_mask", "ATTN_CHUNK_T", "QC", "KC", "CAUSAL_SKIP",
+           "causal_mask", "gelu", "ATTN_CHUNK_T", "QC", "KC", "CAUSAL_SKIP",
            "token_nll", "xent_loss"]
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -277,25 +277,36 @@ def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
     return out @ params["wo"], new_cache
 
 
-def _check_activation(activation: str) -> None:
-    if activation != "swiglu":
-        raise NotImplementedError(f"activation {activation!r} is not in the "
-                                  "port yet (SwiGLU only)")
-
-
 def mlp_init(gen, d_model, d_ff, activation, dtype=torch.float32,
              device=None):
-    _check_activation(activation)
+    """SwiGLU's ``{wg, w1, w2}``, or ``{w1, w2}`` for relu2 and gelu."""
     kw = dict(dtype=dtype, device=device)
-    return {"wg": dense_init(gen, d_model, d_ff, **kw),
-            "w1": dense_init(gen, d_model, d_ff, **kw),
-            "w2": dense_init(gen, d_ff, d_model, **kw)}
+    if activation not in ("swiglu", "relu2", "gelu"):
+        raise ValueError(f"unknown activation {activation!r}")
+    p = {"wg": dense_init(gen, d_model, d_ff, **kw)} \
+        if activation == "swiglu" else {}
+    p["w1"] = dense_init(gen, d_model, d_ff, **kw)
+    p["w2"] = dense_init(gen, d_ff, d_model, **kw)
+    return p
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh approximation, ``jax.nn.gelu``'s default
+    (``F.gelu``'s own default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """SwiGLU: (silu(x @ wg) * (x @ w1)) @ w2."""
-    _check_activation(activation)
-    hid = F.silu(x @ params["wg"]) * (x @ params["w1"])
+    """SwiGLU (silu(x @ wg) * (x @ w1)) @ w2, relu2 relu(x @ w1)^2 @ w2 or
+    gelu gelu(x @ w1) @ w2."""
+    if activation == "swiglu":
+        hid = F.silu(x @ params["wg"]) * (x @ params["w1"])
+    elif activation == "relu2":
+        hid = torch.relu(x @ params["w1"]) ** 2
+    elif activation == "gelu":
+        hid = gelu(x @ params["w1"])
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
     return hid @ params["w2"]
 
 
@@ -303,12 +314,17 @@ def padded_vocab(vocab: int) -> int:
     return -(-vocab // VOCAB_PAD) * VOCAB_PAD
 
 
-def embed_init(gen, vocab, d_model, dtype=torch.float32, device=None):
+def embed_init(gen, vocab, d_model, tie: bool = False, dtype=torch.float32,
+               device=None):
+    """``embed_tokens [Vp, d]`` and, unless ``tie``, ``unembed [d, Vp]``
+    (a tied model unembeds by ``embed_tokens``' transpose)."""
     vp = padded_vocab(vocab)
-    return {"embed_tokens": torch.randn((vp, d_model), generator=gen,
-                                        dtype=dtype, device=device).mul_(0.02),
-            "unembed": dense_init(gen, d_model, vp, dtype=dtype,
-                                  device=device)}
+    p = {"embed_tokens": torch.randn((vp, d_model), generator=gen,
+                                     dtype=dtype, device=device).mul_(0.02)}
+    if not tie:
+        p["unembed"] = dense_init(gen, d_model, vp, dtype=dtype,
+                                  device=device)
+    return p
 
 
 def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -316,11 +332,14 @@ def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def unembed(params, x: torch.Tensor, vocab: Optional[int] = None):
-    logits = (x @ params["unembed"]).to(torch.float32)
+    """x @ ``unembed``, or, tied, x @ ``embed_tokens``^T in x's dtype;
+    f32 logits without the vocab padding."""
+    w = params["unembed"] if "unembed" in params \
+        else params["embed_tokens"].T.to(x.dtype)
+    logits = (x @ w).to(torch.float32)
     if vocab is not None and logits.shape[-1] != vocab:
         logits = logits[..., :vocab]     # drop the vocab padding
     return logits
-
 
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Model API used by the serving layer (dense and moe families)::
+"""Model API used by the serving layer (dense, moe and hybrid RG-LRU
+families)::
 
     init(gen, cfg)                                  -> params
     init_cache(cfg, batch, max_len)                 -> contiguous cache
@@ -75,9 +76,11 @@ def _chunked_xent(params, feats: torch.Tensor, labels: torch.Tensor,
          if mask is None else mask.to(torch.float32))
     s = torch.zeros((), dtype=torch.float32, device=feats.device)
     c = torch.zeros((), dtype=torch.float32, device=feats.device)
+    w = params["unembed"] if "unembed" in params \
+        else params["embed_tokens"].T        # tied embeddings
     for i in range(t // ch):
         sl = slice(i * ch, (i + 1) * ch)
-        ds, dc = checkpoint(_xent_chunk, params["unembed"], feats[:, sl],
+        ds, dc = checkpoint(_xent_chunk, w, feats[:, sl],
                             labels[:, sl], m[:, sl], cfg.vocab,
                             use_reentrant=False)
         s, c = s + ds, c + dc

@@ -1,5 +1,5 @@
-"""Decoder-only transformer of the dense and moe families: parameters,
-caches, cached forward.
+"""Decoder-only model of the dense, moe and hybrid RG-LRU families:
+parameters, caches, cached forward.
 
 Parameters are a plain dict::
 
@@ -7,18 +7,23 @@ Parameters are a plain dict::
      "layers": [{"ln1", "ln2", "attn": {wq, wk, wv, wo},
                  "mlp": {wg, w1, w2}}, ...]}
 
-one entry of ``layers`` per layer (the JAX package stacks them on a
-leading axis and runs ``lax.scan``; here a Python loop walks the list).
-A moe layer holds ``"moe": {router, experts_wg, experts_w1, experts_w2}``
-(``models/moe.py``) in place of ``"mlp"``.
+one entry of ``layers`` per layer, in layer order (the JAX package stacks
+the layers of each scan group on a leading axis and runs ``lax.scan``;
+here a Python loop walks the list). A moe layer holds ``"moe": {router,
+experts_wg, experts_w1, experts_w2}`` (``models/moe.py``) in place of
+``"mlp"``; a relu2 or gelu MLP has no ``wg``; a recurrent (``rec``) layer
+holds ``"rec"`` (``models/rglru.py``) in place of ``"attn"``; a model
+with tied embeddings has no ``"unembed"``. :func:`layer_plan` is the
+reference's plan of scan groups, and :func:`layer_kinds` the block kind
+of each layer in order.
 ``forward`` runs without a cache, ``forward_cached`` with one.
-Caches are lists with one dict per layer, in the layout ``layers.attention``
-takes.
+Caches are lists with one dict per layer: the attention cache in the
+layout ``layers.attention`` takes, or ``{"rec": {"h", "conv"}}``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -30,25 +35,75 @@ from repro_torch.device import check_generator, resolve_device
 from repro_torch.kernels.ops import WireMatrix
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rg
 
 __all__ = ["cast_params", "init", "init_layer", "init_cache",
            "init_paged_cache", "forward", "forward_cached",
-           "paged_supported", "FAMILIES"]
+           "paged_supported", "layer_plan", "layer_kinds", "layer_index",
+           "FAMILIES"]
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid_rglru")
+
+
+def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """The reference's scan groups: ``(kinds of a super-block, repeats)``.
+    The hybrid family repeats its block pattern (``attn`` read as
+    ``self``) and ends with the pattern's head as a remainder group. (The
+    reference's vlm plan, a cross-attention block every few layers, comes
+    with that family's config fields.) rwkv6's plan is the reference's
+    too, so :func:`paged_supported` answers for it as the reference's
+    does, though the family is not in the port."""
+    if cfg.family == "rwkv6":
+        return [(("rwkv",), cfg.n_layers)]
+    if cfg.family == "hybrid_rglru":
+        pat = cfg.block_pattern or ("rec", "rec", "attn")
+        pat = tuple("self" if k == "attn" else k for k in pat)
+        plan = [(pat, cfg.n_layers // len(pat))]
+        rem = cfg.n_layers % len(pat)
+        if rem:
+            plan.append((pat[:rem], 1))
+        return plan
+    return [(("moe" if cfg.family == "moe" else "self",), cfg.n_layers)]
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """The block kind of every layer, in layer order (group by group,
+    repeat by repeat)."""
+    return [kind for pat, n_rep in layer_plan(cfg) for _ in range(n_rep)
+            for kind in pat]
+
+
+def layer_index(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
+    """``(group, block, repeat)`` of every layer, in layer order: the
+    reference's group g repeats its super-block, so layer ``offset_g +
+    r * len(pattern) + i`` is repeat r of block ``b{i}``, a slice of the
+    reference's stacked leaf ``groups[g]["b{i}"]``."""
+    return [(g, i, r) for g, (pat, n_rep) in enumerate(layer_plan(cfg))
+            for r in range(n_rep) for i in range(len(pat))]
+
+
+def _window_for(cfg: ModelConfig, kind: str) -> int:
+    if cfg.family == "hybrid_rglru" and kind == "self":
+        return cfg.window
+    return 0
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
-    """Whether ``cfg``'s layers are all attention blocks (the reference's
-    ``self``/``moe`` kinds), the families this package serves and pages:
-    dense and moe."""
-    return cfg.family in FAMILIES
+    """Whether ``cfg``'s layers can run on the paged KV cache, as the
+    reference's, for every family the reference has (ported or not): every
+    block an attention block (``self``/``moe``). Recurrent families carry
+    O(1) state a sequence, with nothing to page, and encdec layers hold
+    encoder state outside the pool's layout."""
+    if cfg.family == "encdec":
+        return False
+    return all(kind in ("self", "moe")
+               for pat, _ in layer_plan(cfg) for kind in pat)
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if not paged_supported(cfg):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not in the port "
-                                  f"yet ({' and '.join(FAMILIES)} only)")
+                                  f"yet ({', '.join(FAMILIES)} only)")
 
 
 def cast_params(params, dtype):
@@ -66,19 +121,25 @@ def cast_params(params, dtype):
     return params
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, *, device=None,
-               dtype=None) -> Dict[str, Any]:
+def init_layer(gen: torch.Generator, cfg: ModelConfig, *, kind=None,
+               device=None, dtype=None) -> Dict[str, Any]:
     """One block's float parameters, drawn from ``gen`` with the
-    reference's scales (normal * d_in^-1/2; ``wo`` by (H * hd)^-1/2),
-    on ``device`` (``cuda`` unless given; ``gen`` must draw there)."""
+    reference's scales (normal * d_in^-1/2; ``wo`` by (H * hd)^-1/2), on
+    ``device`` (``cuda`` unless given; ``gen`` must draw there). ``kind``
+    is the block's (:func:`layer_kinds`; default the family's first)."""
     device = resolve_device(device)
     check_generator(gen, device)
     dtype = L.DTYPES[cfg.param_dtype] if dtype is None else dtype
+    kind = layer_kinds(cfg)[0] if kind is None else kind
     d = cfg.d_model
-    p = {"ln1": L.rmsnorm_init(d, device), "ln2": L.rmsnorm_init(d, device),
-         "attn": L.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                             dtype, device)}
-    if cfg.family == "moe":
+    p = {"ln1": L.rmsnorm_init(d, device), "ln2": L.rmsnorm_init(d, device)}
+    if kind == "rec":
+        p["rec"] = rg.rglru_block_init(gen, d, cfg.lru_width or d, dtype,
+                                       device)
+    else:
+        p["attn"] = L.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                dtype, device)
+    if kind == "moe":
         p["moe"] = moe_mod.moe_init(gen, d, cfg.d_ff, cfg.n_experts,
                                     dtype, device)
     else:
@@ -97,10 +158,12 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device=None,
     device = resolve_device(device)
     check_generator(gen, device)
     dtype = L.DTYPES[cfg.param_dtype] if dtype is None else dtype
-    params = L.embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)
+    params = L.embed_init(gen, cfg.vocab, cfg.d_model, cfg.tie_embeddings,
+                          dtype, device)
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, device)
-    params["layers"] = [init_layer(gen, cfg, device=device, dtype=dtype)
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [init_layer(gen, cfg, kind=kind, device=device,
+                                   dtype=dtype)
+                        for kind in layer_kinds(cfg)]
     return params
 
 
@@ -111,16 +174,22 @@ def _kv_dtype(cfg: ModelConfig, dtype):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
                dtype=None, start=None) -> List[Dict[str, Any]]:
-    """Contiguous cache: per layer ``{"k", "v": [B, max_len, Hkv, hd],
-    "pos": 0}`` (wire words, or ``dtype`` floats for the identity codec),
-    plus ``start [B]`` when given (left-padded prompts), on ``device``
+    """Contiguous cache: per attention layer ``{"k", "v": [B, max_len,
+    Hkv, hd], "pos": 0}`` (wire words, or ``dtype`` floats for the
+    identity codec), plus ``start [B]`` when given (left-padded prompts);
+    per recurrent layer ``{"rec": {"h", "conv"}}`` (zeros). On ``device``
     (``cuda`` unless given)."""
     _check_family(cfg)
     device = resolve_device(device)
     kv = _kv_dtype(cfg, dtype)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     caches = []
-    for _ in range(cfg.n_layers):
+    for kind in layer_kinds(cfg):
+        if kind == "rec":
+            caches.append({"rec": rg.rglru_decode_state(
+                batch, cfg.lru_width or cfg.d_model,
+                L.DTYPES[cfg.dtype] if dtype is None else dtype, device)})
+            continue
         c = {"k": zeros_words(shape, kv, device),
              "v": zeros_words(shape, kv, device), "pos": 0}
         if start is not None:
@@ -139,6 +208,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
     the scratch page idle slots point at). On ``device`` (``cuda``
     unless given)."""
     _check_family(cfg)
+    if not paged_supported(cfg):
+        raise ValueError(f"a paged KV cache needs an attention-only layer "
+                         f"plan; family {cfg.family!r} has recurrent state "
+                         "(use the contiguous init_cache)")
     device = resolve_device(device)
     kv = _kv_dtype(cfg, dtype)
     shape = (num_pages, page_size, cfg.n_kv_heads, cfg.hd)
@@ -152,21 +225,28 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
 
 
 def _block(p, x, cfg, positions, cache=None, mask=None,
-           prefill_fresh=False):
-    """One pre-norm block: (x, aux, new cache or None); ``aux`` is the
-    moe block's load-balance term, None for a dense block (no op added
-    to a dense step)."""
-    h, cache = L.attention(p["attn"], L.rmsnorm(p["ln1"], x), cfg,
-                           positions, cache=cache, mask=mask,
-                           prefill_fresh=prefill_fresh)
+           prefill_fresh=False, kind="self"):
+    """One pre-norm block of ``kind``: (x, aux, new cache or None);
+    ``aux`` is the moe block's load-balance term, None otherwise (no op
+    added to a dense step)."""
+    if kind == "rec":
+        h, st = rg.rglru_block_apply(p["rec"], L.rmsnorm(p["ln1"], x),
+                                     state=None if cache is None
+                                     else cache["rec"])
+        cache = None if cache is None else {"rec": st}
+    else:
+        h, cache = L.attention(p["attn"], L.rmsnorm(p["ln1"], x), cfg,
+                               positions, cache=cache, mask=mask,
+                               window=_window_for(cfg, kind),
+                               prefill_fresh=prefill_fresh)
     x = x + h
-    if "moe" in p:
+    aux = None
+    if kind == "moe":
         h, aux = moe_mod.moe_apply(p["moe"], L.rmsnorm(p["ln2"], x),
                                    n_experts=cfg.n_experts, top_k=cfg.top_k,
                                    capacity_factor=cfg.capacity_factor)
     else:
         h = L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), cfg.activation)
-        aux = None
     return x + h, aux, cache
 
 
@@ -179,14 +259,15 @@ def _layers(params, x, cfg, positions, caches, *, mask=None,
     ``jax.checkpoint(..., nothing_saveable)`` per scanned block."""
     new_caches = []
     aux = None
-    for i, p in enumerate(params["layers"]):
+    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg),
+                                      strict=True)):
         if remat and caches is None:
             x, aux_i, _ = checkpoint(_block, p, x, cfg, positions, None,
-                                     mask, use_reentrant=False)
+                                     mask, False, kind, use_reentrant=False)
         else:
             cache = None if caches is None else caches[i]
             x, aux_i, cache = _block(p, x, cfg, positions, cache, mask,
-                                     prefill_fresh)
+                                     prefill_fresh, kind)
             new_caches.append(cache)
         if aux_i is not None:
             aux = aux_i if aux is None else aux + aux_i
@@ -197,7 +278,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             remat: bool = False, features: bool = False):
     """Uncached forward: tokens [B, T] -> (logits [B, T, V] f32, aux).
     ``aux`` is the reference's auxiliary loss: the moe blocks' summed
-    load-balance terms, 0 for the dense family.
+    load-balance terms, 0 for the other families.
     Below ``ATTN_CHUNK_T`` tokens attention runs under a causal mask;
     from there on the chunked attention builds its own bands. ``remat``
     recomputes each block in the backward; ``features`` returns the
@@ -209,7 +290,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     b, t = tokens.shape
     x = L.embed(params, tokens, dtype)
     positions = torch.arange(t, device=tokens.device).expand(b, t)
-    mask = (L.causal_mask(t, t, device=tokens.device)
+    mask = (L.causal_mask(t, t, window=_window_for(cfg, "self"),
+                          device=tokens.device)
             if t < L.ATTN_CHUNK_T else None)
     x, aux, _ = _layers(params, x, cfg, positions, None, mask=mask,
                         remat=remat)

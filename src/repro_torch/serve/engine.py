@@ -9,8 +9,10 @@ and the reference's failure model (preemption, deadlines, cancellation,
 NaR quarantine) and telemetry (``REPRO_OBS``: ``timing``, ``obs``,
 ``trace_records``). ``generate_lockstep`` is the static-batch loop:
 prompts left-padded to one length, one contiguous cache, decode until the
-last sequence finishes; ``generate`` takes it at temperature > 0 and
-beside pending ``submit``ed requests, as the reference does.
+last sequence finishes; ``generate`` takes it at temperature > 0, for the
+hybrid RG-LRU family (its recurrent state has nothing to page, and the
+scheduler refuses it) and beside pending ``submit``ed requests, as the
+reference does.
 Weights come from :func:`quantize_weights` (``mode="wire"``: every
 projection a ``WireMatrix`` of takum, logarithmic-takum or posit words;
 ``mode="fake"``: float weights rounded to the format's grid by the fused
@@ -50,7 +52,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.takum_attention import DEFAULT_BK
 from repro_torch.models import model
 from repro_torch.models.layers import DTYPES
-from repro_torch.models.transformer import cast_params
+from repro_torch.models.transformer import (cast_params, layer_index,
+                                            paged_supported)
 from repro_torch.obs import enabled as obs_enabled
 from repro_torch.obs.metrics import GLOBAL as METRICS
 from repro_torch.serve.graphs import disable_graphs
@@ -66,6 +69,8 @@ CACHE_SLACK = 8
 
 _DEFAULT_SKIP = ("embed", "unembed", "scale", "norm")
 # leaves consumed through a plain ``x @ w`` (the only ones wired)
+# (the RG-LRU's matrices are not among them: fake-quantised, as in the
+# reference)
 _WIRE_LEAVES = {"wq", "wk", "wv", "wo", "wg", "w1", "w2"}
 _PER_TENSOR = quant.QuantSpec(fmt="takum", scale="per_tensor")
 # each format's largest finite magnitude (every word decoded once)
@@ -108,6 +113,26 @@ def _fake_leaf(spec, leaf: torch.Tensor, scale_exp, in_place: bool):
     return out
 
 
+def _stack_classes(layers, cfg) -> list:
+    """For each layer, the reference's stacked leaf it is a slice of:
+    ``(scan group, block)`` from ``transformer.layer_index(cfg)``. Without
+    a ``cfg`` the layers must be of one kind (the dense and moe families'
+    plan: one group of one block)."""
+    if cfg is None:
+        kinds = {frozenset(layer) & {"attn", "rec", "mlp", "moe"}
+                 for layer in layers}
+        if len(kinds) > 1:
+            raise ValueError("quantize_weights: layers of several block "
+                             "kinds need cfg (the layer plan names each "
+                             "layer's stacked leaf)")
+        return [(0, 0)] * len(layers)
+    index = layer_index(cfg)
+    if len(index) != len(layers):
+        raise ValueError(f"quantize_weights: {len(layers)} layers for a "
+                         f"{cfg.name} plan of {len(index)}")
+    return [(g, i) for g, i, _ in index]
+
+
 def _format_max(spec) -> float:
     """The largest finite value of a wire format (inf for the identity
     codec)."""
@@ -123,6 +148,7 @@ def _format_max(spec) -> float:
 
 
 def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
+                     cfg: Optional[ModelConfig] = None,
                      skip_substrings=_DEFAULT_SKIP, verbose: bool = True,
                      in_place: bool = False):
     """Quantise a served model's weight matrices to a wire format.
@@ -141,19 +167,27 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
     takes that path too. The rounding is ``FormatSpec.fake_quant``, through
     the fused fake-quant kernel on CUDA; a leaf keeps its dtype. Linear
     takum scales by a power of two per tensor, and a leaf of the
-    ``params["layers"]`` list is one slice of the reference's layer stack,
-    so its scale is taken over that leaf in every layer (the largest
-    absmax), as the reference's over its stacked leaf. Names containing a
-    ``skip_substrings`` entry (embeddings, norms) and leaves below 2D stay
-    as they are. A stacked (3D) leaf, such as a moe layer's expert stack,
+    ``params["layers"]`` list is one slice of the reference's stacked
+    leaf (a scan group's block, stacked over the group's repeats, as
+    ``transformer.layer_index(cfg)`` maps them), so its scale is taken
+    over that leaf in every layer of the same group and block (the
+    largest absmax), as the reference's over its stacked leaf: in the
+    hybrid family group 0's block 0 and the remainder group's block 0 are
+    two tensors with two scales. ``cfg`` is needed for a plan of several
+    block kinds; without it every layer is one group's one block (the
+    dense and moe families). Names containing a ``skip_substrings`` entry
+    (embeddings, norms) and leaves below 2D stay as they are; a layer's
+    leaf counts one dimension more (the stack's), so an RG-LRU's ``lam``
+    is rounded as the reference's is. A stacked (3D) leaf, such as a moe
+    layer's expert stack,
     is rounded a slice of its leading axis at a time; ``in_place`` writes
     the rounded values into the float leaves themselves (the returned tree
     shares them), so a model whose weights fill most of the card is not
     held twice.
 
     The printed audit counts leaves as the reference's stacked tree
-    holds them: a leaf of the ``params["layers"]`` list once, not once
-    per layer.
+    holds them: a leaf of the ``params["layers"]`` list once a stacked
+    leaf (group and block), not once per layer.
 
     Under ``REPRO_OBS`` >= 1 the process-wide registry counts the weights
     beyond the format's finite range (``quant.saturated``, of
@@ -170,7 +204,10 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
         name = "/".join(path)
         if any(s in name for s in skip_substrings):
             return "skipped"
-        if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
+        # a leaf of a layer is a slice of the reference's stacked leaf,
+        # one dimension more (an RG-LRU's lam [C] is [layers, C] there)
+        stacked = path[:1] == ("layers",)
+        if not isinstance(leaf, torch.Tensor) or leaf.ndim + stacked < 2:
             return "non_matrix"
         if mode == "wire" and path[-1] in _WIRE_LEAVES \
                 and leaf.is_floating_point():
@@ -192,17 +229,28 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
         else:
             yield path, tree
 
-    # linear takum: one scale per leaf name over the layer stack
-    stack_exp = {}
+    # each layer's stacked leaf in the reference: (scan group, block)
     layers = params.get("layers") if isinstance(params, dict) else None
-    if spec.kind == "linear" and isinstance(layers, (list, tuple)):
+    stack_of = _stack_classes(layers, cfg) \
+        if isinstance(layers, (list, tuple)) else []
+
+    def stack_key(path):
+        return (stack_of[int(path[1])], path[2:]) \
+            if path[:1] == ("layers",) else None
+
+    # linear takum: one scale per stacked leaf of the reference
+    stack_exp = {}
+    if spec.kind == "linear" and stack_of:
         absmax = {}
         for path, leaf in leaves(("layers",), layers):
             if action(path, leaf) == "fake":
-                m = _absmax(leaf)
-                absmax[path[2:]] = torch.maximum(absmax[path[2:]], m) \
-                    if path[2:] in absmax else m
+                m, key = _absmax(leaf), stack_key(path)
+                absmax[key] = torch.maximum(absmax[key], m) \
+                    if key in absmax else m
         stack_exp = {k: int(quant.exponent_of(m)) for k, m in absmax.items()}
+    first_of = {}      # the first layer of each stacked leaf
+    for j, c in enumerate(stack_of):
+        first_of.setdefault(c, j)
 
     counts = {"wired": 0, "fake": 0, "skipped": 0, "non_matrix": 0}
     fmax = _format_max(spec) if obs_enabled() else float("inf")
@@ -214,8 +262,9 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
             return type(leaf)(visit(path + (str(i),), v)
                               for i, v in enumerate(leaf))
         act = action(path, leaf)
-        if path[:1] != ("layers",) or path[1:2] == ("0",):
-            counts[act] += 1      # a layer-stack leaf counts once
+        if path[:1] != ("layers",) \
+                or first_of[stack_of[int(path[1])]] == int(path[1]):
+            counts[act] += 1      # a stacked leaf counts once
         if (fmax < float("inf") and act in ("wired", "fake")
                 and leaf.is_floating_point()):
             METRICS.counter("quant.saturated").inc(
@@ -224,8 +273,8 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
         if act == "wired":
             return ops.WireMatrix.encode(leaf, fmt=spec)
         if act == "fake":
-            key = path[2:] if path[:1] == ("layers",) else None
-            return _fake_leaf(spec, leaf, stack_exp.get(key), in_place)
+            return _fake_leaf(spec, leaf, stack_exp.get(stack_key(path)),
+                              in_place)
         return leaf
 
     out = visit((), params)
@@ -370,11 +419,12 @@ class ServeEngine:
         through the scheduler, with the reference engine's pool sizing:
         the page size clamps to the per-sequence cap and the table is wide
         enough for a full-length prompt plus this call's growth. At
-        temperature > 0, or while ``submit``ed requests are pending (whose
-        stream belongs to their caller), the call runs
-        :meth:`generate_lockstep`, as in the reference."""
-        if self.temperature != 0.0 or (self._sched is not None
-                                       and self._sched.pending()):
+        temperature > 0, for a family with recurrent state (the hybrid
+        RG-LRU family: not ``paged_supported``), or while ``submit``ed
+        requests are pending (whose stream belongs to their caller), the
+        call runs :meth:`generate_lockstep`, as in the reference."""
+        if (self.temperature != 0.0 or not paged_supported(self.cfg)
+                or (self._sched is not None and self._sched.pending())):
             return self.generate_lockstep(prompts, max_new)
         ps = self.page_size or self.cfg.kv_block or DEFAULT_BK
         ps = min(ps, max(8, -(-self.max_len // 8) * 8))
@@ -397,7 +447,8 @@ class ServeEngine:
     def generate_lockstep(self, prompts: List[List[int]],
                           max_new: int) -> List[List[int]]:
         """The static-batch loop: prompts left-padded to one length (each
-        row's ``start`` masks its padding), one contiguous cache of
+        row's ``start`` masks its padding; a recurrent family, as in the
+        reference, takes the pads into its state), one contiguous cache of
         ``plen + max_new + CACHE_SLACK`` positions (rounded up to the KV
         tile on the card, where the attention kernel runs), a prefill of
         the whole batch, then one decode step a token until every
@@ -425,8 +476,11 @@ class ServeEngine:
             # tiles needs no padded copy (keys past pos are masked)
             blk = cfg.kv_block or DEFAULT_BK
             max_len = -(-max_len // blk) * blk
+        # recurrent families take the pads into their state, as in the
+        # reference (which passes no start for them)
+        use_start = paged_supported(cfg) and start.any()
         cache = model.init_cache(cfg, b, max_len, device=dev,
-                                 start=start if start.any() else None)
+                                 start=start if use_start else None)
         logits, cache = model.prefill(self.params,
                                       torch.from_numpy(prompt).to(dev),
                                       cfg, cache)

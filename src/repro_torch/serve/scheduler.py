@@ -208,7 +208,9 @@ class Scheduler:
                  stall_after: float = 60.0, injector="env"):
         if not paged_supported(engine.cfg):
             raise ValueError(f"continuous batching needs an attention-only "
-                             f"model; family {engine.cfg.family!r}")
+                             f"layer plan; family {engine.cfg.family!r} has "
+                             "recurrent state (use the lockstep "
+                             "ServeEngine.generate)")
         if page_size >= ATTN_CHUNK_T:
             # a chunk that long would take the fresh-prefill attention,
             # which assumes pos == 0

@@ -191,8 +191,13 @@ def _plain_f32(spec, q, kw, vw):
 BF16_ATOL = 2e-2
 
 
+def _f32_refused(dtype, hd):
+    """An f32 cache at a head dim neither attention kernel takes."""
+    return dtype == torch.float32 and hd in takum_attention.F32_REFUSED
+
+
 @pytest.mark.parametrize("kv", KV, ids=_kv_id)
-@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 192, 256])
 @pytest.mark.parametrize("window", [0, 24])
 def test_contiguous_attention_matches_plain(dev, kv, hd, window):
     spec, dtype = kv
@@ -204,6 +209,13 @@ def test_contiguous_attention_matches_plain(dev, kv, hd, window):
     kw = _cache(spec, (b, tmax, hkv, hd), g, dtype)
     vw = _cache(spec, (b, tmax, hkv, hd), g, dtype)
     start = torch.tensor([0, 5], dtype=torch.int32)
+    if _f32_refused(dtype, hd):
+        n0 = takum_attention.attention.launches
+        with pytest.raises(ValueError, match=f"f32 cache .* head_dim {hd}"):
+            ops.takum_attention(q.to(dev), kw.to(dev), vw.to(dev), 0, spec,
+                                pos=40, start=start, window=window)
+        assert takum_attention.attention.launches == n0
+        return
     for pos, block in ((0, 32), (40, None), (50, 24)):
         kwargs = dict(pos=pos, start=start, window=window)
         got = ops.takum_attention(q.to(dev), kw.to(dev), vw.to(dev), 0, spec,
@@ -283,7 +295,7 @@ def _reduced(kv, wfmt=None, arch="phi3-medium-14b"):
     cfg = dataclasses.replace(get_arch(arch).reduced, kv_quant=kv)
     params = transformer.init(torch.Generator().manual_seed(0), cfg,
                               device="cpu")
-    return cfg, quantize_weights(params, wfmt or kv, mode="wire",
+    return cfg, quantize_weights(params, wfmt or kv, mode="wire", cfg=cfg,
                                  verbose=False)
 
 
@@ -540,6 +552,65 @@ def test_paged_attention_hd112_matches_plain(dev, kv, case):
     split = ref.paged_attention_ref(*plain, table, spec, pos=pos, start=start,
                                     window=window, partitions=pk)
     torch.testing.assert_close(got, split, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("hd", [192, 256])
+@pytest.mark.parametrize("case", list(PAGED_EDGES))
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+def test_paged_attention_hd192_256_matches_plain(dev, kv, case, hd):
+    """Head dims 192 (nemotron-4-340b's) and 256 (recurrentgemma-2b's): a
+    key is 12 or 24 lanes of 16 bytes at hd 192 (2 or 1 keys a warp, 8
+    lanes idle), 16 or 32 at hd 256, and 32 keys a partition; against the
+    plain version and its split at the kernel's partitions. An f32 cache
+    (48 or 64 lanes a key) is refused by name before any launch."""
+    spec, dtype = kv
+    q, kw, vw, table, pos, start, window = _paged_edge_inputs(
+        spec, dtype, case, 16, hd=hd)
+    args = (q.to(dev), kw.to(dev), vw.to(dev), table.to(dev), spec)
+    kwargs = dict(pos=pos.to(dev), start=start.to(dev), window=window)
+    if _f32_refused(dtype, hd):
+        n0 = takum_attention.paged_attention.launches
+        with pytest.raises(ValueError, match=f"f32 cache .* head_dim {hd}"):
+            ops.paged_attention(*args, **kwargs)
+        assert takum_attention.paged_attention.launches == n0
+        return
+    got = ops.paged_attention(*args, **kwargs).cpu()
+    plain = _plain_f32(spec, q, kw, vw)
+    want = ref.paged_attention_ref(*plain, table, spec, pos=pos, start=start,
+                                   window=window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    bits = 16 if dtype else spec.n
+    pk = takum_attention.paged_partition_keys(hd, bits)
+    assert pk == 32
+    split = ref.paged_attention_ref(*plain, table, spec, pos=pos, start=start,
+                                    window=window, partitions=pk)
+    torch.testing.assert_close(got, split, rtol=0, atol=2e-5)
+
+
+def test_paged_attention_hd256_16bit_launches(dev):
+    """hd 256 with 16-bit words: 21 KB of the kernel's static arrays beside
+    32 KB of staged words, past the 48 KB a block gets without opting in
+    (the launch counts the static bytes too); recurrentgemma-2b's heads
+    (G 10 over one KV head) over 256-position pages at long positions, so
+    the merge's workspace grows with the partitions."""
+    spec = formats.get("takum16")
+    g = torch.Generator().manual_seed(17)
+    ps, npg = 256, 10
+    kw, vw = _pool(spec, g, p=4 * npg + 1, ps=ps, hkv=1, hd=256)
+    table = (torch.arange(4 * npg, dtype=torch.int32) + 1).reshape(4, npg)
+    pos = torch.tensor([2300, 2047, 255, 2559], dtype=torch.int32)
+    start = torch.zeros(4, dtype=torch.int32)
+    q = torch.randn((4, 1, 10, 256), generator=g)
+    n0 = takum_attention.paged_attention.launches
+    got = ops.paged_attention(q.to(dev), kw.to(dev), vw.to(dev),
+                              table.to(dev), spec, pos=pos.to(dev),
+                              start=start.to(dev), window=2048).cpu()
+    assert takum_attention.paged_attention.launches == n0 + 1
+    want = ref.paged_attention_ref(q, kw, vw, table, spec, pos=pos,
+                                   start=start, window=2048)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("kv", KV, ids=_kv_id)
@@ -905,6 +976,32 @@ def test_kv_append_hd112_matches_plain(dev, kv, mode):
     assert _same_cache(gk, wk) and _same_cache(gv, wv)
 
 
+@pytest.mark.parametrize("hd", [192, 256])
+@pytest.mark.parametrize("mode", ["paged", "contiguous"])
+@pytest.mark.parametrize("kv", KV, ids=_kv_id)
+def test_kv_append_hd192_256_matches_plain(dev, kv, mode, hd):
+    """The append at head dims 192 (8 KV heads, nemotron-4-340b's) and 256
+    (one KV head, recurrentgemma-2b's), bf16 K/V as served, bit for bit:
+    the append takes any head dim that is a multiple of 4."""
+    hkv = 8 if hd == 192 else 1
+    if mode == "paged":
+        k, v, kc, vc = _append_inputs(kv, (4, 1, hkv, hd), (7, 8, hkv, hd),
+                                      25, torch.bfloat16)
+        where = dict(pos=torch.tensor([11, 3, 0, 999], dtype=torch.int32,
+                                      device=dev),
+                     table=torch.tensor([[1, 2], [3, 4], [0, 0], [5, 6]],
+                                        dtype=torch.int32, device=dev))
+    else:
+        k, v, kc, vc = _append_inputs(kv, (2, 16, hkv, hd), (2, 48, hkv, hd),
+                                      26, torch.bfloat16)
+        where = dict(pos=19)
+    wk, wv = kc.to(dev), vc.to(dev)
+    _plain_append(kv, k.to(dev), v.to(dev), wk, wv, **where)
+    gk, gv = kc.to(dev), vc.to(dev)
+    takum_codec.kv_append(k.to(dev), v.to(dev), gk, gv, kv[0], **where)
+    assert _same_cache(gk, wk) and _same_cache(gv, wv)
+
+
 @pytest.mark.parametrize("kv", KV, ids=_kv_id)
 def test_kv_append_contiguous_matches_plain(dev, kv):
     k, v, kc, vc = _append_inputs(kv, (2, 5, 2, 16), (2, 24, 2, 16), 22,
@@ -1005,6 +1102,24 @@ def test_reduced_moe_serving_card_matches_cpu(dev, arch):
     for d in ("cpu", dev):
         eng = ServeEngine(params, cfg, max_len=48, page_size=16, device=d)
         outs[str(d)] = (eng.generate(prompts, 6), eng.generate(prompts, 6))
+    assert outs["cpu"] == outs["cuda"]
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "starcoder2-15b",
+                                  "nemotron-4-340b", "recurrentgemma-2b"])
+def test_reduced_new_families_card_matches_cpu(dev, arch):
+    """The relu2/gelu dense configs through the scheduler and
+    recurrentgemma-2b through lockstep, takum8 wire weights and KV: the
+    card's greedy tokens are the CPU's (prompts longer than
+    recurrentgemma's reduced window of 32, left-padded)."""
+    cfg, params = _reduced("takum8", None, arch)
+    rng = np.random.default_rng(3)
+    plens = (45, 38, 33) if arch == "recurrentgemma-2b" else (16, 9, 4, 13)
+    prompts = [list(rng.integers(0, cfg.vocab, n)) for n in plens]
+    outs = {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(params, cfg, max_len=64, page_size=16, device=d)
+        outs[str(d)] = eng.generate(prompts, 6)
     assert outs["cpu"] == outs["cuda"]
 
 

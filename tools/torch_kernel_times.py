@@ -310,12 +310,12 @@ def moe_trace(torch, dev, replays=50, traced=5):
     """{"phase 26 granite-moe-3b-a800m" | "phase 27 kimi-k2-1t-a32b": ...}:
     the captured decode step of chip_smoke.py's moe phases, replayed
     alone, the moe block's ops grouped."""
-    from chip_smoke import MOE_PHASES, PHASE5_PLENS, moe_cfg, moe_params
+    from chip_smoke import MOE_PHASES, PHASE5_PLENS, served_cfg, served_params
     out = {}
     for n, (arch, layers) in zip((26, 27), MOE_PHASES):
-        cfg = moe_cfg(arch, layers)
-        params, _, _ = moe_params(torch, dev, cfg, torch.float32
-                                  if layers is None else torch.bfloat16)
+        cfg = served_cfg(arch, layers)
+        params = served_params(torch, dev, cfg, torch.float32
+                               if layers is None else torch.bfloat16)[0]
         out[f"phase {n} {arch}"] = trace_step(
             torch, dev, cfg, params, PHASE5_PLENS, replays, traced,
             groups=MOE_GROUPS + TRACE_GROUPS)
