@@ -1807,6 +1807,92 @@ def tie_equal(want, tops, row, got, plen):
     return None
 
 
+def tq1_attention_served(torch, dev, spec, dtype, *, b, hkv, grp, hd, tmax,
+                         pos, start=None, seed=30):
+    """Contiguous attention at a lockstep decode step's shape (tq 1, B
+    ``b``, ``grp`` query rows per KV head, a cache of ``tmax`` positions
+    of ``spec`` words, or ``dtype`` floats for the identity codec, at
+    ``pos``, keys before ``start`` masked) against its plain version:
+    ATTN_ATOL on the kernels' f32 semantics, and for a bf16 cache
+    BF16_ATTN_ATOL against the identity branch as it is; timed beside its
+    byte bound and SDPA on K/V decoded beforehand."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import takum_attention as kattn
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 1, hkv * grp, hd), generator=g, device=dev)
+    kf, vf = (torch.randn((b, tmax, hkv, hd), generator=g, device=dev)
+              for _ in range(2))
+    if spec.is_identity:
+        q, kc, vc = q.to(dtype), kf.to(dtype), vf.to(dtype)
+    else:
+        kc, vc = ref.encode_ref(kf, spec), ref.encode_ref(vf, spec)
+    del kf, vf
+    st = (torch.zeros(b, dtype=torch.int32, device=dev) if start is None
+          else torch.tensor(start, dtype=torch.int32, device=dev))
+    q4 = kattn.to_rows(q, hkv).contiguous()
+
+    def kernel():
+        return kattn.attention(q4, kc, vc, pos, None if start is None
+                               else st, spec=spec, tq=1)
+
+    got = kattn.from_rows(kernel(), 1)
+    f32 = (q.float(), kc.float(), vc.float()) if spec.is_identity \
+        else (q, kc, vc)
+    nbits = 0 if spec.is_identity else spec.n
+    want = ref.attention_ref(*f32, nbits, spec, pos=pos, start=st)
+    err = float((got - want).abs().max())
+    what = (f"contiguous attention at tq 1 (hd {hd}, Hkv {hkv}, G {grp}, "
+            f"{spec.name if dtype is None else str(dtype)[6:]})")
+    check(bool(torch.isfinite(got).all()) and err <= ATTN_ATOL,
+          f"{what}: off by {err}")
+    out = {"shape": list(q4.shape), "cache": [b, tmax, hkv, hd],
+           "hkv": hkv, "group": grp,
+           "kv": spec.name if dtype is None else str(dtype)[6:],
+           "pos": pos, "start": start, "max_abs_err": err,
+           "tolerance": ATTN_ATOL}
+    if dtype == torch.bfloat16:
+        plain = ref.attention_ref(q, kc, vc, 0, spec, pos=pos, start=st)
+        out["plain_branch_max_abs_err"] = float(
+            (got - plain.float()).abs().max())
+        out["plain_branch_tolerance"] = BF16_ATTN_ATOL
+        check(out["plain_branch_max_abs_err"] <= BF16_ATTN_ATOL,
+              f"{what}: off the plain identity branch by "
+              f"{out['plain_branch_max_abs_err']}")
+    keys = [pos - int(s) + 1 for s in st.tolist()]
+    word_bytes = kc.element_size()
+    b_ms, b_by = bound(q4.numel() * 4 * 2
+                       + sum(keys) * hkv * hd * 2 * word_bytes,
+                       4 * hd * grp * hkv * sum(keys)
+                       * tf32_products(spec, dtype), TF32_FLOPS)
+    kd = ref.decode_ref(kc, spec) if not spec.is_identity else kc.float()
+    vd = ref.decode_ref(vc, spec) if not spec.is_identity else vc.float()
+    kd, vd = (x[:, :pos + 1].transpose(1, 2) for x in (kd, vd))
+    j = torch.arange(pos + 1, device=dev)
+    keep = (j[None, :] >= st[:, None])[:, None, None, :]
+    qf = q.float().transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(qf, kd, vd, attn_mask=keep, enable_gqa=True)
+
+    out.update(
+        ms=cuda_ms(torch, kernel, iters=100),
+        device_ms=graph_ms(torch, kernel, iters=100),
+        plain_ms=cuda_ms(torch, lambda: ref.attention_ref(
+            *f32, nbits, spec, pos=pos, start=st), iters=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(torch, library, iters=100),
+        library_device_ms=graph_ms(torch, library, iters=100),
+        library_max_abs_err=float((library().transpose(1, 2) - got)
+                                  .abs().max()),
+        library_call="scaled_dot_product_attention(enable_gqa=True) on K/V "
+                     "decoded to f32 beforehand (not timed), boolean start "
+                     "mask")
+    del q, kc, vc, kd, vd, qf, q4, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def lockstep_phase(torch, dev, params, cfg, wrappers, plens, max_new):
     """Phase 20: phase 5's prompts left-padded into one lockstep batch at
     full width; each prompt served alone through the paged scheduler
@@ -1817,8 +1903,6 @@ def lockstep_phase(torch, dev, params, cfg, wrappers, plens, max_new):
     the fresh-prefill attention against the unchunked ``_sdpa`` on one
     2048-token layer input; contiguous attention at the lockstep decode
     step's shape (tq = 1) timed against its bound and SDPA."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import takum_attention as kattn
     from repro_torch.models import layers as L
     from repro_torch.serve.engine import CACHE_SLACK, ServeEngine
     g = torch.Generator().manual_seed(5)       # phase 5's prompts
@@ -1873,8 +1957,9 @@ def lockstep_phase(torch, dev, params, cfg, wrappers, plens, max_new):
     scores = []
     for off in (0, shift):
         positions = torch.arange(plens[0], device=dev)[None] + off
-        q, k, _ = L._proj_qkv(p0["attn"], xn, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.hd, cfg.rope_base, positions)
+        q, k, _ = L._proj_qkv(p0["attn"], xn, None, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.hd, cfg.rope_base,
+                              positions)
         # one query head of each KV head against that KV head's keys
         scores.append(torch.einsum(
             "bqhd,bkhd->bhqk",
@@ -1893,8 +1978,9 @@ def lockstep_phase(torch, dev, params, cfg, wrappers, plens, max_new):
                     generator=gx).to(torch.bfloat16)
     p0 = eng.params["layers"][0]
     positions = torch.arange(L.ATTN_CHUNK_T, device=dev)[None]
-    q, k, v = L._proj_qkv(p0["attn"], L.rmsnorm(p0["ln1"], x), cfg.n_heads,
-                          cfg.n_kv_heads, cfg.hd, cfg.rope_base, positions)
+    q, k, v = L._proj_qkv(p0["attn"], L.rmsnorm(p0["ln1"], x), None,
+                          cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.rope_base,
+                          positions)
     fresh = L._sdpa_chunked(q, k, v)
     full = L._sdpa(q, k, v, L.causal_mask(L.ATTN_CHUNK_T, L.ATTN_CHUNK_T,
                                           device=dev))
@@ -1909,58 +1995,13 @@ def lockstep_phase(torch, dev, params, cfg, wrappers, plens, max_new):
     # contiguous attention at the lockstep decode step: B 4, rows G = 4
     # per KV head, tq = 1, the cache rounded to 256-key tiles, each row's
     # start its left padding
-    t8 = eng.params["layers"][0]["attn"]["wq"].spec
-    hkv, grp, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
     plen = max(plens)
-    tmax = -(-(plen + max_new + CACHE_SLACK) // 256) * 256
-    pos = plen + max_new - 1
-    gd = torch.Generator(device=dev).manual_seed(20)
-    qd = torch.randn((4, 1, hkv * grp, hd), generator=gd, device=dev)
-    kc = ref.encode_ref(torch.randn((4, tmax, hkv, hd), generator=gd,
-                                    device=dev), t8)
-    vc = ref.encode_ref(torch.randn((4, tmax, hkv, hd), generator=gd,
-                                    device=dev), t8)
-    start = torch.tensor([plen - n for n in plens], dtype=torch.int32,
-                         device=dev)
-    q4 = kattn.to_rows(qd, hkv).contiguous()
-
-    def kernel():
-        return kattn.attention(q4, kc, vc, pos, start, spec=t8, tq=1)
-
-    got = kattn.from_rows(kernel(), 1)
-    want = ref.attention_ref(qd, kc, vc, 8, t8, pos=pos, start=start)
-    err = float((got - want).abs().max())
-    check(err <= ATTN_ATOL, f"contiguous attention at tq = 1 off by {err}")
-    keys = [pos - int(s) + 1 for s in start.tolist()]
-    b_ms, b_by = bound(q4.numel() * 4 * 2 + sum(keys) * hkv * hd * 2,
-                       4 * hd * grp * hkv * sum(keys) * tf32_products(t8),
-                       TF32_FLOPS)
-    kf = ref.decode_ref(kc, t8)[:, :pos + 1].transpose(1, 2)
-    vf = ref.decode_ref(vc, t8)[:, :pos + 1].transpose(1, 2)
-    j = torch.arange(pos + 1, device=dev)
-    keep = (j[None, :] >= start[:, None])[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qf = qd.transpose(1, 2)
-
-    def library():
-        return sdpa(qf, kf, vf, attn_mask=keep, enable_gqa=True)
-
-    lib_err = float((library().transpose(1, 2) - got).abs().max())
-    tq1 = {"shape": list(q4.shape), "cache": [4, tmax, hkv, hd],
-           "pos": pos, "start": start.tolist(), "max_abs_err": err,
-           "ms": cuda_ms(torch, kernel, iters=100),
-           "device_ms": graph_ms(torch, kernel, iters=100),
-           "plain_ms": cuda_ms(torch, lambda: ref.attention_ref(
-               qd, kc, vc, 8, t8, pos=pos, start=start), iters=5),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": cuda_ms(torch, library, iters=100),
-           "library_device_ms": graph_ms(torch, library, iters=100),
-           "library_max_abs_err": lib_err,
-           "library_call": "scaled_dot_product_attention(enable_gqa=True) "
-                           "on K/V decoded to f32 beforehand (not timed), "
-                           "boolean start mask",
-           "launches_lockstep": launches["attention"]}
-    del kc, vc, kf, vf, qd, q4, got, want
+    tq1 = tq1_attention_served(
+        torch, dev, eng.params["layers"][0]["attn"]["wq"].spec, None, b=4,
+        hkv=cfg.n_kv_heads, grp=cfg.n_heads // cfg.n_kv_heads, hd=cfg.hd,
+        tmax=-(-(plen + max_new + CACHE_SLACK) // 256) * 256,
+        pos=plen + max_new - 1, start=[plen - n for n in plens], seed=20)
+    tq1["launches_lockstep"] = launches["attention"]
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2555,7 +2596,9 @@ def served_params(torch, dev, cfg, dtype):
     matrices, ``conv`` and ``lam`` fake-quantised in place (one exponent
     a stacked leaf of the reference: a scan group's block over its
     repeats; an expert stack a slice of its expert axis at a time).
-    Returns (params, seconds, fake-quant launches, the audit line)."""
+    An encdec model gets its ``enc`` and ``dec`` stacks instead of
+    ``layers``. Returns (params, seconds, fake-quant launches, the audit
+    line)."""
     from repro_torch.kernels import quantize as kquant
     from repro_torch.models import layers as L
     from repro_torch.models import transformer
@@ -2565,9 +2608,18 @@ def served_params(torch, dev, cfg, dtype):
     params = L.embed_init(gen, cfg.vocab, cfg.d_model, cfg.tie_embeddings,
                           dtype=torch.bfloat16, device=dev)
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
-    params["layers"] = [transformer.init_layer(gen, cfg, kind=kind,
-                                               device=dev, dtype=dtype)
-                        for kind in transformer.layer_kinds(cfg)]
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+        dt = L.DTYPES[cfg.param_dtype] if dtype is None else dtype
+        params["enc_norm"] = L.rmsnorm_init(cfg.d_model, dev)
+        params["enc"] = [encdec._enc_block_init(gen, cfg, dt, dev)
+                         for _ in range(cfg.n_enc_layers)]
+        params["dec"] = [encdec._dec_block_init(gen, cfg, dt, dev)
+                         for _ in range(cfg.n_layers)]
+    else:
+        params["layers"] = [transformer.init_layer(gen, cfg, kind=kind,
+                                                   device=dev, dtype=dtype)
+                            for kind in transformer.layer_kinds(cfg)]
     kquant.fake_quant.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -2964,6 +3016,57 @@ def window_attention_served(torch, dev, cfg, seed=29):
     return out
 
 
+def lockstep_served(torch, dev, cfg, params, prompts, max_new, wrappers,
+                    media=None):
+    """``ServeEngine.generate`` (routed to lockstep: the scheduler
+    refuses these families, and a media prompt goes there in any case)
+    over ``prompts`` with ``media``, every forward timed
+    (:func:`lockstep_traced`); the output's shape and vocabulary and the
+    logits' finiteness checked. Returns (the serving fields, the
+    per-forward count)."""
+    from repro_torch.serve.engine import CACHE_SLACK, ServeEngine
+    eng = ServeEngine(params, cfg, max_len=max(map(len, prompts)) + max_new
+                      + CACHE_SLACK, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks, tops, prefill_s, step_ms = lockstep_traced(
+        torch, eng, prompts, max_new,
+        call=lambda p, n: eng.generate(p, n, media=media))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    check(eng._sched is None, f"{cfg.name}: generate did not route to "
+          "lockstep")
+    for p, o in zip(prompts, toks):
+        check(o[:len(p)] == p and len(o) == len(p) + max_new
+              and all(0 <= t < cfg.vocab for t in o[len(p):]),
+              f"{cfg.name}: served output has the wrong shape or tokens "
+              "out of vocab")
+    check(all(bool(torch.isfinite(v).all()) for v, _ in tops),
+          f"{cfg.name}: logits not finite")
+    check(launches["takum_encode"] == 0 and launches["takum_decode"] == 0
+          and launches["paged_attention"] == 0
+          and launches["fake_quant"] == 0,
+          f"{cfg.name}: the serving run launched another kernel than its "
+          f"path's: {launches}")
+    forwards = len(tops)             # the prefill and every decode step
+    serve = {"arch": cfg.name, "layers": cfg.n_layers, "kv": cfg.kv_quant,
+             "d_model": cfg.d_model, "prompts": [len(p) for p in prompts],
+             "max_new": max_new, "forwards": forwards,
+             "generate_s": round(gen_s, 3), "prefill_s": round(prefill_s, 3),
+             "decode_ms_per_step": round(step_ms, 2),
+             "step": "eager (lockstep: the contiguous attention takes pos "
+                     "as a host int)",
+             "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
+             "launches": launches}
+    del eng, tops
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serve, forwards
+
+
 def recurrentgemma_phase(torch, dev, wrappers):
     """Phase 29: recurrentgemma-2b at full width and depth (26 layers in
     the (rec, rec, attn) pattern, d 2560, MQA 10/1 heads of 256, window
@@ -2979,57 +3082,33 @@ def recurrentgemma_phase(torch, dev, wrappers):
     recurrentgemma-2b, minitron-4b and starcoder2-15b served on the card
     and on the CPU."""
     from repro_torch.models import transformer
-    from repro_torch.serve.engine import CACHE_SLACK, ServeEngine
+    from repro_torch.models import transformer
     cfg = served_cfg("recurrentgemma-2b")
     torch.cuda.reset_peak_memory_stats()
     params, weights_s, fq, audit = served_params(torch, dev, cfg, None)
+    setup_gb = torch.cuda.max_memory_allocated() / 1e9
     check(fq > 0, "recurrentgemma-2b: quantize_weights launched no "
           "fake-quant kernel")
-    eng = ServeEngine(params, cfg, max_len=RG_PLEN + RG_NEW + CACHE_SLACK,
-                      device=dev)
     g = torch.Generator().manual_seed(29)
     prompts = [torch.randint(0, cfg.vocab, (RG_PLEN,), generator=g).tolist()
                for _ in range(RG_BATCH)]
-    for fn in wrappers.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    toks, tops, prefill_s, step_ms = lockstep_traced(
-        torch, eng, prompts, RG_NEW, call=eng.generate)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    check(eng._sched is None, "recurrentgemma-2b: generate did not route "
-          "to lockstep")
-    for p, o in zip(prompts, toks):
-        check(o[:RG_PLEN] == p and len(o) == RG_PLEN + RG_NEW
-              and all(0 <= t < cfg.vocab for t in o[RG_PLEN:]),
-              "recurrentgemma-2b: served output has the wrong shape or "
-              "tokens out of vocab")
-    check(all(bool(torch.isfinite(v).all()) for v, _ in tops),
-          "recurrentgemma-2b: logits not finite")
+    serve, forwards = lockstep_served(torch, dev, cfg, params, prompts,
+                                      RG_NEW, wrappers)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = serve["launches"]
     n_attn = transformer.layer_kinds(cfg).count("self")
-    calls = n_attn * len(tops)          # the prefill and every step
+    calls = n_attn * forwards           # the prefill and every step
     check(launches["attention"] == calls and launches["kv_append"] == calls,
           f"recurrentgemma-2b: {launches['attention']} attention and "
           f"{launches['kv_append']} append launches for {calls} calls")
-    check(launches["paged_attention"] == 0 and launches["qmatmul"] > 0
-          and launches["fake_quant"] == 0,
-          f"recurrentgemma-2b: launches {launches}")
-    serve = {"arch": cfg.name, "weights": "takum8 (attention, MLP; the "
-             "RG-LRU fake-quantised)", "kv": "takum8",
-             "layers": cfg.n_layers, "attention_layers": n_attn,
-             "d_model": cfg.d_model, "prompts": [RG_PLEN] * RG_BATCH,
-             "max_new": RG_NEW, "weights_s": round(weights_s, 2),
-             "quantize_audit": audit, "fake_quant_launches_setup": fq,
-             "generate_s": round(gen_s, 3), "prefill_s": round(prefill_s, 3),
-             "decode_ms_per_step": round(step_ms, 2),
-             "step": "eager (lockstep: the contiguous attention takes pos "
-                     "as a host int)",
-             "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
-             "launches": launches}
-    del eng, params, tops
-    gc.collect()
-    torch.cuda.empty_cache()
+    check(launches["qmatmul"] > 0, f"recurrentgemma-2b: launches {launches}")
+    serve.update(weights="takum8 (attention, MLP; the RG-LRU "
+                 "fake-quantised)", attention_layers=n_attn,
+                 weights_s=round(weights_s, 2), quantize_audit=audit,
+                 fake_quant_launches_setup=fq,
+                 peak_gb_setup=round(setup_gb, 2))
     out = {"serving": serve}
     out["wire_matmul"] = served_matmul_check(torch, dev, RG_MM)
     out["hd_kernels"] = hd_attention_check(torch, dev, cfg, seed=29,
@@ -3038,6 +3117,173 @@ def recurrentgemma_phase(torch, dev, wrappers):
     out["reduced_card_vs_cpu"] = [
         reduced_card_vs_cpu(torch, dev, wfmt="takum8", kv="takum8", arch=a)
         for a in ("recurrentgemma-2b", "minitron-4b", "starcoder2-15b")]
+    return out
+
+
+# -- phases 30-32: rwkv6, encdec and vlm, served through lockstep ---------------
+
+# phase 30, rwkv6-1.6b: phase 5's prompt lengths with the longest cut to
+# 1000, so lockstep rounds the batch up to 1024 (a multiple of the
+# 64-token WKV chunk) and every row is left-padded
+RWKV_PLENS, RWKV_NEW = (77, 300, 520, 1000), 16
+# phase 31, seamless-m4t-large-v2: 1024 audio-stub frames a request (the
+# config's T_a = seq_len // 4 at 4096) and target prompts of 8-32 tokens
+SEAMLESS_FRAMES, SEAMLESS_PLENS, SEAMLESS_NEW = 1024, (8, 17, 25, 32), 64
+# phase 32, llama-3.2-vision-11b: phase 5's prompts, each with the
+# config's 1601 patch embeddings
+VLM_NEW = 16
+# the wire matmul at each phase's own shapes: a decode step's (M 4: the
+# streaming kernel) and the prefill's (the tensor-core kernel). rwkv6:
+# the channel mix at M 4 and at the prefill's 4 x 1024 rows. seamless:
+# the MLP at M 4 and at the decoder prefill's 4 x 32 rows, the encoder's
+# MLP at 4 x 1024 frames, and the cross-attention K/V projection of the
+# 4 x 1024 encoder states that every decode step recomputes. vlm: the
+# MLP at M 4 and 4 x 1024 rows, and the cross blocks' K/V projection of
+# the 4 x 1601 media rows
+RWKV_MM = ((4, 2048, 7168), (4, 7168, 2048), (4096, 2048, 7168),
+           (4096, 7168, 2048))
+SEAMLESS_MM = ((4, 1024, 8192), (4, 8192, 1024), (128, 1024, 8192),
+               (4096, 1024, 8192), (4096, 8192, 1024), (4096, 1024, 1024))
+VLM_MM = ((4, 4096, 14336), (4, 14336, 4096), (4096, 4096, 14336),
+          (4096, 14336, 4096), (6404, 4096, 1024))
+
+
+def reduced_lockstep_card_vs_cpu(torch, dev, arch, kv):
+    """The reduced config of ``arch`` with takum8 wire weights and a
+    ``kv`` cache, served through lockstep with the frontend stub's media
+    on the card and on the CPU (plain versions): identical greedy tokens
+    for left-padded prompts (rwkv6's no multiple of 64); the prefill
+    logits' largest difference reported."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine, quantize_weights
+    rcfg = dataclasses.replace(get_arch(arch).reduced, kv_quant=kv)
+    rparams = quantize_weights(model.init(torch.Generator().manual_seed(0),
+                                          rcfg, device="cpu"), "takum8",
+                               mode="wire", cfg=rcfg, verbose=False)
+    g = torch.Generator().manual_seed(31)
+    prompts = [torch.randint(0, rcfg.vocab, (n,), generator=g).tolist()
+               for n in (45, 38, 7)]
+    media = None
+    if rcfg.frontend == "vision":
+        media = torch.randn((3, rcfg.n_media_tokens,
+                             rcfg.d_media or rcfg.d_model), generator=g)
+    elif rcfg.frontend == "audio":
+        media = torch.randn((3, 12, rcfg.d_model), generator=g)
+    toks, rows = {}, {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(rparams, rcfg, max_len=64, device=d)
+        toks[str(d)] = eng.generate(prompts, 8, media=media)
+        t = torch.zeros((1, 64), dtype=torch.long)
+        t[0, -len(prompts[0]):] = torch.as_tensor(prompts[0])
+        c = model.init_cache(rcfg, 1, 72, device=d)
+        row, _ = model.prefill(eng.params, t.to(d), rcfg, c,
+                               media=None if media is None
+                               else media[:1].to(d))
+        rows[str(d)] = row.cpu()
+    same = toks["cpu"] == toks[str(dev)]
+    check(same, f"reduced {arch} (takum8 weights, {kv} KV): card and CPU "
+          "tokens differ")
+    return {"arch": arch, "weights": "takum8", "kv": kv,
+            "media": None if media is None else list(media.shape),
+            "tokens_identical": same,
+            "prefill_logits_max_abs_err": float(
+                (rows["cpu"] - rows[str(dev)]).abs().max())}
+
+
+def family_phase(torch, dev, n, wrappers):
+    """Phases 30-32: one family the scheduler refuses, at the reference
+    config's full width and depth with seeded random weights (takum8 wire
+    projections; rwkv6's decay LoRA, mixes and bonus fake-quantised at
+    set-up), served through ``generate`` (lockstep) with the frontend
+    stub's seeded media: 30 rwkv6-1.6b (RWKV_PLENS, no attention); 31
+    seamless-m4t-large-v2 (SEAMLESS_FRAMES audio frames and
+    SEAMLESS_PLENS target prompts a request, its bf16 decoder cache); 32
+    llama-3.2-vision-11b (phase 5's prompts with 1601 patch embeddings
+    each, a takum8 cache). Every wrapper's launches from that run, held to
+    what the path must launch; the wire matmul at the phase's shapes
+    (:func:`served_matmul_check`); contiguous attention at the decode
+    step's shape (:func:`tq1_attention_served`); the reduced config card
+    against CPU."""
+    from repro_torch import formats
+    from repro_torch.models import transformer
+    arch = {30: "rwkv6-1.6b", 31: "seamless-m4t-large-v2",
+            32: "llama-3.2-vision-11b"}[n]
+    kv = "none" if n == 31 else "takum8"
+    cfg = dataclasses.replace(served_cfg(arch), kv_quant=kv)
+    torch.cuda.reset_peak_memory_stats()
+    params, weights_s, fq, audit = served_params(torch, dev, cfg, None)
+    setup_gb = torch.cuda.max_memory_allocated() / 1e9
+    g = torch.Generator(device=dev).manual_seed(n)
+    gp = torch.Generator().manual_seed(5)          # phase 5's prompts
+    plens = {30: RWKV_PLENS, 31: SEAMLESS_PLENS, 32: PHASE5_PLENS}[n]
+    prompts = [torch.randint(0, cfg.vocab, (p,), generator=gp).tolist()
+               for p in plens]
+    media = None
+    if n == 31:
+        media = torch.randn((len(plens), SEAMLESS_FRAMES, cfg.d_model),
+                            generator=g, device=dev)
+    elif n == 32:
+        media = torch.randn((len(plens), cfg.n_media_tokens,
+                             cfg.d_media or cfg.d_model), generator=g,
+                            device=dev)
+    max_new = {30: RWKV_NEW, 31: SEAMLESS_NEW, 32: VLM_NEW}[n]
+    serve, forwards = lockstep_served(torch, dev, cfg, params, prompts,
+                                      max_new, wrappers, media=media)
+    serve["media"] = None if media is None else list(media.shape)
+    del params, media
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = serve["launches"]
+    if n == 30:
+        wired = 8 * cfg.n_layers              # every layer, every forward
+        calls = 0
+        check(fq == 6 * cfg.n_layers, f"rwkv6: {fq} fake-quant launches at "
+              "set-up, not one for each of 6 leaves a layer")
+    elif n == 31:
+        wired = 10 * cfg.n_layers
+        calls = cfg.n_layers
+    else:
+        wired = 7 * cfg.n_layers
+        calls = transformer.layer_kinds(cfg).count("self")
+    # the prefill runs the encoder's 6 wired leaves a layer too
+    enc = 6 * cfg.n_enc_layers if n == 31 else 0
+    check(launches["qmatmul"] == wired * forwards + enc,
+          f"{arch}: {launches['qmatmul']} wire matmul launches for "
+          f"{forwards} forwards")
+    check(launches["attention"] == calls * forwards
+          and launches["kv_append"] == calls * forwards,
+          f"{arch}: {launches['attention']} attention and "
+          f"{launches['kv_append']} append launches for "
+          f"{calls * forwards} calls")
+    serve.update(weights="takum8 (every projection; rwkv6's decay LoRA, "
+                 "ww, mixes and bonus fake-quantised)" if n == 30
+                 else "takum8 (every projection)",
+                 weights_s=round(weights_s, 2), quantize_audit=audit,
+                 fake_quant_launches_setup=fq,
+                 peak_gb_setup=round(setup_gb, 2))
+    out = {"serving": serve}
+    out["wire_matmul"] = served_matmul_check(
+        torch, dev, {30: RWKV_MM, 31: SEAMLESS_MM, 32: VLM_MM}[n])
+    blk = 256
+    if n == 30:
+        out["served_attention"] = "none: rwkv6 has no attention"
+    elif n == 31:
+        tmax = -(-(max(plens) + max_new + 8) // blk) * blk
+        out["served_attention"] = tq1_attention_served(
+            torch, dev, formats.get("none"), torch.bfloat16, b=len(plens),
+            hkv=cfg.n_kv_heads, grp=cfg.n_heads // cfg.n_kv_heads,
+            hd=cfg.hd, tmax=tmax, pos=max(plens) + max_new - 1, seed=n)
+    elif n == 32:
+        plen = max(plens)
+        tmax = -(-(plen + max_new + 8) // blk) * blk
+        out["served_attention"] = tq1_attention_served(
+            torch, dev, formats.get("takum8"), None, b=len(plens),
+            hkv=cfg.n_kv_heads, grp=cfg.n_heads // cfg.n_kv_heads,
+            hd=cfg.hd, tmax=tmax, pos=plen + max_new - 1,
+            start=[plen - p for p in plens], seed=n)
+    out["reduced_card_vs_cpu"] = reduced_lockstep_card_vs_cpu(torch, dev,
+                                                              arch, kv)
     return out
 
 
@@ -3759,6 +4005,36 @@ def main() -> int:
         else:
             what = (f"serving nemotron-4-340b full width, {NEMOTRON_LAYERS} "
                     f"of {res['serving']['layers_of']} layers")
+        phase(n, what, **res, card=card)
+        detail[f"phase{n}"] = res
+
+    # -- 30-32. rwkv6, encdec and vlm through lockstep ----------------------
+    for n in (30, 31, 32):
+        res = family_phase(torch, dev, n, wrappers)
+        launches = res["serving"]["launches"]
+        for k in ("kv_append", "qmatmul", "attention", "paged_attention"):
+            kernels[k].setdefault("launches_lockstep_families", {})[str(n)] = \
+                launches[k]
+        kernels["kv_append"]["launches_by_phase"][str(n)] = \
+            launches["kv_append"]
+        kernels["qmatmul"].setdefault("served_shapes", {})[str(n)] = \
+            res["wire_matmul"]
+        kernels["qmatmul"]["max_abs_err"] = max(
+            kernels["qmatmul"]["max_abs_err"],
+            *(r["max_abs_err"] for r in res["wire_matmul"]))
+        if n != 30:
+            sa = res["served_attention"]
+            key = f"hd{sa['cache'][3]}_{res['serving']['arch']}_tq1"
+            kernels["attention"][key] = dict(
+                sa, launches=launches["attention"], launches_phase=n)
+        if n == 30:
+            kernels["fake_quant"]["launches_rwkv6_setup"] = \
+                res["serving"]["fake_quant_launches_setup"]
+        what = {30: "serving rwkv6-1.6b full width and depth, lockstep",
+                31: "serving seamless-m4t-large-v2 full width and depth, "
+                    "lockstep",
+                32: "serving llama-3.2-vision-11b full width and depth, "
+                    "lockstep"}[n]
         phase(n, what, **res, card=card)
         detail[f"phase{n}"] = res
 

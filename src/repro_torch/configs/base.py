@@ -29,7 +29,7 @@ def parse_kv_quant(kv_quant: str) -> Tuple[str, int]:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | hybrid_rglru (served here)
+    family: str                  # dense | moe | hybrid_rglru | rwkv6 | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int                 # query heads
@@ -48,6 +48,16 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()
     lru_width: int = 0
     window: int = 0              # sliding-window size of local attention
+    # rwkv6
+    rwkv_head_dim: int = 64
+    # enc-dec
+    n_enc_layers: int = 0        # encoder layers (encdec family)
+    # vlm
+    cross_attn_every: int = 0    # a cross-attention layer every k layers
+    n_media_tokens: int = 1601   # stubbed frontend sequence length
+    d_media: int = 0             # media embedding dim (0 -> d_model)
+    # modality frontend stub: 'none' | 'vision' | 'audio'
+    frontend: str = "none"
     dtype: str = "bf16"          # activation compute dtype
     param_dtype: str = "f32"
     # serving: KV-cache wire format, a repro_torch.formats name

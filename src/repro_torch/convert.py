@@ -8,8 +8,12 @@ this package never imports JAX), with each wire leaf given as a
 ``device`` (``cuda`` unless the caller names one). The reference stacks
 the layers of each scan group on a leading axis, a stack per block of the
 group's super-block (``params["groups"][g]["b{i}"]``); here they are split
-into one dict per layer, in layer order. ``params_to_numpy`` goes the other way (numpy leaves in the
-reference's stacked layout, wire leaves as ``(words, format_name)``), so
+into one dict per layer, in layer order. The encdec family's two stacks,
+``enc`` and ``dec``, become two lists of layer dicts, and vlm's
+``embed_media`` and cross blocks, and rwkv6's ``blk`` (``tm``/``cm``)
+leaves, carry over as they are. ``params_to_numpy`` goes the other way
+(numpy leaves in the reference's stacked layout, wire leaves as
+``(words, format_name)``), so
 gradients compare leaf by leaf and a state trained in one package
 resumes in the other; ``adamw_state_from_numpy`` carries the reference's
 AdamW moments (``m``, ``v``: trees of the parameters' layout) and step
@@ -47,33 +51,72 @@ def _layer(tree, i: int, device):
     return _leaf(tree[i], device)
 
 
-def _check_plan(cfg: ModelConfig) -> None:
+def _depth(tree) -> int:
+    """The leading (stacked) length of a stacked subtree's first leaf."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(tree[0] if isinstance(tree, tuple) else tree)
+
+
+# the leaves a block of each kind holds beside its norms
+_BLOCK_LEAVES = {"self": ("attn", "mlp"), "cross": ("attn", "mlp"),
+                 "moe": ("attn", "moe"), "rec": ("rec", "mlp"),
+                 "rwkv": ("blk",)}
+# the encdec family's stacks: (name, the keys of its block, the config
+# field of its depth)
+_ENCDEC = (("enc", {"ln1", "ln2", "attn", "mlp"}, "n_enc_layers"),
+           ("dec", {"ln1", "ln_x", "ln2", "attn", "xattn", "mlp"},
+            "n_layers"))
+
+
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not in the port")
 
 
-# the leaf a block of each kind holds beside its norms
-_BLOCK_LEAF = {"self": "mlp", "moe": "moe", "rec": "rec"}
+def _check_plan(cfg: ModelConfig, tree: Dict[str, Any]) -> None:
+    """Raise unless ``tree`` (the reference's layout) holds ``cfg``'s
+    blocks: the scan groups of its layer plan, or encdec's two stacks."""
+    _check_family(cfg)
+    if cfg.family == "encdec":
+        if "enc_norm" not in tree or any(
+                name not in tree or set(tree[name]) != keys
+                or _depth(tree[name]) != getattr(cfg, depth)
+                for name, keys, depth in _ENCDEC):
+            raise ValueError("expected the encdec stacks enc "
+                             f"({cfg.n_enc_layers} layers), dec "
+                             f"({cfg.n_layers}) and enc_norm")
+        return
+    groups = tree["groups"]
+    plan = layer_plan(cfg)
+    if len(groups) != len(plan) or any(
+            set(grp) != {f"b{i}" for i in range(len(pat))}
+            or any(not set(_BLOCK_LEAVES[k]) <= set(grp[f"b{i}"])
+                   or _depth(grp[f"b{i}"]) != n_rep
+                   for i, k in enumerate(pat))
+            for grp, (pat, n_rep) in zip(groups, plan)):
+        raise ValueError(f"expected the {cfg.family} layer plan {plan}")
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device=None) -> Dict[str, Any]:
     """Reference params (numpy) of a ported family -> this package's
     params: each scan group's stacked blocks ``groups[g]["b{i}"]`` split
-    into one dict a layer and interleaved in layer order."""
+    into one dict a layer and interleaved in layer order (encdec: its
+    ``enc`` and ``dec`` stacks split into two lists)."""
     device = resolve_device(device)
-    _check_plan(cfg)
-    groups = tree["groups"]
-    plan = layer_plan(cfg)
-    if len(groups) != len(plan) or any(
-            set(grp) != {f"b{i}" for i in range(len(pat))}
-            or any(_BLOCK_LEAF[k] not in grp[f"b{i}"]
-                   for i, k in enumerate(pat))
-            for grp, (pat, _) in zip(groups, plan)):
-        raise ValueError(f"expected the {cfg.family} layer plan {plan}")
+    _check_plan(cfg, tree)
     out = {k: _leaf(tree[k], device)
-           for k in ("embed_tokens", "unembed") if k in tree}
-    out["final_norm"] = {"scale": _leaf(tree["final_norm"]["scale"], device)}
+           for k in ("embed_tokens", "unembed", "embed_media") if k in tree}
+    for k in ("final_norm", "enc_norm"):
+        if k in tree:
+            out[k] = {"scale": _leaf(tree[k]["scale"], device)}
+    if cfg.family == "encdec":
+        for name, _, depth in _ENCDEC:
+            out[name] = [_layer(tree[name], r, device)
+                         for r in range(getattr(cfg, depth))]
+        return out
+    groups = tree["groups"]
     out["layers"] = [_layer(groups[g][f"b{i}"], r, device)
                      for g, i, r in layer_index(cfg)]
     return out
@@ -101,11 +144,17 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
                     ) -> Dict[str, Any]:
     """This package's params of a ported family -> the reference's layout
     as numpy: each scan group's blocks stacked on a leading axis under
-    ``["groups"][g]["b{i}"]``."""
-    _check_plan(cfg)
-    out = {k: _host(params[k]) for k in ("embed_tokens", "unembed")
-           if k in params}
-    out["final_norm"] = {"scale": _host(params["final_norm"]["scale"])}
+    ``["groups"][g]["b{i}"]`` (encdec: ``enc`` and ``dec`` stacked)."""
+    _check_family(cfg)
+    out = {k: _host(params[k])
+           for k in ("embed_tokens", "unembed", "embed_media") if k in params}
+    for k in ("final_norm", "enc_norm"):
+        if k in params:
+            out[k] = {"scale": _host(params[k]["scale"])}
+    if cfg.family == "encdec":
+        for name, _, _ in _ENCDEC:
+            out[name] = _stack(params[name])
+        return out
     where: Dict[tuple, list] = {}
     for j, (g, i, _) in enumerate(layer_index(cfg)):
         where.setdefault((g, i), []).append(params["layers"][j])

@@ -4,7 +4,10 @@
         --arch phi3-medium-14b --reduced --batch 4 --max-new 16 \
         --kv-quant takum16
 
-Runs on ``cuda`` unless ``--device`` names another device.
+Runs on ``cuda`` unless ``--device`` names another device. A config
+with a frontend stub gets seeded normal media, as the reference's
+launcher makes them: ``vision`` ``[batch, n_media_tokens, d_media or
+d_model]``, ``audio`` ``[batch, max(prompt_len // 4, 8), d_model]``.
 """
 
 import argparse
@@ -57,11 +60,19 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab, args.prompt_len)]
                for _ in range(args.batch)]
+    media = None
+    if cfg.frontend == "vision":
+        media = rng.normal(size=(args.batch, cfg.n_media_tokens,
+                                 cfg.d_media or cfg.d_model)).astype(
+            np.float32)
+    elif cfg.frontend == "audio":
+        media = rng.normal(size=(args.batch, max(args.prompt_len // 4, 8),
+                                 cfg.d_model)).astype(np.float32)
 
     eng = ServeEngine(params, cfg, max_len=args.prompt_len + args.max_new + 8,
                       temperature=args.temperature, device=dev)
     t0 = time.time()
-    outs = eng.generate(prompts, max_new=args.max_new)
+    outs = eng.generate(prompts, max_new=args.max_new, media=media)
     dt = time.time() - t0
     total_new = sum(len(o) - args.prompt_len for o in outs)
     print(f"generated {total_new} tokens in {dt:.2f}s "
@@ -70,10 +81,11 @@ def main(argv=None):
         print(" ...", o[-args.max_new:])
     if args.trace:
         # the paged scheduler recorded spans while generate() ran; a
-        # sampled run goes through lockstep, which has no per-request trace
+        # sampled run, a media prompt or a family the scheduler refuses
+        # goes through lockstep, which has no per-request trace
         if eng.obs is None:
             print("# no trace written: this run used the lockstep path "
-                  "(temperature > 0)")
+                  "(temperature > 0, a media prompt or an unpaged family)")
         else:
             from repro_torch.obs import export
             export.write_chrome(args.trace,

@@ -117,12 +117,17 @@ def attn_init(gen, d_model, n_heads, n_kv_heads, head_dim,
     }
 
 
-def _proj_qkv(params, x, n_heads, n_kv_heads, head_dim, rope_base,
+def _proj_qkv(params, x, xa, n_heads, n_kv_heads, head_dim, rope_base,
               positions):
+    """q from ``x``, k/v from ``xa`` (cross-attention) or ``x``; RoPE on
+    q and k for self-attention only."""
     b = x.shape[0]
+    src = x if xa is None else xa
     q = (x @ params["wq"]).reshape(b, -1, n_heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, -1, n_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(b, -1, n_kv_heads, head_dim)
+    k = (src @ params["wk"]).reshape(b, -1, n_kv_heads, head_dim)
+    v = (src @ params["wv"]).reshape(b, -1, n_kv_heads, head_dim)
+    if xa is not None:
+        return q, k, v
     return rope(q, positions, rope_base), rope(k, positions, rope_base), v
 
 
@@ -213,19 +218,24 @@ def causal_mask(tq: int, tk: int, offset: int = 0, window: int = 0,
 
 
 def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
+              xa: Optional[torch.Tensor] = None,
               cache: Optional[Dict[str, Any]] = None, mask=None,
               window: int = 0, bidirectional: bool = False,
               prefill_fresh: bool = False):
-    """Self-attention, with a decode cache or without; returns (out,
+    """Self-attention, with a decode cache or without, or cross-attention
+    to ``xa [B, Tk, d]`` (K/V projected from ``xa``, no RoPE, no cache:
+    :func:`_sdpa` under ``mask``, as the reference's); returns (out,
     new_cache), ``new_cache`` None without a cache.
 
     The cache's K/V tensors are updated in place; ``new_cache`` carries
     the advanced ``pos``."""
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = _proj_qkv(params, x, h, hkv, hd, cfg.rope_base, positions)
+    q, k, v = _proj_qkv(params, x, xa, h, hkv, hd, cfg.rope_base, positions)
     t = x.shape[1]
     new_cache = None
-    if cache is None:
+    if xa is not None:
+        out = _sdpa(q, k, v, mask)
+    elif cache is None:
         if t >= ATTN_CHUNK_T and t % QC == 0 and k.shape[1] % KC == 0:
             out = _sdpa_chunked(q, k, v, window=window,
                                 causal_skip=CAUSAL_SKIP,

@@ -9,10 +9,11 @@ and the reference's failure model (preemption, deadlines, cancellation,
 NaR quarantine) and telemetry (``REPRO_OBS``: ``timing``, ``obs``,
 ``trace_records``). ``generate_lockstep`` is the static-batch loop:
 prompts left-padded to one length, one contiguous cache, decode until the
-last sequence finishes; ``generate`` takes it at temperature > 0, for the
-hybrid RG-LRU family (its recurrent state has nothing to page, and the
-scheduler refuses it) and beside pending ``submit``ed requests, as the
-reference does.
+last sequence finishes; ``generate`` takes it at temperature > 0, with a
+media prompt, for the families the scheduler refuses (the recurrent
+hybrid RG-LRU and rwkv6, whose state has nothing to page; vlm's cross
+blocks and encdec's encoder, whose state lies outside the pool's layout)
+and beside pending ``submit``ed requests, as the reference does.
 Weights come from :func:`quantize_weights` (``mode="wire"``: every
 projection a ``WireMatrix`` of takum, logarithmic-takum or posit words;
 ``mode="fake"``: float weights rounded to the format's grid by the fused
@@ -68,10 +69,14 @@ __all__ = ["ServeEngine", "quantize_weights", "sample_rows", "disable_graphs",
 CACHE_SLACK = 8
 
 _DEFAULT_SKIP = ("embed", "unembed", "scale", "norm")
-# leaves consumed through a plain ``x @ w`` (the only ones wired)
-# (the RG-LRU's matrices are not among them: fake-quantised, as in the
-# reference)
-_WIRE_LEAVES = {"wq", "wk", "wv", "wo", "wg", "w1", "w2"}
+# leaves consumed through a plain ``x @ w`` (the only ones wired): the
+# attention and MLP projections and rwkv6's mixer matrices (the RG-LRU's
+# matrices and rwkv6's decay LoRA are not among them: fake-quantised, as
+# in the reference)
+_WIRE_LEAVES = {"wq", "wk", "wv", "wo", "wg", "wr", "w1", "w2"}
+# the lists of layer dicts, each a stack of the reference's: the decoder
+# stack (its scan groups from the layer plan) and encdec's two stacks
+_STACKS = ("layers", "enc", "dec")
 _PER_TENSOR = quant.QuantSpec(fmt="takum", scale="per_tensor")
 # each format's largest finite magnitude (every word decoded once)
 _FMT_MAX: dict = {}
@@ -117,8 +122,8 @@ def _stack_classes(layers, cfg) -> list:
     """For each layer, the reference's stacked leaf it is a slice of:
     ``(scan group, block)`` from ``transformer.layer_index(cfg)``. Without
     a ``cfg`` the layers must be of one kind (the dense and moe families'
-    plan: one group of one block)."""
-    if cfg is None:
+    plan, and each of encdec's stacks: one group of one block)."""
+    if cfg is None or cfg.family == "encdec":
         kinds = {frozenset(layer) & {"attn", "rec", "mlp", "moe"}
                  for layer in layers}
         if len(kinds) > 1:
@@ -154,7 +159,7 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
     """Quantise a served model's weight matrices to a wire format.
 
     ``mode="wire"`` replaces every 2D float leaf named ``wq``/``wk``/
-    ``wv``/``wo``/``wg``/``w1``/``w2`` by a ``WireMatrix`` of its
+    ``wv``/``wo``/``wg``/``wr``/``w1``/``w2`` by a ``WireMatrix`` of its
     words in ``fmt`` (encoded by the encode kernel on CUDA).
     ``"takum8"``/``"takum16"`` and ``"posit8"``/``"posit16"`` wire the
     projections through the wire-weight matmul; ``"lns-takum8"``/
@@ -173,13 +178,14 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
     over that leaf in every layer of the same group and block (the
     largest absmax), as the reference's over its stacked leaf: in the
     hybrid family group 0's block 0 and the remainder group's block 0 are
-    two tensors with two scales. ``cfg`` is needed for a plan of several
-    block kinds; without it every layer is one group's one block (the
-    dense and moe families). Names containing a ``skip_substrings`` entry
-    (embeddings, norms) and leaves below 2D stay as they are; a layer's
-    leaf counts one dimension more (the stack's), so an RG-LRU's ``lam``
-    is rounded as the reference's is. A stacked (3D) leaf, such as a moe
-    layer's expert stack,
+    two tensors with two scales. encdec's ``enc`` and ``dec`` lists are a
+    stack each. ``cfg`` is needed for a plan of several block kinds;
+    without it every layer is one group's one block (the dense and moe
+    families). Names containing a ``skip_substrings`` entry (embeddings,
+    ``embed_media`` among them, and norms) and leaves below 2D stay as
+    they are; a layer's leaf counts one dimension more (the stack's), so
+    an RG-LRU's ``lam`` and rwkv6's ``ww`` are rounded as the reference's
+    are. A stacked (3D) leaf, such as a moe layer's expert stack,
     is rounded a slice of its leading axis at a time; ``in_place`` writes
     the rounded values into the float leaves themselves (the returned tree
     shares them), so a model whose weights fill most of the card is not
@@ -206,7 +212,7 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
             return "skipped"
         # a leaf of a layer is a slice of the reference's stacked leaf,
         # one dimension more (an RG-LRU's lam [C] is [layers, C] there)
-        stacked = path[:1] == ("layers",)
+        stacked = bool(path) and path[0] in _STACKS
         if not isinstance(leaf, torch.Tensor) or leaf.ndim + stacked < 2:
             return "non_matrix"
         if mode == "wire" and path[-1] in _WIRE_LEAVES \
@@ -229,28 +235,33 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
         else:
             yield path, tree
 
-    # each layer's stacked leaf in the reference: (scan group, block)
-    layers = params.get("layers") if isinstance(params, dict) else None
-    stack_of = _stack_classes(layers, cfg) \
-        if isinstance(layers, (list, tuple)) else []
+    # each layer's stacked leaf in the reference: (list, scan group, block)
+    stack_of = {}
+    if isinstance(params, dict):
+        for name in _STACKS:
+            if isinstance(params.get(name), (list, tuple)):
+                stack_of[name] = [(name,) + c for c in _stack_classes(
+                    params[name], cfg)]
 
     def stack_key(path):
-        return (stack_of[int(path[1])], path[2:]) \
-            if path[:1] == ("layers",) else None
+        return (stack_of[path[0]][int(path[1])], path[2:]) \
+            if path and path[0] in stack_of else None
 
     # linear takum: one scale per stacked leaf of the reference
     stack_exp = {}
-    if spec.kind == "linear" and stack_of:
+    if spec.kind == "linear":
         absmax = {}
-        for path, leaf in leaves(("layers",), layers):
-            if action(path, leaf) == "fake":
-                m, key = _absmax(leaf), stack_key(path)
-                absmax[key] = torch.maximum(absmax[key], m) \
-                    if key in absmax else m
+        for name in stack_of:
+            for path, leaf in leaves((name,), params[name]):
+                if action(path, leaf) == "fake":
+                    m, key = _absmax(leaf), stack_key(path)
+                    absmax[key] = torch.maximum(absmax[key], m) \
+                        if key in absmax else m
         stack_exp = {k: int(quant.exponent_of(m)) for k, m in absmax.items()}
     first_of = {}      # the first layer of each stacked leaf
-    for j, c in enumerate(stack_of):
-        first_of.setdefault(c, j)
+    for name, classes in stack_of.items():
+        for j, c in enumerate(classes):
+            first_of.setdefault(c, j)
 
     counts = {"wired": 0, "fake": 0, "skipped": 0, "non_matrix": 0}
     fmax = _format_max(spec) if obs_enabled() else float("inf")
@@ -262,8 +273,8 @@ def quantize_weights(params, fmt: str = "takum8", *, mode: str = "fake",
             return type(leaf)(visit(path + (str(i),), v)
                               for i, v in enumerate(leaf))
         act = action(path, leaf)
-        if path[:1] != ("layers",) \
-                or first_of[stack_of[int(path[1])]] == int(path[1]):
+        if not path or path[0] not in stack_of \
+                or first_of[stack_of[path[0]][int(path[1])]] == int(path[1]):
             counts[act] += 1      # a stacked leaf counts once
         if (fmax < float("inf") and act in ("wired", "fake")
                 and leaf.is_floating_point()):
@@ -413,19 +424,29 @@ class ServeEngine:
         ``REPRO_OBS`` >= 1)."""
         return self.scheduler().trace_records(meta)
 
-    def generate(self, prompts: List[List[int]],
-                 max_new: int) -> List[List[int]]:
-        """Prompt + ``max_new`` tokens per prompt. Greedy requests go
-        through the scheduler, with the reference engine's pool sizing:
+    def _can_schedule(self, media) -> bool:
+        """Whether :meth:`generate` can go through the paged scheduler, as
+        the reference decides: no media prompt, greedy decoding, and an
+        attention-only layer plan (``paged_supported``)."""
+        return (media is None and self.temperature == 0.0
+                and paged_supported(self.cfg))
+
+    def generate(self, prompts: List[List[int]], max_new: int,
+                 media=None) -> List[List[int]]:
+        """Prompt + ``max_new`` tokens per prompt. ``media`` is the
+        frontend stub's output for the batch (numpy or a tensor): vlm's
+        patch embeddings ``[B, M, d_media]``, encdec's frame embeddings
+        ``[B, T_a, d]``. Greedy requests go through the scheduler where
+        :meth:`_can_schedule`, with the reference engine's pool sizing:
         the page size clamps to the per-sequence cap and the table is wide
-        enough for a full-length prompt plus this call's growth. At
-        temperature > 0, for a family with recurrent state (the hybrid
-        RG-LRU family: not ``paged_supported``), or while ``submit``ed
-        requests are pending (whose stream belongs to their caller), the
-        call runs :meth:`generate_lockstep`, as in the reference."""
-        if (self.temperature != 0.0 or not paged_supported(self.cfg)
+        enough for a full-length prompt plus this call's growth. Otherwise
+        (temperature > 0, a media prompt, a family that is not
+        ``paged_supported``), or while ``submit``ed requests are pending
+        (whose stream belongs to their caller), the call runs
+        :meth:`generate_lockstep`, as in the reference."""
+        if (not self._can_schedule(media)
                 or (self._sched is not None and self._sched.pending())):
-            return self.generate_lockstep(prompts, max_new)
+            return self.generate_lockstep(prompts, max_new, media=media)
         ps = self.page_size or self.cfg.kv_block or DEFAULT_BK
         ps = min(ps, max(8, -(-self.max_len // 8) * 8))
         bucket_max = max(-(-len(p) // ps) * ps for p in prompts)
@@ -444,15 +465,19 @@ class ServeEngine:
 
     # -- lockstep (static batch) -------------------------------------------
 
-    def generate_lockstep(self, prompts: List[List[int]],
-                          max_new: int) -> List[List[int]]:
-        """The static-batch loop: prompts left-padded to one length (each
-        row's ``start`` masks its padding; a recurrent family, as in the
-        reference, takes the pads into its state), one contiguous cache of
-        ``plen + max_new + CACHE_SLACK`` positions (rounded up to the KV
-        tile on the card, where the attention kernel runs), a prefill of
-        the whole batch, then one decode step a token until every
-        sequence has ``max_new`` tokens or its EOS. The host reads each
+    def generate_lockstep(self, prompts: List[List[int]], max_new: int,
+                          media=None) -> List[List[int]]:
+        """The static-batch loop: prompts left-padded to one length (rwkv6:
+        a multiple of 64, its chunk; each row's ``start`` masks its
+        padding, but for the recurrent families, which take the pads into
+        their state, as in the reference; encdec's cache takes no
+        ``start`` either), one contiguous cache of ``plen + max_new +
+        CACHE_SLACK`` positions (rounded up to the KV tile on the card,
+        where the attention kernel runs), a prefill of the whole batch
+        (with ``media``), then one decode step a token until every
+        sequence has ``max_new`` tokens or its EOS. The decode steps pass
+        no media, as the reference's: a vlm cross block then attends the
+        step's own token. The host reads each
         step's tokens one step late (step s + 1 is issued before step s's
         tokens are read), so the card never waits on that read; the last
         issued step's append lands in the slack.
@@ -465,6 +490,8 @@ class ServeEngine:
         dev = self.device
         b = len(prompts)
         plen = max(len(p) for p in prompts)
+        if cfg.family == "rwkv6":
+            plen = -(-plen // 64) * 64       # the chunk's multiple
         prompt = np.zeros((b, plen), np.int64)
         start = np.zeros((b,), np.int32)
         for i, p in enumerate(prompts):      # left-pad, last token at end
@@ -478,12 +505,15 @@ class ServeEngine:
             max_len = -(-max_len // blk) * blk
         # recurrent families take the pads into their state, as in the
         # reference (which passes no start for them)
-        use_start = paged_supported(cfg) and start.any()
+        use_start = (cfg.family not in ("rwkv6", "hybrid_rglru")
+                     and start.any())
         cache = model.init_cache(cfg, b, max_len, device=dev,
                                  start=start if use_start else None)
+        if media is not None:
+            media = torch.as_tensor(media, dtype=torch.float32, device=dev)
         logits, cache = model.prefill(self.params,
                                       torch.from_numpy(prompt).to(dev),
-                                      cfg, cache)
+                                      cfg, cache, media=media)
         gen = None
         if self.temperature > 0.0:
             gen = torch.Generator(device=dev)

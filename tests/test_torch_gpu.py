@@ -293,8 +293,7 @@ def test_wrappers_count_launches(dev):
 
 def _reduced(kv, wfmt=None, arch="phi3-medium-14b"):
     cfg = dataclasses.replace(get_arch(arch).reduced, kv_quant=kv)
-    params = transformer.init(torch.Generator().manual_seed(0), cfg,
-                              device="cpu")
+    params = model.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     return cfg, quantize_weights(params, wfmt or kv, mode="wire", cfg=cfg,
                                  verbose=False)
 
@@ -1123,6 +1122,30 @@ def test_reduced_new_families_card_matches_cpu(dev, arch):
     assert outs["cpu"] == outs["cuda"]
 
 
+@pytest.mark.parametrize("arch,kv", [("rwkv6-1.6b", "takum8"),
+                                     ("seamless-m4t-large-v2", "none"),
+                                     ("llama-3.2-vision-11b", "takum8")])
+def test_reduced_lockstep_families_card_matches_cpu(dev, arch, kv):
+    """rwkv6, encdec (its float cache) and vlm through lockstep with the
+    frontend stub's media, takum8 wire weights: the card's greedy tokens
+    are the CPU's (left-padded prompts, rwkv6's no multiple of 64)."""
+    cfg, params = _reduced(kv, "takum8", arch)
+    rng = np.random.default_rng(4)
+    plens = (45, 38, 7)
+    prompts = [list(rng.integers(0, cfg.vocab, n)) for n in plens]
+    media = None
+    if cfg.frontend == "vision":
+        media = rng.normal(size=(3, cfg.n_media_tokens,
+                                 cfg.d_media or cfg.d_model))
+    elif cfg.frontend == "audio":
+        media = rng.normal(size=(3, 12, cfg.d_model))
+    outs = {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(params, cfg, max_len=64, device=d)
+        outs[str(d)] = eng.generate(prompts, 6, media=media)
+    assert outs["cpu"] == outs["cuda"]
+
+
 def test_launch_counts_equal_under_replay(dev):
     out = _serve_twice("takum8")
     assert out["graph"]["counts"] == out["eager"]["counts"]
@@ -1189,6 +1212,35 @@ def test_contiguous_attention_tq1_left_padded_matches_plain(dev, kv):
         plain = ref.attention_ref(*_plain_f32(spec, q, kw, vp), 0, spec,
                                   **kwargs)
         assert torch.equal(plain, want)
+
+
+@pytest.mark.parametrize("kv", [(formats.get("none"), torch.bfloat16),
+                                (formats.get("takum8"), None)], ids=_kv_id)
+@pytest.mark.parametrize("tq,pos", [(1, 40), (1, 299), (24, 0)],
+                         ids=["step", "step_last", "prefill"])
+def test_contiguous_attention_hd64_mha_matches_plain(dev, kv, tq, pos):
+    """encdec's decoder self-attention: hd 64, 16 query heads on 16 KV
+    heads (G 1, MHA), no ``start`` (encdec's cache takes none), the
+    config's bf16 cache and a takum8 one; a lockstep step (tq 1) and a
+    prefill from position 0."""
+    spec, dtype = kv
+    g = torch.Generator().manual_seed(64 + tq)
+    b, hkv, hd, tmax = 4, 16, 64, 320
+    q = torch.randn((b, tq, hkv, hd), generator=g)
+    if dtype is not None:
+        q = q.to(dtype)
+    kw = _cache(spec, (b, tmax, hkv, hd), g, dtype)
+    vw = _cache(spec, (b, tmax, hkv, hd), g, dtype)
+    n0 = takum_attention.attention.launches
+    got = ops.takum_attention(q.to(dev), kw.to(dev), vw.to(dev), 0, spec,
+                              pos=pos).cpu()
+    assert takum_attention.attention.launches == n0 + 1
+    want = ref.attention_ref(*_plain_f32(spec, q, kw, vw), 0, spec, pos=pos)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    if dtype == torch.bfloat16:
+        plain = ref.attention_ref(q, kw, vw, 0, spec, pos=pos)
+        torch.testing.assert_close(got, plain.float(), rtol=0,
+                                   atol=BF16_ATOL)
 
 
 @pytest.mark.parametrize("kv", [(formats.get("takum8"), None),

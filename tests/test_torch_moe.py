@@ -391,15 +391,21 @@ def test_forward_and_loss(arch):
 
 
 def test_scheduler_refuses_other_families():
+    from repro.models import transformer as jtr
     from repro_torch.models import transformer
-    for fam, ok in (("dense", True), ("moe", True), ("rwkv6", False),
-                    ("hybrid_rglru", False), ("encdec", False)):
+    for fam, ok, kw in (("dense", True, {}), ("moe", True, {}),
+                        ("rwkv6", False, {}), ("hybrid_rglru", False, {}),
+                        ("encdec", False, {}),
+                        ("vlm", False, {"cross_attn_every": 3})):
         cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m").reduced,
-                                  family=fam)
+                                  family=fam, **kw)
+        jcfg = dataclasses.replace(
+            jget_arch("granite-moe-3b-a800m").reduced, family=fam, **kw)
         assert transformer.paged_supported(cfg) is ok
+        assert jtr.paged_supported(jcfg) is ok
     cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m").reduced,
                               family="rwkv6")
-    with pytest.raises(NotImplementedError, match="rwkv6"):
+    with pytest.raises(ValueError, match="attention-only layer plan"):
         model.init_paged_cache(cfg, 2, 4, 16, 2, device="cpu")
 
 

@@ -2,8 +2,8 @@
 build-time choices of its kernels, on one CUDA card.
 
     python3 tools/torch_kernel_times.py [--src DIR] [--attention] [--lns]
-        [--paged] [--serve N [--eager]] [--step-trace] [--moe-trace]
-        [--variants] [--out F]
+        [--paged] [--serve N [--eager]] [--lockstep N] [--step-trace]
+        [--moe-trace] [--variants] [--out F]
 
 Times ``takum_matmul.qmatmul`` for takum8, takum16, posit8 (through the
 table) and posit16 words at every projection shape of a phi3-medium-14b
@@ -35,6 +35,15 @@ step is replayed from a CUDA graph where the tree does so; ``--eager``
 serves under its ``disable_graphs()`` instead (a tree without graphs
 always serves eagerly), so that an older tree, this tree eager and this
 tree replayed compare under one harness.
+
+``--lockstep N`` also serves ``chip_smoke.py`` phase 20's lockstep batch
+(phi3-medium-14b at full width, phase 5's prompts left-padded into one
+batch, 16 new tokens, takum8 weights and KV) and phase 29's
+(recurrentgemma-2b at full width and depth, ``RG_BATCH`` prompts of
+``RG_PLEN`` tokens) N times each on the ``--src`` tree, every forward
+timed by ``chip_smoke.lockstep_traced``: each run's prefill seconds and
+eager decode ms per step, the lockstep comparison of two trees under one
+harness.
 
 ``--step-trace`` (this checkout only) serves phase 5's and phase 10's
 requests at full width until the decode step has been captured, then
@@ -521,6 +530,44 @@ def busy_clocks(torch, fn, seconds=1.5) -> str:
     return out
 
 
+def lockstep_times(torch, dev, runs):
+    """{"phase 20": [[prefill s, decode ms per step], ...], "phase 29":
+    [...]}: ``runs`` lockstep runs each of chip_smoke.py's phase 20 and
+    phase 29 batches on the ``--src`` tree (see ``--lockstep``)."""
+    import gc
+    from chip_smoke import (PHASE5_PLENS, RG_BATCH, RG_NEW, RG_PLEN,
+                            full_width_cfg, full_width_params,
+                            lockstep_traced, served_cfg, served_params)
+    from repro_torch.serve.engine import CACHE_SLACK, ServeEngine
+    out = {}
+    cfg = full_width_cfg("takum8")
+    params, _ = full_width_params(torch, dev, cfg, "takum8")
+    g = torch.Generator().manual_seed(5)          # phase 5's prompts
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in PHASE5_PLENS]
+    eng = ServeEngine(params, cfg, max_len=1280, page_size=256,
+                      decode_batch=4, device=dev)
+    out["phase 20"] = [list(lockstep_traced(torch, eng, prompts, 16)[2:])
+                       for _ in range(runs)]
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = served_cfg("recurrentgemma-2b")
+    params = served_params(torch, dev, cfg, None)[0]
+    g = torch.Generator().manual_seed(29)
+    prompts = [torch.randint(0, cfg.vocab, (RG_PLEN,), generator=g).tolist()
+               for _ in range(RG_BATCH)]
+    eng = ServeEngine(params, cfg, max_len=RG_PLEN + RG_NEW + CACHE_SLACK,
+                      device=dev)
+    out["phase 29"] = [list(lockstep_traced(torch, eng, prompts, RG_NEW,
+                                            call=eng.generate)[2:])
+                       for _ in range(runs)]
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
@@ -530,6 +577,7 @@ def main() -> int:
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--serve", type=int, default=0, metavar="N")
     ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--lockstep", type=int, default=0, metavar="N")
     ap.add_argument("--step-trace", action="store_true")
     ap.add_argument("--moe-trace", action="store_true")
     ap.add_argument("--variants", action="store_true")
@@ -570,6 +618,8 @@ def main() -> int:
         res["paged_ms"] = paged_times(torch, dev)
     if args.serve:
         res["serve"] = serve_times(torch, dev, args.serve, args.eager)
+    if args.lockstep:
+        res["lockstep"] = lockstep_times(torch, dev, args.lockstep)
     if args.step_trace:
         res["step_trace"] = step_trace(torch, dev)
     if args.moe_trace:
