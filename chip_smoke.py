@@ -209,6 +209,24 @@ Phases, one summary line each; any failure exits non-zero:
     recurrentgemma-2b, minitron-4b and starcoder2-15b served on the card
     and on the CPU (tokens equal, logits 1e-4).
 
+33. the codec at every width: the decode and encode kernels of every
+    width 6..32 for linear takum, LNS takum and posit against the plain
+    codec on the card (every word for n <= 16, 2^24 seeded words at n =
+    17, 20, 24, 28, 29, 32; 2^24 seeded floats with zeros, +-inf, NaN,
+    subnormals and rounding ties): linear and posit bit for bit, LNS
+    decodes within 2 ulp and encoded words within those of a log 2 ulp
+    either side; the fused fake-quant at n = 12, 24, 32; the plain
+    hardware-faithful path (section V) on CUDA tensors word for word
+    against the decode and encode kernels at n = 12, 16, 24, 32; decode
+    and encode times at n = 8, 12, 16, 24, 32 beside the byte bound
+    (and the plain version's at 12, 24, 32, ``torch.index_select`` on the
+    2^n decoded values up to 16 bits); contiguous attention with
+    left-padded starts at hd 128 and 256, every row (those before
+    ``start`` the uniform average of V over the whole cache) against its
+    plain version, timed with and without starts; the path (every
+    width's decode, encode and fake-quant through ``ops``) with the
+    launch counters zeroed before it and read after.
+
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
 3.35 TB/s or operations over the rate of the units that do them, f32
@@ -3287,6 +3305,315 @@ def family_phase(torch, dev, n, wrappers):
     return out
 
 
+# -- 33. the codec at every width ------------------------------------------
+
+# widths whose every word is decoded, and those sampled (2^24 seeded words)
+WIDTHS_ALL = tuple(range(6, 17))
+WIDTHS_SAMPLED = (17, 20, 24, 28, 29, 32)
+WIDTHS_TIMED = (8, 12, 16, 24, 32)        # decode/encode times per kind
+WIDTHS_FQ = (12, 24, 32)                  # fake-quant, and plain times
+WIDTHS_HW = (12, 16, 24, 32)              # the hw path against the kernels
+CODEC_SHAPE = (5120, 17920)
+CODEC_SAMPLE = 1 << 24                    # seeded words and floats a width
+CODEC_KINDS = ("linear", "lns", "posit")
+
+
+def float_sample(torch, dev, n, kind, seed):
+    """2^24 seeded f32 values: normals over the f32 range, raw bit
+    patterns, subnormals, zeros, +-inf, NaN and, for linear takum and
+    posit up to 27 bits, the rounding ties of width n (the odd words of
+    width n + 1 decoded: exactly halfway on the encoding grid)."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import to_words
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = CODEC_SAMPLE // 4
+    x = torch.randn(CODEC_SAMPLE, generator=g, device=dev) * torch.pow(
+        10.0, torch.randint(-45, 39, (CODEC_SAMPLE,), device=dev,
+                            generator=g).float())
+    raw = torch.randint(-2 ** 31, 2 ** 31, (m,), device=dev, generator=g,
+                        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    sub = torch.randint(1, 2 ** 23, (m // 4,), device=dev, generator=g,
+                        dtype=torch.int32).view(torch.float32)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1e-45, -1e-45, 1.1754942e-38,
+                            3.4028235e38, -3.4028235e38, 1.0, -1.0],
+                           device=dev)
+    parts = [special, sub, -sub, raw]
+    if kind != "lns" and n + 1 <= 27:
+        wide = formats.resolve(kind, n + 1)
+        odd = torch.randint(0, 2 ** n, (m,), device=dev, generator=g) * 2 + 1
+        parts.append(ref.decode_ref(to_words(odd, wide.word_dtype), wide))
+    return torch.cat(parts + [x])[:CODEC_SAMPLE]
+
+
+def lns_encode_bounds(torch, x, n):
+    """The words a logarithmic encode of ``x`` may give when its f32
+    ``log`` is within 2 ulp of the plain version's: the plain encode of
+    2 ln|x| moved 2 ulps down and up (the word is monotone in ell_bar
+    within a sign), as (low, high) int64 words."""
+    from repro_torch.core import takum
+    from repro_torch.core.bitops import lanes
+    s = (x < 0).long()
+    zero, nan = x == 0, torch.isnan(x)
+    ell = 2.0 * torch.log(torch.abs(torch.where(zero | nan,
+                                                torch.ones_like(x), x)))
+    out = []
+    for step in (-2, 2):
+        e = ell
+        for _ in range(abs(step)):
+            e = torch.nextafter(e, torch.full_like(e, float(step) * 1e38))
+        eb = torch.clamp(torch.where(s == 1, -e, e), -256.0, 256.0)
+        fixed = torch.round(eb * float(1 << 22)).long()
+        out.append(lanes(takum.encode_lns(s, fixed, n, wf=22, is_zero=zero,
+                                          is_nar=nan)))
+    return torch.minimum(*out), torch.maximum(*out)
+
+
+def width_codec_check(torch, dev, n, kind, seed):
+    """Decode (every word for n <= 16, 2^24 seeded words above) and encode
+    (``float_sample``) kernels of width n against the plain codec on the
+    card: linear and posit bit for bit (NaN by place), LNS decodes within
+    2 ulp and encoded words equal to the plain version's or, at an
+    ell_bar rounding tie of logf, its neighbour (phase 7's rule; the
+    window of ``lns_encode_bounds`` is reported beside it)."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import lanes, to_words
+    from repro_torch.kernels import ref, takum_codec
+    spec = formats.resolve(kind, n)
+    if n <= 16:
+        words = to_words(torch.arange(2 ** n, device=dev), spec.word_dtype)
+    else:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        w = torch.randint(0, 2 ** n, (CODEC_SAMPLE,), device=dev,
+                          generator=g)
+        w[:6] = torch.tensor([0, 1, 2 ** (n - 1) - 1, 2 ** (n - 1),
+                              2 ** (n - 1) + 1, 2 ** n - 1])
+        words = to_words(w, spec.word_dtype)
+    got = takum_codec.decode(words, spec)
+    want = ref.decode_ref(words, spec)
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan),
+          f"{spec.name}: decode kernel NaNs differ from the plain codec")
+    dec_ulps = int(ulps(torch, got[~nan], want[~nan]).max())
+    check(dec_ulps <= (2 if kind == "lns" else 0),
+          f"{spec.name}: decode kernel {dec_ulps} ulp off the plain codec")
+    xs = float_sample(torch, dev, n, kind, seed + 1)
+    gw = lanes(takum_codec.encode(xs, spec))
+    ww = lanes(ref.encode_ref(xs, spec))
+    row = {"words": words.numel(), "decode_max_ulps": dec_ulps,
+           "floats": xs.numel()}
+    if kind == "lns":
+        step = (gw - ww) % (1 << n)
+        share = float((step != 0).double().mean())
+        check(bool(torch.isin(step, torch.tensor(
+            [0, 1, (1 << n) - 1], device=dev)).all()),
+            f"{spec.name}: an encoded word other than the plain version's "
+            "or its neighbour")
+        check(share <= LNS_NEIGHBOUR_SHARE, f"{spec.name}: encode neighbour "
+              f"share {share} over {LNS_NEIGHBOUR_SHARE}")
+        lo, hi = lns_encode_bounds(torch, xs, n)
+        row["encode_neighbour_share"] = share
+        row["encode_within_log_2ulp"] = bool(((gw >= lo) & (gw <= hi)).all())
+    else:
+        check(torch.equal(gw, ww),
+              f"{spec.name}: encode kernel differs from the plain codec")
+        row["encode_bit_exact"] = True
+    return row
+
+
+def width_times(torch, dev, n, kind, plain):
+    """Decode and encode kernel times at ``CODEC_SHAPE``, each beside its
+    byte bound ((word bytes + 4) per element), the plain version's time
+    (where ``plain``) and the library's (``torch.index_select`` on the
+    2^n decoded values for n <= 16, decode only)."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import lanes, to_words
+    from repro_torch.kernels import ref, takum_codec
+    spec = formats.resolve(kind, n)
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(CODEC_SHAPE, generator=g, device=dev)
+    words = takum_codec.encode(x, spec)
+    nbytes = x.numel() * (words.element_size() + 4)
+    b_ms, b_by = bound(nbytes, 0)
+    row = {"decode_ms": cuda_ms(torch, lambda: takum_codec.decode(words,
+                                                                  spec)),
+           "encode_ms": cuda_ms(torch, lambda: takum_codec.encode(x, spec)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "word_bytes": words.element_size()}
+    if plain:
+        row["decode_plain_ms"] = cuda_ms(
+            torch, lambda: ref.decode_ref(words, spec), iters=2, warmup=1)
+        row["encode_plain_ms"] = cuda_ms(
+            torch, lambda: ref.encode_ref(x, spec), iters=2, warmup=1)
+    if n <= 16:
+        table = ref.decode_ref(to_words(torch.arange(2 ** n, device=dev),
+                                        spec.word_dtype), spec)
+        idx = lanes(words).to(torch.int32).reshape(-1)
+        lib = torch.index_select(table, 0, idx).reshape(x.shape)
+        err = codec_err(torch, lib, takum_codec.decode(words, spec))
+        check(err == 0.0 or kind == "lns", f"{spec.name}: the library's "
+              f"table decode differs from the decode kernel by {err}")
+        row["decode_library_ms"] = cuda_ms(
+            torch, lambda: torch.index_select(table, 0, idx))
+    else:
+        row["decode_library_ms"] = None
+    return row
+
+
+def width_fake_quant(torch, dev, n, kind):
+    """The fused fake-quant kernel at width n on ``CODEC_SHAPE`` (seeded
+    normals with ``float_sample``'s specials): linear and posit bit for
+    bit against the plain version (NaN by place), LNS bit for bit against
+    the codec kernels' round trip (the same device functions); its time
+    beside the byte bound (4 bytes in, 4 out) and the plain version's."""
+    from repro_torch import formats
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.kernels import ref, takum_codec
+    spec = formats.resolve(kind, n)
+    g = torch.Generator(device=dev).manual_seed(100 + n)
+    x = torch.randn(CODEC_SHAPE, generator=g, device=dev)
+    k = min(x.numel(), CODEC_SAMPLE)
+    x.view(-1)[:k] = float_sample(torch, dev, n, kind, n)[:k]
+    got = kquant.fake_quant(x, spec)
+    want = (takum_codec.decode(takum_codec.encode(x, spec), spec)
+            if kind == "lns" else ref.fake_quant_ref(x, spec))
+    check(same_floats(torch, got, want),
+          f"{spec.name}: fake-quant kernel differs from "
+          + ("the codec kernels' round trip" if kind == "lns"
+             else "its plain version"))
+    b_ms, b_by = bound(x.numel() * 8, 0)
+    return {"ms": cuda_ms(torch, lambda: kquant.fake_quant(x, spec)),
+            "plain_ms": cuda_ms(torch, lambda: ref.fake_quant_ref(x, spec),
+                                iters=2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": codec_err(torch, got, want)}
+
+
+def hw_path_check(torch, dev, n, seed):
+    """The plain hardware-faithful path (section V) on CUDA tensors word
+    for word against the CUDA codec's direct path at width n: every word
+    (n <= 16; 2^24 seeded words above) decoded through the hw
+    characteristic unit and assembled to f32 equals the decode kernel's
+    float, and f32 inputs whose fraction fits n - 5 bits, encoded through
+    the extended takum and the section V-A predictor (``wm = n - 5``),
+    equal the encode kernel's words."""
+    from repro_torch import formats
+    from repro_torch.core import takum
+    from repro_torch.core.bitops import lanes, to_words
+    from repro_torch.kernels import takum_codec
+    spec = formats.resolve("linear", n)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = (torch.arange(2 ** n, device=dev) if n <= 16 else
+         torch.randint(0, 2 ** n, (CODEC_SAMPLE,), device=dev, generator=g))
+    words = to_words(w, spec.word_dtype)
+    hw = takum.linear_to_float(takum.decode_linear(words, n, hw_path=True),
+                               n)
+    check(same_floats(torch, hw, takum_codec.decode(words, spec)),
+          f"{spec.name}: the hw-path decode differs from the decode kernel")
+    xs = float_sample(torch, dev, n, "linear", seed + 1)
+    keep = max(0, 23 - (n - 5))          # fraction bits past n - 5: clear
+    xs = (xs.view(torch.int32) & -(1 << keep)).view(torch.float32)
+    s, e, f23, zero, nan = takum.float_fields(xs)
+    mant = (f23 << (n - 5 - 23)) if n - 5 >= 23 else (f23 >> keep)
+    hw_w = lanes(takum.encode(s, torch.where(s == 1, ~e, e), mant, n,
+                              wm=n - 5, is_zero=zero, is_nar=nan,
+                              hw_path=True))
+    check(torch.equal(hw_w, lanes(takum_codec.encode(xs, spec))),
+          f"{spec.name}: the hw-path encode differs from the encode kernel")
+    return {"words": words.numel(), "floats": xs.numel(), "equal": True}
+
+
+def fault0_attention_check(torch, dev, hkv, grp, hd, tq, tmax, starts,
+                           seed):
+    """Contiguous attention with left-padded ``starts`` at pos 0: every
+    row, those before ``start`` (every key masked: the uniform average of
+    V over the whole cache, words as stored) included, against the plain
+    version within ATTN_ATOL; the kernel timed with these starts and with
+    none (the cost of the average's kernel and the rows' select)."""
+    from repro_torch import formats
+    from repro_torch.kernels import ops, ref, takum_codec
+    t8 = formats.get("takum8")
+    b = len(starts)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, tq, hkv * grp, hd), generator=g, device=dev)
+    kc, vc = (takum_codec.encode(torch.randn((b, tmax, hkv, hd), generator=g,
+                                             device=dev), t8)
+              for _ in range(2))
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    got = ops.takum_attention(q, kc, vc, 8, t8, pos=0, start=st)
+    want = ref.attention_ref(q, kc, vc, 8, t8, pos=0, start=st)
+    err = float((got - want).abs().max())
+    check(err <= ATTN_ATOL, f"contiguous attention hd {hd} with left "
+          f"padding: {err} off the plain version (rows before start too)")
+    early = float((got[0, : starts[0]] - ref.decode_ref(vc[0], t8).mean(0)
+                   .repeat_interleave(grp, 0)).abs().max())
+    check(early <= ATTN_ATOL, f"hd {hd}: rows before start are not the "
+          f"uniform average of V ({early})")
+    return {"shape": [b, tq, hkv * grp, hd], "tmax": tmax, "starts": starts,
+            "max_abs_err": err, "rows_before_start_max_abs_err": early,
+            "ms": cuda_ms(torch, lambda: ops.takum_attention(
+                q, kc, vc, 8, t8, pos=0, start=st), iters=10),
+            "ms_no_start": cuda_ms(torch, lambda: ops.takum_attention(
+                q, kc, vc, 8, t8, pos=0, start=None), iters=10)}
+
+
+def codec_widths_phase(torch, dev):
+    """Phase 33: the codec and fake-quant kernels at every width 6..32, the
+    hw path against them, the widths' times, and the contiguous
+    attention's rows before ``start`` (hd 128 and 256). The path: every
+    width's decode, encode and fake-quant through ``ops`` (and linear
+    takum's serving fake-quant, ``FormatSpec.fake_quant``), with the
+    launch counters zeroed just before and read just after."""
+    from repro_torch import formats
+    from repro_torch.kernels import ops, takum_codec
+    from repro_torch.kernels import quantize as kquant
+    checks = {}
+    for i, n in enumerate(WIDTHS_ALL + WIDTHS_SAMPLED):
+        for j, kind in enumerate(CODEC_KINDS):
+            checks[f"{kind}{n}"] = width_codec_check(torch, dev, n, kind,
+                                                     1000 + 10 * i + j)
+    hw = {str(n): hw_path_check(torch, dev, n, 2000 + n) for n in WIDTHS_HW}
+    fq = {f"{kind}{n}": width_fake_quant(torch, dev, n, kind)
+          for n in WIDTHS_FQ for kind in CODEC_KINDS}
+    times = {str(n): {kind: width_times(torch, dev, n, kind,
+                                        n in WIDTHS_FQ)
+                      for kind in CODEC_KINDS} for n in WIDTHS_TIMED}
+    attn = {"hd128": fault0_attention_check(
+                torch, dev, 8, 4, 128, 1024, 1280, [947, 724, 504, 0], 33),
+            "hd256": fault0_attention_check(
+                torch, dev, 1, 10, 256, 256, 1024, [200, 100, 37, 0], 34)}
+    # the path: zero the counters, drive the entry points at each timed
+    # width and kind (each one's launches kept), read them
+    x = torch.randn(CODEC_SHAPE, device=dev)
+    fns = {"takum_decode": takum_codec.decode,
+           "takum_encode": takum_codec.encode,
+           "fake_quant": kquant.fake_quant}
+    for fn in fns.values():
+        fn.launches = 0
+    per = {}
+    for n in WIDTHS_TIMED:
+        for kind in CODEC_KINDS:
+            before = {k: fn.launches for k, fn in fns.items()}
+            spec = formats.resolve(kind, n)
+            ops.takum_decode(ops.takum_encode(x, spec), spec)
+            if n in WIDTHS_FQ:
+                ops.fake_quant_fused(x, n, fmt=kind)
+            if spec.name == "takum12":
+                spec.fake_quant(x)          # the serving fake-quant
+            per[f"{kind}{n}"] = {k: fn.launches - before[k]
+                                 for k, fn in fns.items()}
+    launches = {k: fn.launches for k, fn in fns.items()}
+    check(all(v["takum_decode"] and v["takum_encode"] for v in per.values())
+          and all(per[f"{k}{n}"]["fake_quant"] for n in WIDTHS_FQ
+                  for k in CODEC_KINDS),
+          f"phase 33's path launched {per}")
+    torch.cuda.synchronize()
+    return {"checks": checks, "hw_path": hw, "fake_quant": fq,
+            "times": times, "attention_rows_before_start": attn,
+            "launches": launches, "launches_per_format": per}
+
+
 def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, sort_keys=False))
 
@@ -4037,6 +4364,49 @@ def main() -> int:
                     "lockstep"}[n]
         phase(n, what, **res, card=card)
         detail[f"phase{n}"] = res
+
+    # -- 33. the codec at every width ----------------------------------------
+    cw = codec_widths_phase(torch, dev)
+    widths_t = cw["times"]
+    worst_ulps = max(r["decode_max_ulps"] for r in cw["checks"].values())
+    phase(33, "the codec at every width",
+          widths=f"{WIDTHS_ALL[0]}-{WIDTHS_SAMPLED[-1]}",
+          formats=len(cw["checks"]), decode_max_ulps=worst_ulps,
+          lns_encode_neighbour_share=max(
+              r["encode_neighbour_share"] for r in cw["checks"].values()
+              if "encode_neighbour_share" in r),
+          hw_path=sorted(cw["hw_path"]),
+          fake_quant_ms={k: v["ms"] for k, v in cw["fake_quant"].items()},
+          decode_ms={n: {k: v["decode_ms"] for k, v in r.items()}
+                     for n, r in widths_t.items()},
+          encode_ms={n: {k: v["encode_ms"] for k, v in r.items()}
+                     for n, r in widths_t.items()},
+          bound_ms={n: r["linear"]["bound_ms"] for n, r in widths_t.items()},
+          attention_rows_before_start={
+              k: {kk: v[kk] for kk in ("max_abs_err", "ms", "ms_no_start")}
+              for k, v in cw["attention_rows_before_start"].items()},
+          launches=cw["launches"], card=card,
+          tolerance="linear and posit bit for bit (NaN by place); LNS "
+                    "decode within 2 ulp, encode the same word or (at a "
+                    "logf tie) its neighbour, share <= LNS_NEIGHBOUR_SHARE; "
+                    "attention ATTN_ATOL on every row")
+    detail["phase33"] = cw
+    per = cw["launches_per_format"]
+    kernels["takum_codec"]["widths"] = {
+        n: {kind: dict(r, launches_phase33={
+            "decode": per[f"{kind}{n}"]["takum_decode"],
+            "encode": per[f"{kind}{n}"]["takum_encode"]}) for kind, r in
+            row.items()} for n, row in widths_t.items()}
+    kernels["takum_codec"]["launches_phase33"] = {
+        "decode": cw["launches"]["takum_decode"],
+        "encode": cw["launches"]["takum_encode"]}
+    kernels["takum_codec"]["max_abs_err_widths_ulps"] = worst_ulps
+    kernels["fake_quant"]["widths"] = {
+        k: dict(r, launches_phase33=per[k]["fake_quant"])
+        for k, r in cw["fake_quant"].items()}
+    kernels["fake_quant"]["launches_phase33"] = cw["launches"]["fake_quant"]
+    kernels["attention"]["rows_before_start"] = \
+        cw["attention_rows_before_start"]
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "kv_append", "qmatmul", "attention",

@@ -1,12 +1,18 @@
-"""Barred-ell_bar LNS arithmetic on logarithmic takums (the parts the
-LNS matmul needs).
+"""Barred-ell_bar LNS arithmetic on logarithmic takums (section III).
 
 A logarithmic takum is ``(S, ell_bar)`` with ``ell_bar = (-1)^S ell`` a
 signed fixed-point number of ``frac_width(n)`` fraction bits; the value is
 ``(-1)^S sqrt(e)^ell``. A product is one add of ``ell`` lanes (exact); a
-sum needs the Gauss-log functions ``phi(d) = 2 ln(1 +- e^(d/2))``, here
-as the fixed-point look-up table with linear interpolation that the LNS
-matmul folds products through (``accum="gauss"``).
+sum needs the Gauss-log functions ``phi(d) = 2 ln(1 +- e^(d/2))``:
+evaluated in f32 by ``add``, and as a fixed-point look-up table with
+linear interpolation where the LNS matmul folds products
+(``accum="gauss"``).
+
+* ``LnsTensor`` carries ``(s, ell_bar, is_zero, is_nar)``;
+  ``from_words``/``to_words`` convert from and to n-bit words;
+  ``mul``/``div``/``sqrt`` are exact (an add, a subtract, an arithmetic
+  shift of ``ell``, saturated to the dynamic range); ``add`` evaluates
+  ``phi`` in f32 and rounds it to the ``ell`` grid, at every width.
 
 * ``gauss_tables`` builds the ``(2, 1024)`` int32 table in numpy float64
   and rounds it once, so it is the same table bit for bit wherever it is
@@ -20,18 +26,99 @@ matmul folds products through (``accum="gauss"``).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from repro_torch.core import takum
 from repro_torch.core.takum import frac_width
 
-__all__ = ["gauss_tables", "gauss_add_parts", "lns_matmul",
+__all__ = ["LnsTensor", "from_words", "to_words", "mul", "div", "sqrt",
+           "add", "gauss_tables", "gauss_add_parts", "lns_matmul",
            "GAUSS_LUT_SIZE", "GAUSS_STEP_LOG2", "ELL_MAX_INT"]
 
 ELL_MAX_INT = 255      # |ell_bar| < 255 by construction
+_BELOW_ONE = float(np.float32(1.0 - 1e-7))   # the f32 cap of e^(d/2)
 GAUSS_STEP_LOG2 = -6   # table step in ell units: 2^-6 per entry
 GAUSS_LUT_SIZE = 1024  # covers d in (-(SIZE-1) * 2^STEP_LOG2, 0] ~ (-16, 0]
+
+
+class LnsTensor(NamedTuple):
+    s: torch.Tensor        # sign, int64 0/1
+    ell_bar: torch.Tensor  # signed fixed point, wf fraction bits (int64)
+    is_zero: torch.Tensor
+    is_nar: torch.Tensor
+
+
+def from_words(words, n: int) -> LnsTensor:
+    d = takum.decode_lns(words, n)
+    return LnsTensor(d.s, d.ell_bar, d.is_zero, d.is_nar)
+
+
+def to_words(t: LnsTensor, n: int, *, wf: int) -> torch.Tensor:
+    return takum.encode_lns(t.s, t.ell_bar, n, wf=wf, is_zero=t.is_zero,
+                            is_nar=t.is_nar)
+
+
+def _ell(t: LnsTensor) -> torch.Tensor:
+    """The un-barred ``ell = (-1)^S ell_bar``."""
+    return torch.where(t.s == 1, -t.ell_bar, t.ell_bar)
+
+
+def _rebar(s, ell, is_zero, is_nar, wf: int) -> LnsTensor:
+    """Saturate ``ell`` to the dynamic range and bar it again."""
+    lim = ELL_MAX_INT << wf
+    ell = torch.clamp(ell, -lim, lim)
+    return LnsTensor(s, torch.where(s == 1, -ell, ell), is_zero, is_nar)
+
+
+def mul(a: LnsTensor, b: LnsTensor, *, wf: int) -> LnsTensor:
+    """Exact: ``ell_a + ell_b``, the sign an XOR."""
+    is_nar = a.is_nar | b.is_nar
+    return _rebar(a.s ^ b.s, _ell(a) + _ell(b),
+                  (a.is_zero | b.is_zero) & ~is_nar, is_nar, wf)
+
+
+def div(a: LnsTensor, b: LnsTensor, *, wf: int) -> LnsTensor:
+    """Exact: ``ell_a - ell_b``; x / 0 is NaR (takum semantics)."""
+    is_nar = a.is_nar | b.is_nar | b.is_zero
+    return _rebar(a.s ^ b.s, _ell(a) - _ell(b), a.is_zero & ~is_nar,
+                  is_nar, wf)
+
+
+def sqrt(a: LnsTensor, *, wf: int) -> LnsTensor:
+    """Exact: an arithmetic right shift of ``ell``; the root of a negative
+    value is NaR."""
+    is_nar = a.is_nar | ((a.s == 1) & ~a.is_zero)
+    return _rebar(torch.zeros_like(a.s), _ell(a) >> 1, a.is_zero & ~is_nar,
+                  is_nar, wf)
+
+
+def add(a: LnsTensor, b: LnsTensor, *, wf: int) -> LnsTensor:
+    """Gauss-log addition ``a + b = sqrt(e)^ell_a (1 +- sqrt(e)^d)``, the
+    software stand-in for the hardware table and interpolator: ``phi(d) =
+    2 ln(1 +- e^(d/2))`` evaluated in f32 and rounded to the ``wf``-bit
+    grid (error at most the f32 evaluation's plus half a grid step). A
+    zero operand returns the other; opposite signs of equal magnitude
+    cancel to zero; NaR is sticky."""
+    ea, eb = _ell(a), _ell(b)
+    a_ge = ea >= eb                      # the larger is the base; d <= 0
+    base_ell = torch.where(a_ge, ea, eb)
+    base_s = torch.where(a_ge, a.s, b.s)
+    same = base_s == torch.where(a_ge, b.s, a.s)
+    d = (torch.minimum(ea, eb) - base_ell).to(torch.float32) / (1 << wf)
+    expd = torch.exp(d * 0.5)
+    # 2 ln(1 - e^(d/2)) diverges at d = 0: e^(d/2) is capped below 1
+    phi = torch.where(same, 2.0 * torch.log1p(expd),
+                      2.0 * torch.log1p(-torch.clamp(expd, max=_BELOW_ONE)))
+    ell = base_ell + torch.round(phi * (1 << wf)).to(base_ell.dtype)
+    cancel = ~same & (d == 0.0)
+    ell = torch.where(a.is_zero, eb, torch.where(b.is_zero, ea, ell))
+    s = torch.where(a.is_zero, b.s, torch.where(b.is_zero, a.s, base_s))
+    is_zero = (a.is_zero & b.is_zero) | (cancel & ~a.is_zero & ~b.is_zero)
+    is_nar = a.is_nar | b.is_nar
+    return _rebar(s, ell, is_zero & ~is_nar, is_nar, wf)
 
 
 def gauss_tables(wf: int, *, size: int = GAUSS_LUT_SIZE,

@@ -16,15 +16,24 @@ bit:
   to nearest, ties to the even word, saturating (a finite nonzero value
   never rounds onto the 0 or NaR words);
 * ``posit_to_float`` assembles the IEEE-754 float32 word directly (sign |
-  biased exponent | fraction, explicit RNE; every posit of n <= 16 is an
+  biased exponent | fraction, explicit RNE; every posit of n <= 32 is an
   f32 normal, the gradual-underflow and overflow branches are kept as in
-  the reference), either variant; ``posit_to_float_ref`` is the ldexp
+  the reference; from n = 29 the fraction is rounded into float32 as the
+  reference does), either variant; ``posit_to_float_ref`` is the ldexp
   dataflow kept as its oracle;
 * ``float_to_posit`` disassembles the float32 word with shifts and masks.
 
 Both decodes need a full-width leading-run count and full-width variable
 shifts (the cost the paper contrasts with takum's 12-bit header window).
-Words travel in ``uint8``/``uint16`` storage; widths 6 <= n <= 16.
+Words travel in ``uint8``/``uint16``/``uint32`` storage; widths
+6 <= n <= 32, es = 2 only (the ``es`` argument is the reference's).
+
+One departure from the reference: from n = 29 a float32 input's 23
+fraction bits no longer fill the posit's fraction field next to a short
+regime, so the encoder's cut can be negative; the reference's encoder
+then leaves the fraction unshifted (its ``safe_shr`` clips the negative
+shift to 0) and returns another value, the port shifts it up (the words
+the golden model's rounding gives).
 """
 
 from __future__ import annotations
@@ -35,7 +44,9 @@ import torch
 
 from repro_torch.core.bitops import (LANE, bit, clz, floor_log2, lanes, mask,
                                      safe_shl, safe_shr, to_words)
-from repro_torch.core.takum import F32_NAN_BITS, _rne_shr, word_dtype
+from repro_torch.core.bitops import MAX_WIDTH
+from repro_torch.core.takum import (F32_NAN_BITS, _rne_shr, f32_fraction,
+                                    word_dtype)
 
 __all__ = ["PositDecoded", "decode_sm", "decode_2c", "encode",
            "posit_to_float", "posit_to_float_ref", "float_to_posit",
@@ -49,10 +60,14 @@ def frac_width(n: int) -> int:
     return n - 5
 
 
-def _validate_n(n: int) -> None:
-    if not 6 <= n <= 16:
-        raise ValueError(f"the torch posit codec supports 6 <= n <= 16, "
-                         f"got {n}")
+def _validate_n(n: int, es: int = 2) -> None:
+    if n < 6:
+        raise ValueError(f"the torch posit codec supports 6 <= n <= "
+                         f"{MAX_WIDTH}, got {n}")
+    word_dtype(n)                           # refuses n > 32 by name
+    if es != 2:
+        raise ValueError(f"the posit codec is es = 2 (Posit Standard "
+                         f"2022), got es={es}")
 
 
 class PositDecoded(NamedTuple):
@@ -96,9 +111,9 @@ def _split(words, n: int):
     return p, s, p == 0, p == (1 << (n - 1))
 
 
-def decode_sm(words, n: int) -> PositDecoded:
+def decode_sm(words, n: int, es: int = 2) -> PositDecoded:
     """FloPoCo-SM: negate-first decode to representation (7)."""
-    _validate_n(n)
+    _validate_n(n, es)
     p, s, is_zero, is_nar = _split(words, n)
     x = torch.where(s == 1, (~p + 1) & mask(n), p)
     body = safe_shl(x & mask(n - 1), LANE_BITS - (n - 1))
@@ -109,9 +124,9 @@ def decode_sm(words, n: int) -> PositDecoded:
                         is_nar=is_nar)
 
 
-def decode_2c(words, n: int) -> PositDecoded:
+def decode_2c(words, n: int, es: int = 2) -> PositDecoded:
     """FloPoCo-2C: direct decode of the raw word to representation (8)."""
-    _validate_n(n)
+    _validate_n(n, es)
     p, s, is_zero, is_nar = _split(words, n)
     body = safe_shl(p & mask(n - 1), LANE_BITS - (n - 1))
     m, first = _leading_run(body, n)
@@ -123,11 +138,11 @@ def decode_2c(words, n: int) -> PositDecoded:
 
 
 def encode(s, e, frac, n: int, *, wm: int, sticky=None, is_zero=None,
-           is_nar=None) -> torch.Tensor:
+           is_nar=None, es: int = 2) -> torch.Tensor:
     """Round (S, e, f) of representation (8), ``f`` of ``wm`` bits, to
     n-bit posit words (RNE to the even word, saturating), negated when
     S = 1. Returns words in ``word_dtype(n)``."""
-    _validate_n(n)
+    _validate_n(n, es)
     if not 1 <= wm <= LANE_BITS - 4:
         raise ValueError(f"wm={wm} out of range")
     s = lanes(s)
@@ -155,13 +170,15 @@ def encode(s, e, frac, n: int, *, wm: int, sticky=None, is_zero=None,
 
     # regime: k >= 0: (k + 1) ones and a 0; k < 0: |k| zeros and a 1
     rl = torch.where(k >= 0, k + 2, 1 - k)
-    regime_val = torch.where(k >= 0, safe_shl(torch.ones_like(k), k + 2) - 2,
+    regime_val = torch.where(k >= 0, (safe_shl(torch.ones_like(k), k + 2)
+                                      - 2) & mask(LANE_BITS),
                              torch.ones_like(k))
 
     low = safe_shl(e2, wm) | mf                 # 2 + wm bits
-    cut = rl + 2 + wm - (n - 1)                 # bits to drop
+    cut = rl + 2 + wm - (n - 1)                 # bits to drop (< 0: pad)
     # case A: the cut lands inside `low` (the regime is kept whole)
-    body_a = safe_shl(regime_val, 2 + wm - cut) | safe_shr(low, cut)
+    body_a = safe_shl(regime_val, 2 + wm - cut) | torch.where(
+        cut >= 0, safe_shr(low, cut), safe_shl(low, -cut))
     g_a = torch.where(cut >= 1, bit(low, cut - 1), zero)
     rest_a_nz = (cut >= 2) & ((low & mask(cut - 1)) != 0)
     # case B: the cut lands inside the regime
@@ -222,9 +239,8 @@ def posit_to_float(words, n: int, dtype=torch.float32, *,
     cast."""
     _validate_n(n)
     dec, mf, me = _magnitude(words, n, variant)
-    # wf = n - 5 <= 11 < 23: the fraction widens exactly, mf < 2^wf
-    frac = mf << (23 - frac_width(n))
-    be = me + 127
+    frac, carry = f32_fraction(mf, frac_width(n))
+    be = me + 127 + carry
     sign = dec.s << 31
     normal = sign | (torch.clamp(be, 0, 255) << 23) | frac
     inf = sign | (255 << 23)

@@ -14,6 +14,7 @@ with the straight-through gradient (the backward returns ``g``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -32,6 +33,16 @@ class QuantSpec:
     axis: int = -1              # channel axis for per_channel
     rounding: str = "rne"       # 'rne' | 'sr' (linear takum, n >= 12)
 
+    @property
+    def bits(self) -> int:
+        """Bits on the wire per element (32 for the f32 ``none``)."""
+        return 32 if self.fmt == "none" else self.n
+
+    @property
+    def compression(self) -> float:
+        """Against f32."""
+        return 32.0 / self.bits
+
 
 @dataclasses.dataclass
 class QTensor:
@@ -43,6 +54,12 @@ class QTensor:
 
     def __post_init__(self):
         self.shape = tuple(self.shape or self.words.shape)
+
+    @property
+    def nbytes_wire(self) -> int:
+        """Bytes of the words packed at ``spec.bits`` bits each (what a
+        wire carries; storage pads an n-bit word to its word dtype)."""
+        return math.prod(self.shape) * self.spec.bits // 8
 
 
 def absmax(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:

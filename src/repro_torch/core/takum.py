@@ -35,7 +35,22 @@ The logarithmic half (representation (10), the barred ``(S, ell_bar)``):
   transcendental steps of the codec: they agree with other
   implementations to an ulp or two of ``exp``/``log``, not bit for bit.
 
-Words travel in ``uint8``/``uint16`` storage; widths 6 <= n <= 16.
+The hardware-faithful path (``hw_path=True``, the paper's section V
+dataflow, as the reference's) gives the same words and fields as the
+direct path by another route: the decoder's characteristic by
+conditional negation of the raw characteristic bits (Corollary 1), the
+bias by a ``10`` prefix and an arithmetic shift by the antiregime (Table
+I), an increment of the low 8 bits; the encoder's characteristic
+precursor (Proposition 2) through the nibble-table leading-one detector,
+the (n + 7)-bit extended takum and the section V-A under/overflow
+predictor. It needs n >= 12 and ``wm == n - 5`` to encode, and refuses
+``rounding="sr"``. The reference needs x64 lanes for the extended takum
+above n = 25; the port's int64 lanes hold it up to n = 32.
+
+Words travel in ``uint8``/``uint16``/``uint32`` storage; widths
+6 <= n <= 32 (``bitops.word_dtype``; n > 32 is refused by name). From
+n = 29 the mantissa field (``frac_width(n) = n - 5`` bits) is wider than
+float32's fraction and ``takum_to_float`` rounds it as the reference does.
 """
 
 from __future__ import annotations
@@ -44,9 +59,10 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.bitops import (LANE, bit, floor_log2, floor_log2_u8,
-                                     lanes, mask, safe_shl, safe_shr,
-                                     to_words)
+from repro_torch.core.bitops import (LANE, MAX_WIDTH, ashr, bit, floor_log2,
+                                     floor_log2_u8, lanes, lod8_lut, mask,
+                                     safe_shl, safe_shr, to_words)
+from repro_torch.core.bitops import word_dtype as _word_dtype
 
 __all__ = ["TakumDecoded", "decode", "decode_linear", "encode",
            "encode_linear", "takum_to_float", "takum_to_float_ref",
@@ -65,7 +81,7 @@ def frac_width(n: int) -> int:
 def word_dtype(n: int) -> torch.dtype:
     """Narrowest unsigned storage dtype for an n-bit word."""
     _validate_n(n)
-    return torch.uint8 if n <= 8 else torch.uint16
+    return _word_dtype(n)
 
 
 def nar_word(n: int) -> int:
@@ -73,10 +89,14 @@ def nar_word(n: int) -> int:
     return 1 << (n - 1)
 
 
+ET_LANE = 48   # lane of the (n + 7)-bit extended takum (n <= 32)
+
+
 def _validate_n(n: int) -> None:
-    if not 6 <= n <= 16:
-        raise ValueError(f"the torch takum codec supports 6 <= n <= 16, "
-                         f"got {n}")
+    if n < 6:
+        raise ValueError(f"the torch takum codec supports 6 <= n <= "
+                         f"{MAX_WIDTH}, got {n}")
+    _word_dtype(n)                          # refuses n > 32 by name
 
 
 class TakumDecoded(NamedTuple):
@@ -89,11 +109,14 @@ class TakumDecoded(NamedTuple):
     is_nar: torch.Tensor
 
 
-def decode(words, n: int, *, output_exponent: bool = False) -> TakumDecoded:
+def decode(words, n: int, *, output_exponent: bool = False,
+           hw_path: bool = False) -> TakumDecoded:
     """Decode n-bit takum words to (S, c|e, mant) and the special flags.
 
     ``output_exponent`` folds the exponent ``e = (-1)^S (c + S)`` into
-    the decoder (the linear representation)."""
+    the decoder (the linear representation). ``hw_path`` computes the
+    characteristic as the paper's section IV-A hardware does
+    (:func:`_characteristic_hw`); the fields are the same."""
     _validate_n(n)
     w = lanes(words)
     n12 = max(n, 12)
@@ -109,34 +132,56 @@ def decode(words, n: int, *, output_exponent: bool = False) -> TakumDecoded:
     p12 = n12 - 5 - r                       # mantissa bits at 12+ width
     uint_c = safe_shr(t, p12) & mask(r)
     mant = safe_shl(t & mask(p12), r)       # left-aligned: uint(M) << r
-    one = torch.ones_like(r)
-    c = torch.where(d == 0, -(one << (r + 1)) + 1 + uint_c,
-                    (one << r) - 1 + uint_c)
-    if output_exponent:
-        c = torch.where(s == 1, -(c + 1), c)
+    if hw_path:
+        c = _characteristic_hw(t, n12, s, d, r, output_exponent)
+    else:
+        one = torch.ones_like(r)
+        c = torch.where(d == 0, -(one << (r + 1)) + 1 + uint_c,
+                        (one << r) - 1 + uint_c)
+        if output_exponent:
+            c = torch.where(s == 1, -(c + 1), c)
     return TakumDecoded(s=s, val=c, mant=mant, is_zero=is_zero,
                         is_nar=is_nar)
 
 
-def decode_linear(words, n: int) -> TakumDecoded:
+def _characteristic_hw(t, n12: int, s, d, r, output_exponent: bool):
+    """The characteristic (or exponent) determinator of section IV-A:
+    the 7 raw characteristic bits negated when D = 1 (Corollary 1), a
+    ``10`` prefix, an arithmetic right shift by the antiregime 7 - r (the
+    bias of Table I), an increment of the low 8 bits (it never carries
+    out), a ``1`` prefix, and a final negation when D (or D xor S, for
+    the exponent). Returns the 9-bit two's-complement result
+    sign-extended."""
+    craw = safe_shr(t, n12 - 12) & 0x7F
+    craw = torch.where(d == 1, craw ^ 0x7F, craw)
+    v = ashr(0x100 | craw, 7 - r, 9)
+    c_tilde = 0x100 | ((v + 1) & 0xFF)
+    cond = (d ^ s) if output_exponent else d
+    c9 = torch.where(cond == 1, c_tilde ^ 0x1FF, c_tilde)
+    return c9 - ((c9 >> 8) << 9)
+
+
+def decode_linear(words, n: int, *, hw_path: bool = False) -> TakumDecoded:
     """Decode to the linear representation (S, e, f)."""
-    return decode(words, n, output_exponent=True)
+    return decode(words, n, output_exponent=True, hw_path=hw_path)
 
 
-def encode(s, c, mant, n: int, *, wm: int, is_zero=None,
+def encode(s, c, mant, n: int, *, wm: int, sticky=None, is_zero=None,
            is_nar=None, hw_path: bool = False, rounding: str = "rne",
            rng_bits=None) -> torch.Tensor:
     """Round (S, c, barred mantissa of ``wm`` bits) to n-bit takum words.
 
     Out-of-range characteristics saturate to the largest or smallest
-    magnitude (never to 0 or NaR). Returns words in ``word_dtype(n)``.
+    magnitude (never to 0 or NaR); ``sticky`` ORs in bits the caller
+    discarded before. Returns words in ``word_dtype(n)``.
 
     ``rounding="sr"`` rounds up with probability discarded/2^cut: the
     carry out of (discarded bits + the low ``cut`` bits of ``rng_bits``,
     uniform uint32 lanes of the input's shape), still saturating. It
     needs ``rng_bits`` and n >= 12 (the cut then always lies in the
-    mantissa). ``hw_path`` (the paper's section V-B..E dataflow) is not
-    in the port: the direct path gives the same words."""
+    mantissa). ``hw_path`` takes the paper's section V-B..E dataflow
+    (:func:`_encode_hw`): the same words; it needs ``wm == n - 5`` and
+    n >= 12."""
     if rounding not in ("rne", "sr"):
         raise ValueError(f"unknown rounding {rounding!r}")
     if rounding == "sr":
@@ -146,12 +191,11 @@ def encode(s, c, mant, n: int, *, wm: int, is_zero=None,
             raise ValueError("sr rounding requires n >= 12")
         if rng_bits is None:
             raise ValueError("sr rounding requires rng_bits")
-    if hw_path:
-        raise NotImplementedError("the hw_path encoder is not in the port; "
-                                  "the direct path gives the same words")
     _validate_n(n)
     if not 1 <= wm <= 27:
         raise ValueError(f"wm={wm} out of range")
+    if hw_path and (wm != n - 5 or n < 12):
+        raise ValueError("hw_path encoder requires wm == n-5 and n >= 12")
     s = lanes(s)
     c = lanes(c)
     mant = lanes(mant)
@@ -160,48 +204,52 @@ def encode(s, c, mant, n: int, *, wm: int, is_zero=None,
     c = torch.clamp(c, -255, 254)
     mant = torch.where(over, torch.full_like(mant, mask(wm)),
                        torch.where(under, torch.zeros_like(mant), mant))
-    sticky = over | under                    # saturation discards bits
+    sticky = over | under | (False if sticky is None else
+                             torch.as_tensor(sticky).to(torch.bool))
 
     d = (c >= 0).to(LANE)
-    cp = torch.where(d == 1, c, ~c) + 1      # in [1, 255]
-    r = floor_log2_u8(cp)
+    cp = torch.where(d == 1, c, ~c) + 1      # in [1, 255] (Prop. 2)
+    r = lod8_lut(cp) if hw_path else floor_log2_u8(cp)
     r3 = torch.where(d == 1, r, 7 - r)
     cbits = torch.where(d == 1, cp, ~cp) & mask(r)
-    p = n - 5 - r                            # mantissa bits that fit
-
-    header = (s << (n - 1)) | (d << (n - 2)) | (r3 << (n - 5))
-    cut = wm - p
     zero = torch.zeros_like(mant)
-    # case A (p >= 0): the cut lands inside or below the mantissa
-    m_top_a = torch.where(cut >= 0, safe_shr(mant, cut), safe_shl(mant, -cut))
-    body_a = safe_shl(cbits, p) | m_top_a
-    g_a = torch.where(cut >= 1, bit(mant, cut - 1), zero)
-    rest_a = torch.where(cut >= 2, mant & mask(cut - 1), zero)
-    # case B (p < 0, n < 12): the cut lands inside the characteristic
-    cut_c = -p
-    body_b = safe_shr(cbits, cut_c)
-    g_b = torch.where(cut_c >= 1, bit(cbits, cut_c - 1), zero)
-    rest_b_nz = (cbits & mask(cut_c - 1)) != 0
-    in_a = p >= 0
-    body = torch.where(in_a, body_a, body_b)
-    g = torch.where(in_a, g_a, g_b)
-    rest_nz = torch.where(in_a, rest_a != 0, rest_b_nz | (mant != 0)) | sticky
-
-    rd = header | body
-    ru = (rd + 1) & mask(n)
-    low = mask(n - 1)
-    underflow_down = (rd & low) == 0         # RD would be the 0/NaR word
-    overflow_up = (ru & low) == 0            # RU would wrap onto 0/NaR
-    if rounding == "sr":
-        # the carry out of (discarded + uniform); n >= 12: always case A
-        discarded = torch.where(cut >= 1, mant & mask(cut), zero)
-        u = lanes(rng_bits).to(mant.device) & mask(cut)
-        carry = (safe_shr(discarded + u, cut) != 0) & (cut >= 1)
-        round_up = underflow_down | (~overflow_up & carry)
+    if hw_path:
+        word = _encode_hw(s, d, r, r3, cbits, mant, sticky, n)
     else:
-        round_up = underflow_down | (~overflow_up & (g == 1)
-                                     & (rest_nz | ((rd & 1) == 1)))
-    word = torch.where(round_up, ru, rd)
+        p = n - 5 - r                            # mantissa bits that fit
+        header = (s << (n - 1)) | (d << (n - 2)) | (r3 << (n - 5))
+        cut = wm - p
+        # case A (p >= 0): the cut lands inside or below the mantissa
+        m_top_a = torch.where(cut >= 0, safe_shr(mant, cut),
+                              safe_shl(mant, -cut))
+        body_a = safe_shl(cbits, p) | m_top_a
+        g_a = torch.where(cut >= 1, bit(mant, cut - 1), zero)
+        rest_a = torch.where(cut >= 2, mant & mask(cut - 1), zero)
+        # case B (p < 0, n < 12): the cut lands inside the characteristic
+        cut_c = -p
+        body_b = safe_shr(cbits, cut_c)
+        g_b = torch.where(cut_c >= 1, bit(cbits, cut_c - 1), zero)
+        rest_b_nz = (cbits & mask(cut_c - 1)) != 0
+        in_a = p >= 0
+        body = torch.where(in_a, body_a, body_b)
+        g = torch.where(in_a, g_a, g_b)
+        rest_nz = (torch.where(in_a, rest_a != 0, rest_b_nz | (mant != 0))
+                   | sticky)
+        rd = header | body
+        ru = (rd + 1) & mask(n)
+        low = mask(n - 1)
+        underflow_down = (rd & low) == 0     # RD would be the 0/NaR word
+        overflow_up = (ru & low) == 0        # RU would wrap onto 0/NaR
+        if rounding == "sr":
+            # the carry out of (discarded + uniform); n >= 12: case A
+            discarded = torch.where(cut >= 1, mant & mask(cut), zero)
+            u = lanes(rng_bits).to(mant.device) & mask(cut)
+            carry = (safe_shr(discarded + u, cut) != 0) & (cut >= 1)
+            round_up = underflow_down | (~overflow_up & carry)
+        else:
+            round_up = underflow_down | (~overflow_up & (g == 1)
+                                         & (rest_nz | ((rd & 1) == 1)))
+        word = torch.where(round_up, ru, rd)
     if is_zero is not None:
         word = torch.where(torch.as_tensor(is_zero), zero, word)
     if is_nar is not None:
@@ -210,15 +258,41 @@ def encode(s, c, mant, n: int, *, wm: int, is_zero=None,
     return to_words(word, word_dtype(n))
 
 
-def encode_linear(s, e, frac, n: int, *, wm: int, is_zero=None,
-                  is_nar=None, hw_path: bool = False, rounding: str = "rne",
-                  rng_bits=None) -> torch.Tensor:
+def _encode_hw(s, d, r, r3, cbits, mant, sticky, n: int) -> torch.Tensor:
+    """Sections V-D/E: the (n + 7)-bit extended takum ``S D RRR | C (r
+    bits) M (n - 5 bits) 0 (7 - r bits)``, which holds the whole mantissa
+    whatever r (the shifter's offset is at most 7, the paper's contrast
+    with posit encoders), cut to n bits and rounded to nearest even; the
+    section V-A predictor flags under/overflow when the 11 bits after
+    the sign (D, R, C: r = 7) and the kept mantissa bits are all zeros /
+    all ones."""
+    w = ET_LANE
+    header = (s << 4) | (d << 3) | r3
+    et = (safe_shl(header, n + 2, w) | safe_shl(cbits, n + 2 - r, w)
+          | safe_shl(mant, 7 - r, w))
+    rd = safe_shr(et, 7, w)
+    ru = (rd + 1) & mask(n)
+    g = bit(et, 6, w)
+    rest_nz = ((et & mask(6)) != 0) | sticky
+    eleven = safe_shr(et, n - 5, w) & mask(11)
+    kept_m = rd & mask(n - 12)
+    under_pred = (eleven == 0) & (kept_m == 0)
+    over_pred = (eleven == mask(11)) & (kept_m == mask(n - 12))
+    round_up = under_pred | (~over_pred & (g == 1)
+                             & (rest_nz | ((rd & 1) == 1)))
+    return torch.where(round_up, ru, rd) & mask(n)
+
+
+def encode_linear(s, e, frac, n: int, *, wm: int, sticky=None,
+                  is_zero=None, is_nar=None, hw_path: bool = False,
+                  rounding: str = "rne", rng_bits=None) -> torch.Tensor:
     """Encode from (S, e, f): c is e conditionally negated on S."""
     s = lanes(s)
     e = lanes(e)
     c = torch.where(s == 1, ~e, e)
-    return encode(s, c, frac, n, wm=wm, is_zero=is_zero, is_nar=is_nar,
-                  hw_path=hw_path, rounding=rounding, rng_bits=rng_bits)
+    return encode(s, c, frac, n, wm=wm, sticky=sticky, is_zero=is_zero,
+                  is_nar=is_nar, hw_path=hw_path, rounding=rounding,
+                  rng_bits=rng_bits)
 
 
 def float_to_takum(x, n: int, *, rounding: str = "rne",
@@ -228,6 +302,15 @@ def float_to_takum(x, n: int, *, rounding: str = "rne",
 
     NaN -> NaR, +-inf -> the largest magnitude of that sign, +-0 -> 0."""
     _validate_n(n)
+    s, e, f_field, is_zero, is_nan = float_fields(x)
+    return encode_linear(s, e, f_field, n, wm=23, is_zero=is_zero,
+                         is_nar=is_nan, rounding=rounding, rng_bits=rng_bits)
+
+
+def float_fields(x):
+    """float32 -> the linear representation ``(S, e, f)`` of
+    :func:`encode_linear` (``f`` the 23-bit barred fraction; +-inf as an
+    out-of-range e that saturates) and the zero/NaN flags."""
     x = torch.as_tensor(x).to(torch.float32).contiguous()
     bits = x.view(torch.int32).to(LANE) & mask(32)
     s = bits >> 31
@@ -250,8 +333,7 @@ def float_to_takum(x, n: int, *, rounding: str = "rne",
                           ((1 << 23) - mant23) & 0x7FFFFF, mant23)
     e = torch.where(is_inf, torch.full_like(e, 10_000), e)
     e = torch.where(is_nan | is_zero, torch.zeros_like(e), e)
-    return encode_linear(s, e, f_field, n, wm=23, is_zero=is_zero,
-                         is_nar=is_nan, rounding=rounding, rng_bits=rng_bits)
+    return s, e, f_field, is_zero, is_nan
 
 
 def _unbar(dec: TakumDecoded, n: int):
@@ -273,18 +355,37 @@ def _rne_shr(v, sh):
     return kept + up.to(LANE)
 
 
+def f32_fraction(mf, wf: int):
+    """The float32 fraction field of (1 + mf / 2^wf) and the carry into
+    the exponent: a left shift for wf <= 23; beyond it the reference's
+    two roundings (its ldexp oracle converts mf to float32 first, which
+    rounds it to 24 significant bits, then adds 1), each to nearest
+    even, and a carry of 1 when the fraction rounds up to 2."""
+    if wf <= 23:
+        return mf << (23 - wf), 0
+    if wf > 24:
+        sh1 = torch.clamp(floor_log2(torch.clamp(mf, min=1)) - 23, min=0)
+        mf = torch.where(sh1 > 0, safe_shl(_rne_shr(mf, sh1), sh1), mf)
+    frac = _rne_shr(mf, wf - 23)
+    return frac & mask(23), frac >> 23
+
+
 def takum_to_float(words, n: int, dtype=torch.float32) -> torch.Tensor:
     """Decode n-bit linear takum words to float by integer IEEE assembly.
 
     Out-of-range magnitudes become inf or (through RNE gradual underflow)
     subnormals and 0. Other float dtypes are computed in f32 and cast."""
     _validate_n(n)
-    dec = decode_linear(words, n)
-    wf = frac_width(n)
+    return linear_to_float(decode_linear(words, n), n, dtype)
+
+
+def linear_to_float(dec: TakumDecoded, n: int,
+                    dtype=torch.float32) -> torch.Tensor:
+    """The float of a linear decode (:func:`decode_linear`, either path):
+    the IEEE assembly of :func:`takum_to_float`."""
     mf, me = _unbar(dec, n)
-    # wf <= 23 for n <= 28: the fraction widens exactly, and mf < 2^wf
-    frac = mf << (23 - wf)
-    be = me + 127                              # biased exponent
+    frac, carry = f32_fraction(mf, frac_width(n))
+    be = me + 127 + carry                      # biased exponent
     sign = dec.s << 31
     normal = sign | (torch.clamp(be, 0, 255) << 23) | frac
     inf = sign | (255 << 23)
@@ -331,39 +432,44 @@ class LnsDecoded(NamedTuple):
     is_nar: torch.Tensor
 
 
-def decode_lns(words, n: int) -> LnsDecoded:
+def decode_lns(words, n: int, *, hw_path: bool = False) -> LnsDecoded:
     """Decode to ``(S, ell_bar)``: ``ell_bar = c + m`` is the characteristic
     and the mantissa field side by side, a fixed-point number with
-    ``frac_width(n)`` fraction bits (int64 lanes)."""
-    dec = decode(words, n)
+    ``frac_width(n)`` fraction bits (int64 lanes: exact at every width;
+    the reference's int32 lane wraps from n = 29)."""
+    dec = decode(words, n, hw_path=hw_path)
     ell = dec.val * (1 << frac_width(n)) + dec.mant   # (c << wf) | mant
     return LnsDecoded(s=dec.s, ell_bar=ell, is_zero=dec.is_zero,
                       is_nar=dec.is_nar)
 
 
-def decode_lns_parts(words, n: int):
+def decode_lns_parts(words, n: int, *, hw_path: bool = False):
     """``(ell, flags)`` int32 lanes: the un-barred ``ell = (-1)^S ell_bar``
     and ``flags`` = S | is_zero << 1 | is_nar << 2.
 
     A product of two values is one int32 add of their ``ell`` lanes and
     one XOR of their sign bits; the zero and NaR words keep the ``ell``
     their bits decode to (the kernels and the reference compute it the
-    same way)."""
-    dec = decode_lns(words, n)
+    same way). ``n <= 27``: the characteristic, ``frac_width(n)``
+    fraction bits and a product's carry fit an int32 lane."""
+    if n > 27:
+        raise ValueError("decode_lns_parts needs ell + carry in int32 "
+                         f"lanes: n <= 27, got {n}")
+    dec = decode_lns(words, n, hw_path=hw_path)
     ell = torch.where(dec.s == 1, -dec.ell_bar, dec.ell_bar)
     flags = (dec.s | (dec.is_zero.to(LANE) << 1)
              | (dec.is_nar.to(LANE) << 2))
     return ell.to(torch.int32), flags.to(torch.int32)
 
 
-def encode_lns(s, ell_bar, n: int, *, wf: int, is_zero=None,
-               is_nar=None) -> torch.Tensor:
+def encode_lns(s, ell_bar, n: int, *, wf: int, sticky=None, is_zero=None,
+               is_nar=None, hw_path: bool = False) -> torch.Tensor:
     """Round ``(S, ell_bar)`` (signed fixed point, ``wf`` fraction bits)
     to n-bit words: the characteristic is the floor of ``ell_bar`` and
     the mantissa its fractional remainder, both monotone in ``ell_bar``."""
     ell = lanes(ell_bar)
-    return encode(s, ell >> wf, ell & mask(wf), n, wm=wf, is_zero=is_zero,
-                  is_nar=is_nar)
+    return encode(s, ell >> wf, ell & mask(wf), n, wm=wf, sticky=sticky,
+                  is_zero=is_zero, is_nar=is_nar, hw_path=hw_path)
 
 
 def lns_takum_to_float(words, n: int, dtype=torch.float32) -> torch.Tensor:

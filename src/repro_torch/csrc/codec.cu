@@ -1,14 +1,18 @@
 // Elementwise codec kernels: words -> float32 and float32 -> words, for
-// linear takum, logarithmic takum (lns-takum) and posit (es = 2).
+// linear takum, logarithmic takum (lns-takum) and posit (es = 2), at every
+// width 6 <= n <= 32 (words in 8-, 16- or 32-bit storage).
 //
 // Replaces src/repro/kernels/takum_codec.py::decode_kernel_call
 // (_decode_tile) and ::encode_kernel_call (_encode_tile), the Pallas
 // passes over (256, 128) VMEM tiles; their tile bodies call the format's
 // decode_tile/encode_tile: the linear takum, LNS takum or posit codec, and
 // for posit8 the 256-entry table of registry.py::_posit8_lut_decode. On the
-// H100 all of them are bound by bytes: 1 (8-bit) or 2 (16-bit) bytes of
-// words plus 4 bytes of float per element over 3.35 TB/s, against a few
-// dozen integer operations per element (plus one expf or logf for LNS).
+// H100 all of them are bound by bytes: 1, 2 or 4 bytes of words (8-, 16-
+// or 32-bit storage) plus 4 bytes of float per element over 3.35 TB/s,
+// against a few dozen integer operations per element (plus one expf or
+// logf for LNS). Widths 8 and 16 are compiled for their N (Codec<N, K>,
+// as the served kernels); the others take n as a kernel argument
+// (wire::AnyWidth<K>, one instantiation per storage width and kind).
 // The design is a grid-stride loop of one element per thread and
 // iteration, so neighbouring threads touch neighbouring addresses and the
 // loads and stores coalesce; the arithmetic is the device functions of
@@ -67,6 +71,28 @@ __global__ void encode_kernel(const float* __restrict__ x,
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          i < count; i += stride)
         words[i] = (takum::WordT<N>)wire::Codec<N, K>::encode(x[i]);
+}
+
+// The other widths (6 <= n <= 32 but for 8 and 16): n at run time, words
+// in S-bit storage (wire::AnyWidth). The same grid-stride design.
+template <int S, int K>
+__global__ void decode_any_kernel(const wire::WordT<S>* __restrict__ words,
+                                  float* __restrict__ out, long long count,
+                                  int n) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < count; i += stride)
+        out[i] = wire::AnyWidth<K>::decode(words[i], n);
+}
+
+template <int S, int K>
+__global__ void encode_any_kernel(const float* __restrict__ x,
+                                  wire::WordT<S>* __restrict__ words,
+                                  long long count, int n) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < count; i += stride)
+        words[i] = (wire::WordT<S>)wire::AnyWidth<K>::encode(x[i], n);
 }
 
 // Identity words of a float cache: f32 as it is, bf16 rounded to nearest
@@ -156,18 +182,29 @@ int grid_for(long long count) {
 }  // namespace
 
 // kind: the format code of wire.cuh (0 linear takum, 1 logarithmic takum,
-// 2 posit, 3 posit8 through the table); n: 8 or 16.
+// 2 posit, 3 posit8 through the table); n: 6 <= n <= 32 (8 and 16 through
+// Codec<N, K>, the others through AnyWidth<K> in their storage).
 extern "C" int takum_decode(int n, int kind, const void* words, float* out,
                             long long count, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (count <= 0) return (int)cudaGetLastError();
 #define CASE(NN, KK)                                                        \
-    if (n == NN && kind == KK) {                                            \
+    if (n == NN && kind == KK                                               \
+        && (!CODEC_ANY_WIDTH || KK == wire::POSIT_LUT)) {                   \
         decode_kernel<NN, KK><<<grid_for(count), 256, 0, st>>>(             \
             (const takum::WordT<NN>*)words, out, count);                    \
         return (int)cudaGetLastError();                                     \
     }
     WIRE_DECODE_FORMATS(CASE)
+#undef CASE
+    if (n < 6 || n > 32) return (int)cudaErrorInvalidValue;
+#define CASE(SS, KK)                                                        \
+    if (wire::storage_bits(n) == SS && kind == KK) {                        \
+        decode_any_kernel<SS, KK><<<grid_for(count), 256, 0, st>>>(         \
+            (const wire::WordT<SS>*)words, out, count, n);                  \
+        return (int)cudaGetLastError();                                     \
+    }
+    WIRE_ANY_WIDTH_FORMATS(CASE)
 #undef CASE
     return (int)cudaErrorInvalidValue;
 }
@@ -178,12 +215,21 @@ extern "C" int takum_encode(int n, int kind, const float* x, void* words,
     if (count <= 0) return (int)cudaGetLastError();
     if (kind == wire::POSIT_LUT) kind = wire::POSIT;   // a decode path only
 #define CASE(NN, KK)                                                        \
-    if (n == NN && kind == KK) {                                            \
+    if (n == NN && kind == KK && !CODEC_ANY_WIDTH) {                        \
         encode_kernel<NN, KK><<<grid_for(count), 256, 0, st>>>(             \
             x, (takum::WordT<NN>*)words, count);                            \
         return (int)cudaGetLastError();                                     \
     }
     WIRE_ENCODE_FORMATS(CASE)
+#undef CASE
+    if (n < 6 || n > 32) return (int)cudaErrorInvalidValue;
+#define CASE(SS, KK)                                                        \
+    if (wire::storage_bits(n) == SS && kind == KK) {                        \
+        encode_any_kernel<SS, KK><<<grid_for(count), 256, 0, st>>>(         \
+            x, (wire::WordT<SS>*)words, count, n);                          \
+        return (int)cudaGetLastError();                                     \
+    }
+    WIRE_ANY_WIDTH_FORMATS(CASE)
 #undef CASE
     return (int)cudaErrorInvalidValue;
 }

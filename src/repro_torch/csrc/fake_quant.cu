@@ -5,8 +5,9 @@
 // (_fake_quant_tile): the round trip through a wire format's grid over
 // (256, 128) VMEM tiles without the word tensor ever reaching HBM. Here,
 // for linear takum, logarithmic takum and posit (posit8 computed or through
-// its 256-entry shared-memory table), through the same device functions as
-// the codec kernels (wire::Codec<N, K>).
+// its 256-entry shared-memory table), at every width 6 <= n <= 32, through
+// the same device functions as the codec kernels (wire::Codec<N, K> at 8
+// and 16 bits, wire::AnyWidth<K> with n at run time otherwise).
 //
 // What bounds it on the H100: bytes. One float32 read and one float32 (or
 // bfloat16) write per element, 8 (or 6) bytes over 3.35 TB/s, against a
@@ -56,15 +57,41 @@ __global__ void fake_quant_kernel(const float* __restrict__ x,
     }
 }
 
+// The other widths: n at run time through wire::AnyWidth<K>.
+template <int K, bool SCALED, bool BF16>
+__global__ void fake_quant_any_kernel(const float* __restrict__ x,
+                                      void* __restrict__ out,
+                                      long long count, int n, float s_in,
+                                      float s_out) {
+    using C = wire::AnyWidth<K>;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < count; i += stride) {
+        float v = x[i];
+        if constexpr (SCALED) v *= s_in;
+        float y = C::decode(C::encode(v, n), n);
+        if constexpr (SCALED) {
+            if (y == y) y *= s_out;
+        }
+        if constexpr (BF16) ((uint16_t*)out)[i] = f32_to_bf16_rne(y);
+        else ((float*)out)[i] = y;
+    }
+}
+
+// N > 0: the compiled width; N == 0: the width n at run time.
 template <int N, int K>
 int launch(int scaled, const float* x, void* out, long long count, int bf16,
-           float s_in, float s_out, cudaStream_t st) {
+           float s_in, float s_out, cudaStream_t st, int n = N) {
     long long blocks = (count + 255) / 256;
     if (blocks > 132 * 16) blocks = 132 * 16;   // a few waves over the SMs
     const int grid = blocks < 1 ? 1 : (int)blocks;
 #define GO(S, B)                                                            \
-    fake_quant_kernel<N, K, S, B><<<grid, 256, 0, st>>>(x, out, count,      \
-                                                        s_in, s_out)
+    if constexpr (N == 0)                                                   \
+        fake_quant_any_kernel<K, S, B><<<grid, 256, 0, st>>>(               \
+            x, out, count, n, s_in, s_out);                                 \
+    else                                                                    \
+        fake_quant_kernel<N, K, S, B><<<grid, 256, 0, st>>>(x, out, count,  \
+                                                            s_in, s_out)
     if (scaled) {
         if (bf16) GO(true, true); else GO(true, false);
     } else {
@@ -76,8 +103,9 @@ int launch(int scaled, const float* x, void* out, long long count, int bf16,
 
 }  // namespace
 
-// n: 8 or 16; kind: the format code of wire.cuh (0 linear takum, 1
-// logarithmic takum, 2 posit, 3 posit8 through the table). scaled: apply
+// n: 6 <= n <= 32 (8 and 16 compiled for their N, the others at run time
+// through wire::AnyWidth); kind: the format code of wire.cuh (0 linear
+// takum, 1 logarithmic takum, 2 posit, 3 posit8 through the table). scaled: apply
 // s_in before the encode and s_out after the decode. bf16: write bfloat16
 // (else float32). x and out hold `count` elements.
 extern "C" int takum_fake_quant(int n, int kind, int scaled, const float* x,
@@ -86,9 +114,20 @@ extern "C" int takum_fake_quant(int n, int kind, int scaled, const float* x,
     cudaStream_t st = (cudaStream_t)stream;
     if (count <= 0) return (int)cudaGetLastError();
 #define CASE(NN, KK)                                                        \
-    if (n == NN && kind == KK)                                              \
+    if (n == NN && kind == KK                                               \
+        && (!CODEC_ANY_WIDTH || KK == wire::POSIT_LUT))                     \
         return launch<NN, KK>(scaled, x, out, count, bf16, s_in, s_out, st);
     WIRE_DECODE_FORMATS(CASE)
 #undef CASE
+    if (n < 6 || n > 32) return (int)cudaErrorInvalidValue;
+    if (kind == wire::LINEAR)
+        return launch<0, wire::LINEAR>(scaled, x, out, count, bf16, s_in,
+                                       s_out, st, n);
+    if (kind == wire::LNS)
+        return launch<0, wire::LNS>(scaled, x, out, count, bf16, s_in, s_out,
+                                    st, n);
+    if (kind == wire::POSIT)
+        return launch<0, wire::POSIT>(scaled, x, out, count, bf16, s_in,
+                                      s_out, st, n);
     return (int)cudaErrorInvalidValue;
 }

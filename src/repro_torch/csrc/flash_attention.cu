@@ -8,10 +8,11 @@
 // arguments: flash_attention.cuh, entry()
 extern "C" int takum_attention(int n, int kind, int hd, const float* q4,
                                const void* kw, const void* vw, float* out,
-                               const int* start, int B, int Hkv, int rows,
-                               int T, int pos0, int tq, int bk, int window,
-                               float scale, void* stream) {
+                               const int* start, float* vmean, int B,
+                               int Hkv, int rows, int T, int pos0, int tq,
+                               int bk, int window, float scale,
+                               void* stream) {
     return entry<16, 32, 64, 112, 128>(n, kind, hd, q4, kw, vw, out, start,
-                                       B, Hkv, rows, T, pos0, tq, bk, window,
-                                       scale, stream);
+                                       vmean, B, Hkv, rows, T, pos0, tq, bk,
+                                       window, scale, stream);
 }

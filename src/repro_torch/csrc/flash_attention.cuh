@@ -55,7 +55,10 @@
 // wholly before a window's floor), every key of a visited tile taking part
 // (masked keys with p = 0, so a NaR V word anywhere in a visited tile
 // poisons the rows of that tile; keys before a sequence's start are the
-// exception: their K/V rows are zeros, so left padding poisons no row),
+// exception: their K/V rows are zeros, so left padding poisons no row at
+// or after start), rows before start (every key masked) taking the
+// reference's uniform average of V over the whole cache as stored
+// (vmean_kernel, once a sequence and KV head),
 // masked scores = MASKED = -1e30 before the
 // NaN-propagating row max, the scale after the dot, out = acc /
 // max(l, 1e-30), expf. Keys past T are the zero words the Pallas wrapper
@@ -123,7 +126,8 @@ __global__ void __launch_bounds__(NT, (Layout<N, HD>::MINB))
 flash_kernel(const float* __restrict__ q4,
              const wire::WordT<N>* __restrict__ kw,
              const wire::WordT<N>* __restrict__ vw, float* __restrict__ out,
-             const int* __restrict__ start_v, int Hkv, int rows, int T,
+             const int* __restrict__ start_v,
+             const float* __restrict__ vmean, int Hkv, int rows, int T,
              int pos0, int tq, int tile, int window, float scale) {
     using L = Layout<N, HD>;
     using C = wire::Codec<N, K>;
@@ -382,17 +386,69 @@ flash_kernel(const float* __restrict__ q4,
         if (row >= rows) continue;
         const float denom = nanmax(l[r], 1e-30f);
         float* o = out + (((size_t)b * Hkv + h) * rows + row) * HD;
+        // a row before start masks every key: vmean_kernel's average
+        const float* vm = vmean && qpos[r] < start
+                          ? vmean + ((size_t)b * Hkv + h) * HD : nullptr;
 #pragma unroll
         for (int n = 0; n < NOUT; ++n)
-            *reinterpret_cast<float2*>(o + 8 * n + 2 * t) = make_float2(
-                acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+            *reinterpret_cast<float2*>(o + 8 * n + 2 * t) =
+                vm ? make_float2(vm[8 * n + 2 * t], vm[8 * n + 2 * t + 1])
+                   : make_float2(acc[n][2 * r] / denom,
+                                 acc[n][2 * r + 1] / denom);
+    }
+}
+
+// Rows before start mask every key; their value is the reference's, the
+// uniform average of V over the whole cache [0, T) with its words as
+// stored (src/repro/kernels/ref.py attention_ref). One block a (KV head,
+// sequence) computes it into vmean [B, Hkv, HD] before the flash kernel,
+// and stops at once where no row of the sequence is before its start
+// (pos0 >= start: every step past the prompt). A thread sums a quad of
+// columns (one load of 4 words) over every SL-th key; the SL partial sums
+// meet in order.
+template <int N, int K, int HD, int NT = 1024>
+__global__ void __launch_bounds__(NT)
+vmean_kernel(const wire::WordT<N>* __restrict__ vw,
+             const int* __restrict__ start_v, float* __restrict__ vmean,
+             int Hkv, int T, int pos0) {
+    using C = wire::Codec<N, K>;
+    constexpr int Q = HD / 4, SL = NT / Q;
+    __shared__ typename C::Tab tab;
+    __shared__ float part[SL][HD];
+    const int tid = threadIdx.x, h = blockIdx.x, b = blockIdx.y;
+    if (pos0 >= start_v[b]) return;
+    tab.fill(tid, NT);
+    __syncthreads();
+    const int q = tid % Q, sl = tid / Q;
+    const size_t key = (size_t)Hkv * HD * N / 8;        // bytes a key
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(vw)
+                         + ((size_t)b * T * Hkv + h) * HD * N / 8
+                         + q * (4 * N / 8);
+    if (sl < SL) {          // NT % Q threads idle at hd 112 and 192
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int j = sl; j < T; j += SL) {
+            uint32_t w[4];
+            wire::unpack4<N>(src + j * key, w);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[e] += C::decode(w[e], tab);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[sl][4 * q + e] = sum[e];
+    }
+    __syncthreads();
+    for (int c = tid; c < HD; c += NT) {
+        float acc = 0.f;
+        for (int i = 0; i < SL; ++i) acc += part[i][c];
+        vmean[((size_t)b * Hkv + h) * HD + c] = acc / (float)T;
     }
 }
 
 template <int N, int K, int HD>
 int launch(const float* q4, const void* kw, const void* vw, float* out,
-           const int* start, int B, int Hkv, int rows, int T, int pos0,
-           int tq, int tile, int window, float scale, cudaStream_t st) {
+           const int* start, float* vmean, int B, int Hkv, int rows, int T,
+           int pos0, int tq, int tile, int window, float scale,
+           cudaStream_t st) {
     if constexpr (!Layout<N, HD>::FITS) {
         return (int)cudaErrorInvalidValue;   // refused by the wrapper first
     } else {
@@ -402,10 +458,16 @@ int launch(const float* q4, const void* kw, const void* vw, float* out,
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
+        if (vmean) {
+            vmean_kernel<N, K, HD><<<dim3(Hkv, B), 1024, 0, st>>>(
+                (const wire::WordT<N>*)vw, start, vmean, Hkv, T, pos0);
+            err = cudaGetLastError();
+            if (err != cudaSuccess) return (int)err;
+        }
         dim3 grid((rows + BQ - 1) / BQ, Hkv, B);
         kern<<<grid, NT, smem, st>>>(
             q4, (const wire::WordT<N>*)kw, (const wire::WordT<N>*)vw, out,
-            start, Hkv, rows, T, pos0, tq, tile, window, scale);
+            start, vmean, Hkv, rows, T, pos0, tq, tile, window, scale);
         return (int)cudaGetLastError();
     }
 }
@@ -414,13 +476,14 @@ int launch(const float* q4, const void* kw, const void* vw, float* out,
 // set: flash_attention.cu and flash_attention_wide.cu build in parallel)
 template <int N, int K, int... HDS>
 int dispatch_hd(int hd, const float* q4, const void* kw, const void* vw,
-                float* out, const int* start, int B, int Hkv, int rows,
-                int T, int pos0, int tq, int tile, int window, float scale,
-                cudaStream_t st) {
+                float* out, const int* start, float* vmean, int B, int Hkv,
+                int rows, int T, int pos0, int tq, int tile, int window,
+                float scale, cudaStream_t st) {
     int err = (int)cudaErrorInvalidValue;
     (void)((hd == HDS
-            && (err = launch<N, K, HDS>(q4, kw, vw, out, start, B, Hkv, rows,
-                                        T, pos0, tq, tile, window, scale, st),
+            && (err = launch<N, K, HDS>(q4, kw, vw, out, start, vmean, B,
+                                        Hkv, rows, T, pos0, tq, tile, window,
+                                        scale, st),
                 true)) || ...);
     return err;
 }
@@ -430,20 +493,22 @@ int dispatch_hd(int hd, const float* q4, const void* kw, const void* vw,
 // 3 posit8 through the table, 4 identity: bf16 at n = 16, f32 at n = 32).
 // Cache kw/vw [B, T, Hkv, hd], 16-byte aligned; q4/out [B, Hkv, rows, hd]
 // f32, 16-byte aligned; pos0 = position of the first query; tile = bk;
-// start [B]. HDS: the head dims the calling library instantiates.
+// start [B]; vmean [B, Hkv, hd] f32 scratch for the rows before start
+// (null: start is 0 for every sequence, and no row is before it). HDS:
+// the head dims the calling library instantiates.
 template <int... HDS>
 int entry(int n, int kind, int hd, const float* q4, const void* kw,
-          const void* vw, float* out, const int* start, int B, int Hkv,
-          int rows, int T, int pos0, int tq, int bk, int window, float scale,
-          void* stream) {
+          const void* vw, float* out, const int* start, float* vmean, int B,
+          int Hkv, int rows, int T, int pos0, int tq, int bk, int window,
+          float scale, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (B <= 0 || rows <= 0) return (int)cudaGetLastError();
     if (T <= 0 || bk <= 0 || tq <= 0) return (int)cudaErrorInvalidValue;
 #define CASE(NN, KK)                                                        \
     if (n == NN && kind == KK)                                              \
-        return dispatch_hd<NN, KK, HDS...>(hd, q4, kw, vw, out, start, B,   \
-                                           Hkv, rows, T, pos0, tq, bk,      \
-                                           window, scale, st);
+        return dispatch_hd<NN, KK, HDS...>(hd, q4, kw, vw, out, start,      \
+                                           vmean, B, Hkv, rows, T, pos0,    \
+                                           tq, bk, window, scale, st);
     WIRE_KV_FORMATS(CASE)
 #undef CASE
     return (int)cudaErrorInvalidValue;

@@ -108,6 +108,28 @@ struct Codec {
     }
 };
 
+// The codec of kind K (LINEAR, LNS or POSIT) at a width n known only at
+// run time, 6 <= n <= 32, its words in the 8-, 16- or 32-bit storage of
+// WordT<8 | 16 | 32>: the codec and fake-quant kernels take every width
+// through it (the other kernels keep Codec<8 | 16, K>).
+template <int K>
+struct AnyWidth {
+    static_assert(K == LINEAR || K == LNS || K == POSIT, "a computed codec");
+    __device__ static float decode(uint32_t w, int n) {
+        if constexpr (K == LINEAR) return takum::decode_n(w, n);
+        else if constexpr (K == LNS) return takum::lns_decode_n(w, n);
+        else return posit::decode_n(w, n);
+    }
+    __device__ static uint32_t encode(float x, int n) {
+        if constexpr (K == LINEAR) return takum::encode_n(x, n);
+        else if constexpr (K == LNS) return takum::lns_encode_n(x, n);
+        else return posit::encode_n(x, n);
+    }
+};
+
+// The storage bits of an n-bit word.
+inline int storage_bits(int n) { return n <= 8 ? 8 : (n <= 16 ? 16 : 32); }
+
 // Four consecutive N-bit words from (4 * N / 8)-byte aligned memory, in one
 // load (little-endian lanes).
 template <int N>
@@ -145,3 +167,14 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int e) {
 #define WIRE_KV_FORMATS(X) WIRE_DECODE_FORMATS(X) X(16, 4) X(32, 4)
 #define WIRE_ENCODE_FORMATS(X) \
     X(8, 0) X(8, 1) X(8, 2) X(16, 0) X(16, 1) X(16, 2)
+// The codec and fake-quant kernels' other widths: (storage bits, kind)
+// pairs of wire::AnyWidth, n at run time.
+#define WIRE_ANY_WIDTH_FORMATS(X) \
+    X(8, 0) X(8, 1) X(8, 2) X(16, 0) X(16, 1) X(16, 2) \
+    X(32, 0) X(32, 1) X(32, 2)
+// CODEC_ANY_WIDTH=1 (a timing build: tools/torch_kernel_times.py --codec)
+// sends widths 8 and 16 of the codec and fake-quant kernels through the
+// run-time-n kernels too, all but the posit8 table.
+#ifndef CODEC_ANY_WIDTH
+#define CODEC_ANY_WIDTH 0
+#endif

@@ -16,6 +16,13 @@ CUDA kernels inline the same functions from ``csrc/takum.cuh`` and
 ``csrc/posit.cuh`` and are held against these (bit-exact for the integer
 steps, to an ulp or two of ``exp``/``log`` for the LNS conversions).
 
+Other widths (``"takum12"``, ``"posit32"``, ``"lns-takum24"``, the
+``(kind, n)`` pairs and bare ints; 6 <= n <= 32 in the codec) resolve on
+demand and are interned, as the reference's: ``resolve`` returns the
+same object for the same format, and ``names()`` stays the registered
+seven. Only the codec and fake-quant kernels take them on the card
+(``kernels/build.py``, ``format_code``).
+
 posit8 also decodes through a 256-entry table (``has_lut``): its plain
 version here builds the table with the computed decode and gathers once
 per word; the CUDA kernels keep the table in shared memory. Whether the
@@ -212,12 +219,20 @@ def get(name: str) -> FormatSpec:
     return _REGISTRY[name]
 
 
+_INTERNED: Dict[str, FormatSpec] = {}
+
+
 def _kind(kind: str, n: int) -> FormatSpec:
+    """The registered spec of (kind, n), or one made and interned on
+    demand (the same object for the same format every time)."""
+    if not isinstance(n, int) or n < 2:
+        raise ValueError(f"format kind {kind!r} needs a word width n, "
+                         f"got {n!r}")
     key = _KIND_NAME[kind].format(n=n)
-    if key not in _REGISTRY:
-        raise ValueError(f"format {key!r} is not in this package "
-                         f"(registered: {', '.join(names())})")
-    return _REGISTRY[key]
+    spec = _REGISTRY.get(key) or _INTERNED.get(key)
+    if spec is None:
+        spec = _INTERNED[key] = FormatSpec(name=key, kind=kind, n=n)
+    return spec
 
 
 def resolve(fmt, n: Optional[int] = None) -> FormatSpec:

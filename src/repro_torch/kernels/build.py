@@ -31,7 +31,7 @@ from typing import Dict, Sequence
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "library", "check",
            "BUILD_INFO", "stream_of", "format_code", "KIND_CODES",
            "POSIT8_LUT", "IDENTITY_BITS", "launched", "posit8_lut",
-           "aligned"]
+           "aligned", "CODEC_WIDTHS", "SERVED_WIDTHS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -126,21 +126,32 @@ POSIT8_LUT = 3          # posit8 through the shared-memory table
 IDENTITY_BITS = {"torch.bfloat16": 16, "torch.float32": 32}
 
 
+# The word widths of the codec and fake-quant kernels (csrc/codec.cu,
+# csrc/fake_quant.cu: 8 and 16 compiled, the others at run time); every
+# other kernel takes SERVED_WIDTHS only.
+CODEC_WIDTHS = tuple(range(6, 33))
+SERVED_WIDTHS = (8, 16)
+
+
 def format_code(spec, device, kinds=("linear", "lns", "posit"),
-                dtype=None) -> int:
+                dtype=None, widths=SERVED_WIDTHS) -> int:
     """The format code a kernel is launched with for ``spec``'s words on
     ``device``: posit8 takes the table code when
     ``spec.lut_decode(device)``; the identity codec (kind ``"none"``, in
     ``kinds`` only for the attention kernels) takes its own code for a
     bf16 or f32 cache ``dtype``. Raises ``ValueError`` for a kind outside
-    ``kinds``, a width other than 8 and 16, or another float dtype."""
+    ``kinds``, a width outside ``widths`` (the codec and fake-quant take
+    :data:`CODEC_WIDTHS`, the other kernels 8 and 16), or another float
+    dtype: before any launch."""
     if spec.is_identity and "none" in kinds:
         if str(dtype) not in IDENTITY_BITS:
             raise ValueError(f"the CUDA attention kernels read bf16 or f32 "
                              f"float caches, got {dtype}")
         return KIND_CODES["none"]
-    if spec.kind not in kinds or spec.n not in (8, 16):
-        raise ValueError(f"this CUDA kernel takes 8- and 16-bit words of "
+    if spec.kind not in kinds or spec.n not in widths:
+        bits = ("8- and 16-bit" if widths == SERVED_WIDTHS else
+                f"{widths[0]}- to {widths[-1]}-bit")
+        raise ValueError(f"this CUDA kernel takes {bits} words of "
                          f"kind {' / '.join(kinds)}, got {spec.name!r}")
     if spec.lut_decode(device):
         return POSIT8_LUT

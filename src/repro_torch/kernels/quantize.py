@@ -2,8 +2,9 @@
 
 Replaces ``repro/kernels/quantize.py::fake_quant_kernel_call``: a round
 trip through a wire format's grid (encode, then decode) in one pass, f32
-in and f32 or bf16 out, for linear takum, logarithmic takum and posit
-(posit8 through its shared-memory table when ``spec.lut_decode``). Bound
+in and f32 or bf16 out, for linear takum, logarithmic takum and posit at
+every width 6 <= n <= 32 (posit8 through its shared-memory table when
+``spec.lut_decode``). Bound
 by bytes on the H100 (4 bytes in, 4 or 2 out per element); see the
 source's header comment for the design.
 
@@ -47,7 +48,8 @@ def fake_quant(x: torch.Tensor, spec: FormatSpec, *, dtype=torch.float32,
         raise ValueError(f"scale_exp {scale_exp} outside [-127, 127]")
     if not x.is_cuda:
         return kref.fake_quant_ref(x, spec, dtype=dtype, scale_exp=scale_exp)
-    code = build.format_code(spec, x.device)
+    code = build.format_code(spec, x.device,
+                             widths=build.CODEC_WIDTHS)
     x = x.to(torch.float32).contiguous()
     out = torch.empty(x.shape, dtype=dtype, device=x.device)
     err = _lib().takum_fake_quant(

@@ -196,10 +196,13 @@ def attention_ref(q, k_cache, v_cache, n, fmt="none", *, pos, start=None,
     (0 = full causal). All-masked query rows give a finite uniform
     average; NaR words decode to NaN and poison the rows they reach.
     With ``zero_padding`` (the contiguous kernel's semantics) keys
-    before a sequence's ``start`` (left padding) take no part in P.V:
-    their V values count as 0, so a NaR word there reaches no row (a
-    masked key elsewhere has p = 0, and 0 x NaN poisons). Without it
-    (the paged kernel's, as the reference's) they count as they are."""
+    before a sequence's ``start`` (left padding) take no part in P.V
+    of the rows at or after ``start``: their V values count as 0 there,
+    so a NaR word in the padding reaches no such row (a masked key
+    elsewhere has p = 0, and 0 x NaN poisons); a row before ``start``
+    masks every key and takes the reference's value, the uniform average
+    of V over the whole cache as stored. Without it (the paged kernel's,
+    as the reference's) padded keys count as they are everywhere."""
     spec = formats.resolve(fmt, n)
     if spec.is_identity:
         k, v = k_cache, v_cache
@@ -221,15 +224,22 @@ def attention_ref(q, k_cache, v_cache, n, fmt="none", *, pos, start=None,
     m = kj <= qi
     if window:
         m = m & (kj > qi - window)
+    early = None
     if start is not None:
         st = torch.as_tensor(start, device=dev).reshape(b)
         m = m & (kj >= st[:, None, None, None, None])
         if zero_padding:
+            # rows before start: the uniform average of V as stored
+            early = (qi[:, :, :, :, 0] < st[:, None, None, None])[
+                :, 0, 0, :, None, None]                      # [B, tq, 1, 1]
+            vbar = v.to(torch.float32).mean(dim=1).to(v.dtype)
             pad = torch.arange(tk, device=dev)[None, :] < st[:, None]
             v = torch.where(pad[:, :, None, None], torch.zeros_like(v), v)
     scores = torch.where(m, scores, torch.full_like(scores, MASKED))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    if early is not None:
+        out = torch.where(early[..., None], vbar[:, None, :, None, :], out)
     return out.reshape(b, tq, h, hd).to(out_dtype)
 
 

@@ -59,8 +59,8 @@ F32_REFUSED = (192, 256)
 WIDE_HEAD_DIMS = (192, 256)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry point of each library
-_FLASH_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-               _I, _F, _P]
+_FLASH_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+               _I, _I, _F, _P]
 _SIGNATURES = {
     "flash_attention": {"takum_attention": _FLASH_ARGS},
     "flash_attention_wide": {"takum_attention_wide": _FLASH_ARGS},
@@ -140,6 +140,9 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     bk = min(bk or DEFAULT_BK, -(-kw.shape[1] // 8) * 8)
     q4 = build.aligned(q4.to(torch.float32))
     kw, vw = build.aligned(kw), build.aligned(vw)
+    # rows before start take the average of V (the kernel's scratch)
+    vmean = (None if start is None else
+             torch.empty((b, hkv, hd), dtype=torch.float32, device=q4.device))
     start = (torch.zeros(b, dtype=torch.int32, device=q4.device)
              if start is None else
              torch.as_tensor(start, device=q4.device).reshape(b)
@@ -151,7 +154,8 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
              _lib("flash_attention").takum_attention)
     err = entry(
         bits, code, hd, q4.data_ptr(), kw.data_ptr(), vw.data_ptr(),
-        out.data_ptr(), start.data_ptr(), b, hkv, rows, kw.shape[1],
+        out.data_ptr(), start.data_ptr(),
+        0 if vmean is None else vmean.data_ptr(), b, hkv, rows, kw.shape[1],
         int(pos), tq, bk, window, hd ** -0.5, build.stream_of(q4))
     build.check(err, "takum_attention")
     build.launched(attention, code)

@@ -1,11 +1,12 @@
 """Elementwise takum codec: the CUDA kernels of ``csrc/codec.cu``.
 
 Replaces ``repro/kernels/takum_codec.py::decode_kernel_call`` and
-``::encode_kernel_call``, for linear takum (``takum8``/``takum16``),
-logarithmic takum (``lns-takum8``/``lns-takum16``) and posit
-(``posit8``/``posit16``; posit8 decodes through its shared-memory table
-when ``spec.lut_decode``). Bound by bytes on the H100 (words plus f32 per
-element); see the source's header comment for the design.
+``::encode_kernel_call``, for linear takum (``takum<n>``), logarithmic
+takum (``lns-takum<n>``) and posit (``posit<n>``; posit8 decodes through
+its shared-memory table when ``spec.lut_decode``) at every width
+6 <= n <= 32 (``build.CODEC_WIDTHS``; words in uint8, uint16 or uint32).
+Bound by bytes on the H100 (words plus f32 per element); see the source's
+header comment for the design. ``kv_append`` keeps 8 and 16 bits.
 
 ``kv_append`` is the encode of the KV cache: one launch encodes a layer's
 fresh K and V and writes the words into a paged pool or a contiguous
@@ -46,7 +47,8 @@ def decode(words: torch.Tensor, spec: FormatSpec) -> torch.Tensor:
     """Wire words (any shape, ``spec.word_dtype``) -> float32."""
     if not words.is_cuda:
         return kref.decode_ref(words, spec)
-    code = build.format_code(spec, words.device)
+    code = build.format_code(spec, words.device,
+                             widths=build.CODEC_WIDTHS)
     _check_words(words, spec)
     words = words.contiguous()
     out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
@@ -61,7 +63,8 @@ def encode(x: torch.Tensor, spec: FormatSpec) -> torch.Tensor:
     """float32 (any shape; other float dtypes are cast) -> wire words."""
     if not x.is_cuda:
         return kref.encode_ref(x, spec)
-    code = build.format_code(spec, x.device)
+    code = build.format_code(spec, x.device,
+                             widths=build.CODEC_WIDTHS)
     x = x.to(torch.float32).contiguous()
     out = torch.empty(x.shape, dtype=spec.word_dtype, device=x.device)
     err = _lib().takum_encode(spec.n, code, x.data_ptr(), out.data_ptr(),

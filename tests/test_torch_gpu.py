@@ -1466,3 +1466,115 @@ def test_train_step_card_matches_cpu(dev):
     np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-5)
     for a, b in zip(runs[1][1], runs[0][1]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# -- the codec and fake-quant at other widths; rows before start -------------
+
+WIDTH_SPECS = [formats.resolve(k, n) for n in (12, 24, 32)
+               for k in ("linear", "lns", "posit")]
+
+
+def _ulps_t(a, b):
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("spec", WIDTH_SPECS, ids=lambda s: s.name)
+def test_codec_and_fake_quant_at_other_widths(dev, spec):
+    """Decode of seeded words, encode and fake-quant of seeded floats at
+    n = 12, 24 and 32 against the plain versions: bit for bit (NaN by
+    place) for linear takum and posit; LNS decodes within 2 ulp, words
+    equal to the plain version's on the card or, where its log lands on a
+    rounding tie, the neighbour (rare), and the fused round trip equal to
+    the codec kernels'."""
+    from repro_torch.core.bitops import lanes, to_words
+    rng = np.random.default_rng(spec.n)
+    w = to_words(torch.from_numpy(rng.integers(0, 2 ** spec.n, 100_000)),
+                 spec.word_dtype)
+    got = takum_codec.decode(w.to(dev), spec).cpu()
+    want = ref.decode_ref(w, spec)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    tol = 2 if spec.kind == "lns" else 0
+    assert int(_ulps_t(got[~nan], want[~nan]).max()) <= tol
+    x = torch.from_numpy(_floats(rng, 100_000))
+    gw = lanes(takum_codec.encode(x.to(dev), spec).cpu())
+    ww = lanes(ref.encode_ref(x, spec))
+    fq = quantize.fake_quant(x.to(dev), spec)
+    if spec.kind == "lns":
+        ww = lanes(ref.encode_ref(x.to(dev), spec).cpu())
+        step = (gw - ww) % (1 << spec.n)
+        assert bool(torch.isin(step, torch.tensor([0, 1, (1 << spec.n) - 1])
+                               ).all())
+        assert float((step != 0).double().mean()) < 1e-4
+        rt = takum_codec.decode(takum_codec.encode(x.to(dev), spec), spec)
+    else:
+        assert torch.equal(gw, ww)
+        rt = ref.fake_quant_ref(x, spec).to(dev)
+    na = torch.isnan(fq)
+    assert torch.equal(na, torch.isnan(rt))
+    assert torch.equal(fq[~na].view(torch.int32), rt[~na].view(torch.int32))
+
+
+def test_served_kernels_refuse_other_widths_on_the_card(dev):
+    """The wire matmul, contiguous and paged attention, ``kv_append`` and
+    the LNS matmul refuse 12-bit words by name before any launch."""
+    t12, l12 = formats.resolve("takum12"), formats.resolve("lns-takum12")
+    x = torch.randn(4, 64, device=dev)
+    w = takum_codec.encode(torch.randn(64, 32, device=dev), t12)
+    lw = takum_codec.encode(torch.randn(64, 32, device=dev), l12)
+    kc = takum_codec.encode(torch.randn(1, 16, 2, 64, device=dev), t12)
+    q4 = torch.randn(1, 2, 2, 64, device=dev)
+    before = (takum_matmul.qmatmul.launches,
+              takum_attention.attention.launches,
+              takum_attention.paged_attention.launches,
+              takum_codec.kv_append.launches, klns.lns_matmul.launches)
+    calls = [
+        lambda: takum_matmul.qmatmul(x, w, t12),
+        lambda: takum_attention.attention(q4, kc, kc, 0, spec=t12, tq=1),
+        lambda: takum_attention.paged_attention(
+            q4, kc, kc, torch.zeros(1, dtype=torch.int32, device=dev), None,
+            torch.zeros(1, 1, dtype=torch.int32, device=dev), spec=t12),
+        lambda: takum_codec.kv_append(x.reshape(1, 1, 2, 128)[..., :64],
+                                      x.reshape(1, 1, 2, 128)[..., :64],
+                                      kc, kc, t12, pos=0),
+        lambda: klns.lns_matmul(takum_codec.encode(x, l12), lw, l12)]
+    for call in calls:
+        with pytest.raises((ValueError, TypeError), match="12"):
+            call()
+    assert before == (takum_matmul.qmatmul.launches,
+                      takum_attention.attention.launches,
+                      takum_attention.paged_attention.launches,
+                      takum_codec.kv_append.launches,
+                      klns.lns_matmul.launches)
+
+
+@pytest.mark.parametrize("name", ["takum8", "lns-takum16"])
+@pytest.mark.parametrize("hd,hkv,grp", [(64, 2, 2), (112, 4, 2), (128, 8, 4),
+                                        (192, 2, 3), (256, 1, 10)])
+def test_contiguous_attention_rows_before_start(dev, hd, hkv, grp, name):
+    """Left-padded starts at pos 0: every row against the plain version
+    (2e-5), those before ``start`` the uniform average of V over the
+    whole cache; a NaR V word in the padding reaches no row at or after
+    ``start``."""
+    spec = formats.get(name)
+    g = torch.Generator().manual_seed(hd)
+    b, tq, tmax = 3, 40, 72
+    q = torch.randn((b, tq, hkv * grp, hd), generator=g)
+    kc, vc = (spec.encode_tile(torch.randn((b, tmax, hkv, hd), generator=g))
+              for _ in range(2))
+    st = torch.tensor([17, 5, 0], dtype=torch.int32)
+    want = ref.attention_ref(q, kc, vc, spec.n, spec, pos=0, start=st)
+    got = ops.takum_attention(q.to(dev), kc.to(dev), vc.to(dev), spec.n,
+                              spec, pos=0, start=st.to(dev)).cpu()
+    assert float((got - want).abs().max()) <= 2e-5
+    vbar = spec.decode_tile(vc[0]).mean(0).repeat_interleave(grp, 0)
+    assert float((got[0, :17] - vbar).abs().max()) <= 2e-5
+    vn = vc.clone()
+    vn[0, 3] = spec.nar_word
+    nar = ops.takum_attention(q.to(dev), kc.to(dev), vn.to(dev), spec.n,
+                              spec, pos=0, start=st.to(dev)).cpu()
+    assert torch.isfinite(nar[0, 17:]).all() and torch.isfinite(nar[1:]).all()
+    assert float((nar[0, 17:] - got[0, 17:]).abs().max()) <= 2e-5

@@ -302,8 +302,13 @@ def test_lns_registry_spellings():
         formats.resolve("lns")
     with pytest.raises(ValueError, match="mismatch"):
         formats.resolve("lns-takum8", 16)
-    with pytest.raises(ValueError, match="not in this package"):
-        formats.resolve("lns-takum12")
+    # an unregistered width resolves on demand and is interned, as the
+    # reference's
+    l12 = formats.resolve("lns-takum12")
+    jl12 = jformats.resolve("lns-takum12")
+    assert (l12.name, l12.kind, l12.n) == (jl12.name, jl12.kind, jl12.n)
+    assert formats.resolve("lns", 12) is l12 and l12.has_lns_parts
+    assert "lns-takum12" not in formats.names()
     with pytest.raises(ValueError, match="no LNS"):
         formats.get("takum16").lns_parts(torch.zeros(3, dtype=torch.uint16))
     for kv in ("lns-takum16", "lns-takum8", "takum8", "none"):

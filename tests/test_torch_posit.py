@@ -184,8 +184,13 @@ def test_registry_names_and_spellings_match_reference():
                                                                  spec.n)
     with pytest.raises(ValueError, match="mismatch"):
         formats.resolve("posit8", 16)
-    with pytest.raises(ValueError, match="not in this package"):
-        formats.resolve("posit12")
+    # an unregistered width resolves on demand and is interned, as the
+    # reference's
+    p12 = formats.resolve("posit12")
+    jp12 = jformats.resolve("posit12")
+    assert (p12.name, p12.kind, p12.n) == (jp12.name, jp12.kind, jp12.n)
+    assert formats.resolve("posit", 12) is p12 and not p12.has_lut
+    assert parse_kv_quant("posit12") == jparse_kv_quant("posit12")
 
 
 @pytest.mark.parametrize("n", WIDTHS)

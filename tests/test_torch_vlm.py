@@ -20,6 +20,13 @@ on the CPU, and the two faults of this family that the port had.
   the ``quantize_weights`` audit (``35 wired, 0 fake-quantised, 13
   skipped``) and every word bit for bit; the ``convert`` round trip;
   ``_can_schedule``.
+* Text-only left-padded prompts through two cross blocks (a 10-layer
+  variant, cross blocks at layers 0 and 5; takum8 and float caches): the
+  rows before ``start`` mask every key and take the reference's uniform
+  average of V, so the next cross block, which attends the whole prompt
+  unmasked, carries the reference's values into every row: prefill
+  logits of every row within ``LOGITS_TOL``, lockstep tokens equal. A NaR
+  V word in the padding still reaches no row at or after ``start``.
 * A variant whose ``d_media`` (48) differs from ``d_model`` (64), so the
   model projects the media through ``embed_media`` (skipped by
   ``quantize_weights``, whose ``"embed"`` entry matches its name, as the
@@ -37,12 +44,15 @@ import pytest
 import torch
 
 from repro.configs import get_arch as jget_arch
+from repro.kernels import ref as jref
 from repro.models import layers as JL
 from repro.models import model as jmodel
 from repro.models import transformer as jtr
 from repro.serve.engine import ServeEngine as JServeEngine
+from repro_torch import formats
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import model, transformer
 from repro_torch.serve.engine import ServeEngine, quantize_weights
@@ -322,3 +332,73 @@ def test_port_init_builds_the_reference_shapes():
     tp = model.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert jax.tree_util.tree_map(np.shape, params_to_numpy(tp, cfg)) == \
         jax.tree_util.tree_map(np.shape, _to_numpy(_ref_params(D_MEDIA)))
+
+
+# -- text-only left-padded prompts through two cross blocks -------------------
+
+
+@pytest.mark.parametrize("kv", ["takum8", "none"])
+def test_text_only_left_padded_two_cross_blocks(kv):
+    """The 10-layer variant (cross blocks at layers 0 and 5), f32 weights:
+    the prefill logits of every row, the padded ones included, within
+    ``LOGITS_TOL`` of the reference's, and the lockstep tokens equal."""
+    jcfg, cfg = _cfgs(kv_quant=kv, n_layers=10)
+    assert transformer.layer_kinds(cfg)[::5] == ["cross", "cross"]
+    jp = jax.jit(jmodel.init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(_to_numpy(jp), cfg, "cpu")
+    plen = max(PLENS)
+    prompts = _prompts(5)
+    tokens = np.zeros((len(PLENS), plen), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, plen - len(p):] = p
+    start = np.array([plen - n for n in PLENS], np.int32)
+    jc = jmodel.init_cache(jcfg, batch=3, max_len=16, start=start)
+    c = model.init_cache(cfg, 3, 16, device="cpu", start=start)
+    jrow, _ = jax.jit(lambda p, t, c: jmodel.prefill(p, t, jcfg, c))(
+        jp, jnp.asarray(tokens), jc)
+    row, _ = model.prefill(tp, torch.from_numpy(tokens).long(), cfg, c)
+    _close(row, jrow, LOGITS_TOL)
+    want = JServeEngine(jp, jcfg, max_len=32).generate(prompts,
+                                                       max_new=MAX_NEW)
+    got = ServeEngine(tp, cfg, max_len=32, device="cpu").generate(
+        prompts, max_new=MAX_NEW)
+    assert got == want
+
+
+def test_rows_before_start_average_the_cache_and_nar_stays_out():
+    """Contiguous attention on a dense layout, a takum8 cache: rows at or
+    after ``start`` equal the reference oracle's (keys before ``start``
+    masked) and stay finite with a NaR V word in the padding; rows before
+    ``start`` are the uniform average of V over the whole cache, as the
+    reference oracle gives them."""
+    rng = np.random.default_rng(11)
+    b, tq, h, hkv, hd, tmax = 2, 6, 4, 2, 16, 12
+    spec = formats.get("takum8")
+    q = rng.normal(size=(b, tq, h, hd)).astype(np.float32)
+    kv = [spec.encode_tile(torch.from_numpy(
+        rng.normal(size=(b, tmax, hkv, hd)).astype(np.float32))).numpy()
+        for _ in range(2)]
+    start = np.array([3, 0], np.int32)
+    want = np.asarray(jref.attention_ref(
+        jnp.asarray(q), jnp.asarray(kv[0]), jnp.asarray(kv[1]), 8,
+        "takum8", pos=0, start=jnp.asarray(start)))
+
+    def got(v):
+        return ops.takum_attention(
+            torch.from_numpy(q), torch.from_numpy(kv[0]),
+            torch.from_numpy(v), 8, spec, pos=0,
+            start=torch.from_numpy(start)).numpy()
+
+    out = got(kv[1])
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-6)
+    vbar = spec.decode_tile(torch.from_numpy(kv[1])).mean(dim=1).numpy()
+    np.testing.assert_allclose(out[0, :3].reshape(3, hkv, h // hkv, hd),
+                               np.broadcast_to(vbar[0][None, :, None],
+                                               (3, hkv, h // hkv, hd)),
+                               rtol=1e-5, atol=1e-6)
+    v_nar = kv[1].copy()
+    v_nar[0, 1] = spec.nar_word
+    poisoned = got(v_nar)
+    np.testing.assert_array_equal(poisoned[0, 3:], out[0, 3:])
+    np.testing.assert_array_equal(poisoned[1], out[1])
+    assert np.isnan(poisoned[0, :3]).all()

@@ -3,7 +3,7 @@ build-time choices of its kernels, on one CUDA card.
 
     python3 tools/torch_kernel_times.py [--src DIR] [--attention] [--lns]
         [--paged] [--serve N [--eager]] [--lockstep N] [--step-trace]
-        [--moe-trace] [--variants] [--out F]
+        [--moe-trace] [--variants] [--codec] [--out F]
 
 Times ``takum_matmul.qmatmul`` for takum8, takum16, posit8 (through the
 table) and posit16 words at every projection shape of a phi3-medium-14b
@@ -74,6 +74,12 @@ and, not a build, the LNS matmul's K-split target for prefill chunks
 (``lns_matmul.TILE_PER_SM``: 6, 12 and the default) at the four prefill
 shapes.
 
+``--codec`` (this checkout's kernels only) times the codec's decode
+and encode and the fused fake-quant at n = 8 and 16 for each kind
+(posit computed), the default build (n a compile-time constant,
+``Codec<N, K>``) against one with ``CODEC_ANY_WIDTH=1`` (the kernels of
+the other widths, n at run time), their outputs held equal bit for bit.
+
 Prints the card (``nvidia-smi``'s name and power limit) and one JSON
 object as its last line; ``--out`` writes the same object to a file.
 Imports nothing of JAX.
@@ -107,6 +113,8 @@ VARIANTS = {
                          "lns_matmul"),
                         ("-DWIRE_TAKUM8_COMPUTED=1",)),
 }
+# --codec: widths 8 and 16 through the run-time-n codec kernels
+CODEC_VARIANT = (("codec", "fake_quant"), ("-DCODEC_ANY_WIDTH=1",))
 
 
 def graph_or_none(torch, fn, iters=20):
@@ -430,13 +438,13 @@ def takum8_times(torch, dev):
     return out
 
 
-def build_variants(build):
+def build_variants(build, variants=VARIANTS):
     """{variant: {source: library path}}, one nvcc per library, all
     started together, into ``build/repro_torch/variants``."""
     dst = build.BUILD_DIR / "variants"
     dst.mkdir(parents=True, exist_ok=True)
     procs, paths = [], {}
-    for var, (sources, defines) in VARIANTS.items():
+    for var, (sources, defines) in variants.items():
         for src in sources:
             lib = dst / f"lib{src}-{var}.so"
             cmd = [build._nvcc(), *build.NVCC_FLAGS, *defines, "-I",
@@ -456,10 +464,11 @@ def build_variants(build):
 def swap_in(build, libs):
     """Load ``{source: path}`` in place of the default libraries (the
     wrappers' ctypes signatures); returns what it replaced."""
-    from repro_torch.kernels import lns_matmul
+    from repro_torch.kernels import lns_matmul, quantize
     from repro_torch.kernels import takum_attention, takum_codec, takum_matmul
     sigs = {"qmatmul": takum_matmul._SIGNATURES,
             "codec": takum_codec._SIGNATURES,
+            "fake_quant": quantize._SIGNATURES,
             "lns_matmul": lns_matmul._SIGNATURES,
             **takum_attention._SIGNATURES}
     old = {}
@@ -472,6 +481,59 @@ def swap_in(build, libs):
         old[src] = build._LIBS.get(src)
         build._LIBS[src] = lib
     return old
+
+
+def codec_times(torch, dev):
+    """The codec's decode and encode and the fused fake-quant at n = 8 and
+    16, each kind (posit computed: ``REPRO_LUT_DECODE=0``), at [5120,
+    17920]: the default build (``Codec<N, K>``, n a constant) against
+    ``CODEC_ANY_WIDTH`` (the kernels of the other widths, n at run time),
+    on the same inputs, with the outputs of both held equal bit for
+    bit."""
+    import os
+    from repro_torch import formats
+    from repro_torch.kernels import build, takum_codec
+    from repro_torch.kernels import quantize as kquant
+    build.build_all()
+    paths = build_variants(build, {"any_width": CODEC_VARIANT})
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((5120, 17920), generator=g, device=dev)
+    kept = os.environ.get("REPRO_LUT_DECODE")
+    os.environ["REPRO_LUT_DECODE"] = "0"
+
+    def measure():
+        out, vals = {}, {}
+        for n in (8, 16):
+            for kind in ("linear", "lns", "posit"):
+                spec = formats.resolve(kind, n)
+                w = takum_codec.encode(x, spec)
+                vals[spec.name] = (w, takum_codec.decode(w, spec),
+                                   kquant.fake_quant(x, spec))
+                out[spec.name] = {
+                    "decode_ms": cuda_ms(torch, lambda: takum_codec.decode(
+                        w, spec)),
+                    "encode_ms": cuda_ms(torch, lambda: takum_codec.encode(
+                        x, spec)),
+                    "fake_quant_ms": cuda_ms(torch, lambda: kquant.fake_quant(
+                        x, spec))}
+        return out, vals
+
+    try:
+        res, want = {}, None
+        res["default"], want = measure()
+        old = swap_in(build, paths["any_width"])
+        res["any_width"], got = measure()
+        for src, lib in old.items():
+            build._LIBS[src] = lib
+    finally:
+        if kept is None:
+            os.environ.pop("REPRO_LUT_DECODE")
+        else:
+            os.environ["REPRO_LUT_DECODE"] = kept
+    res["bit_equal"] = {
+        name: all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                  for a, b in zip(want[name], got[name])) for name in want}
+    return res
 
 
 def variant_times(torch, dev):
@@ -581,6 +643,7 @@ def main() -> int:
     ap.add_argument("--step-trace", action="store_true")
     ap.add_argument("--moe-trace", action="store_true")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--codec", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -626,6 +689,8 @@ def main() -> int:
         res["moe_trace"] = moe_trace(torch, dev)
     if args.variants:
         res["variants_ms"] = variant_times(torch, dev)
+    if args.codec:
+        res["codec_ms"] = codec_times(torch, dev)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
