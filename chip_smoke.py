@@ -596,14 +596,18 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
     (from :func:`full_width_params`) are built here when not given;
     ``cfg`` (default phi3-medium-14b's with ``kv``) serves another model
     with the ``params`` given."""
+    from repro_torch.kernels import takum_codec
     from repro_torch.models import model
     from repro_torch.serve.engine import ServeEngine
     ps = 256
     cfg = full_width_cfg(kv) if cfg is None else cfg
     torch.cuda.reset_peak_memory_stats()
-    weights_s = 0.0
+    weights_s, setup_encodes = 0.0, None
     if params is None:
+        # the standalone encodes of the wired weights (set-up, not serving)
+        before = takum_codec.encode.launches
         params, weights_s = full_width_params(torch, dev, cfg, wfmt)
+        setup_encodes = takum_codec.encode.launches - before
     eng = ServeEngine(params, cfg, max_len=max_len, page_size=ps,
                       decode_batch=4, device=dev)
     sched = eng.scheduler()
@@ -698,6 +702,7 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
              "token_gap_ms_median": round(1e3 * gaps[len(gaps) // 2], 1),
              "token_gap_ms_max": round(1e3 * gaps[-1], 1),
              "peak_gb": round(peak_gb, 2), "launches": launches,
+             "setup_encode_launches": setup_encodes,
              "lns_matmul_split_sum_launches": split_sums}
     # the timing wrappers and the scheduler reference each other: collect
     # the cycle so the model's memory is free before the next phase
@@ -3311,7 +3316,10 @@ def family_phase(torch, dev, n, wrappers):
 WIDTHS_ALL = tuple(range(6, 17))
 WIDTHS_SAMPLED = (17, 20, 24, 28, 29, 32)
 WIDTHS_TIMED = (8, 12, 16, 24, 32)        # decode/encode times per kind
-WIDTHS_FQ = (12, 24, 32)                  # fake-quant, and plain times
+WIDTHS_FQ = WIDTHS_TIMED                  # fake-quant, and plain times
+SWEEP_STRIDE = 61                         # the encode sweep's pattern step
+SWEEP_FORMATS = (("linear", 8), ("linear", 16), ("posit", 8), ("posit", 16))
+RAGGED_WIDTHS = (8, 12, 16, 24, 32)
 WIDTHS_HW = (12, 16, 24, 32)              # the hw path against the kernels
 CODEC_SHAPE = (5120, 17920)
 CODEC_SAMPLE = 1 << 24                    # seeded words and floats a width
@@ -3370,13 +3378,24 @@ def lns_encode_bounds(torch, x, n):
     return torch.minimum(*out), torch.maximum(*out)
 
 
+def lns_encode_ok(got, want, lo, hi, n):
+    """Per float, whether an LNS encode kernel's word ``got`` is the plain
+    version's ``want`` or, at a ``logf`` tie, its neighbour: one word
+    either way and inside the window (``lo``, ``hi``) of
+    :func:`lns_encode_bounds` (int64 words throughout)."""
+    step = (got - want) % (1 << n)
+    near = (step == 1) | (step == (1 << n) - 1)
+    return (step == 0) | (near & (got >= lo) & (got <= hi))
+
+
 def width_codec_check(torch, dev, n, kind, seed):
     """Decode (every word for n <= 16, 2^24 seeded words above) and encode
     (``float_sample``) kernels of width n against the plain codec on the
     card: linear and posit bit for bit (NaN by place), LNS decodes within
     2 ulp and encoded words equal to the plain version's or, at an
-    ell_bar rounding tie of logf, its neighbour (phase 7's rule; the
-    window of ``lns_encode_bounds`` is reported beside it)."""
+    ell_bar rounding tie of logf, its neighbour inside the window of
+    ``lns_encode_bounds`` (``lns_encode_ok``), at most
+    ``LNS_NEIGHBOUR_SHARE`` of them (phase 7's rule)."""
     from repro_torch import formats
     from repro_torch.core.bitops import lanes, to_words
     from repro_torch.kernels import ref, takum_codec
@@ -3404,15 +3423,13 @@ def width_codec_check(torch, dev, n, kind, seed):
     row = {"words": words.numel(), "decode_max_ulps": dec_ulps,
            "floats": xs.numel()}
     if kind == "lns":
-        step = (gw - ww) % (1 << n)
-        share = float((step != 0).double().mean())
-        check(bool(torch.isin(step, torch.tensor(
-            [0, 1, (1 << n) - 1], device=dev)).all()),
-            f"{spec.name}: an encoded word other than the plain version's "
-            "or its neighbour")
+        share = float((gw != ww).double().mean())
+        lo, hi = lns_encode_bounds(torch, xs, n)
+        check(bool(lns_encode_ok(gw, ww, lo, hi, n).all()),
+              f"{spec.name}: an encoded word other than the plain version's "
+              "or, at a logf tie, its neighbour")
         check(share <= LNS_NEIGHBOUR_SHARE, f"{spec.name}: encode neighbour "
               f"share {share} over {LNS_NEIGHBOUR_SHARE}")
-        lo, hi = lns_encode_bounds(torch, xs, n)
         row["encode_neighbour_share"] = share
         row["encode_within_log_2ulp"] = bool(((gw >= lo) & (gw <= hi)).all())
     else:
@@ -3425,8 +3442,11 @@ def width_codec_check(torch, dev, n, kind, seed):
 def width_times(torch, dev, n, kind, plain):
     """Decode and encode kernel times at ``CODEC_SHAPE``, each beside its
     byte bound ((word bytes + 4) per element), the plain version's time
-    (where ``plain``) and the library's (``torch.index_select`` on the
-    2^n decoded values for n <= 16, decode only)."""
+    (where ``plain``), the library's (``torch.index_select`` on the 2^n
+    decoded values for n <= 16, decode only) and PyTorch's elementwise
+    cast over the same bytes (``*_stream_ms``: the words as signed
+    integers to float32, and float32 to them; the rate this card gives
+    the kernels' byte pattern without the codec's arithmetic)."""
     from repro_torch import formats
     from repro_torch.core.bitops import lanes, to_words
     from repro_torch.kernels import ref, takum_codec
@@ -3441,11 +3461,28 @@ def width_times(torch, dev, n, kind, plain):
            "encode_ms": cuda_ms(torch, lambda: takum_codec.encode(x, spec)),
            "bound_ms": b_ms, "bound_by": b_by,
            "word_bytes": words.element_size()}
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}[
+        words.element_size()]
+    as_ints = words.view(ints)
+    row["decode_stream_ms"] = cuda_ms(
+        torch, lambda: as_ints.to(torch.float32))
+    row["encode_stream_ms"] = cuda_ms(torch, lambda: x.to(ints))
     if plain:
         row["decode_plain_ms"] = cuda_ms(
             torch, lambda: ref.decode_ref(words, spec), iters=2, warmup=1)
         row["encode_plain_ms"] = cuda_ms(
             torch, lambda: ref.encode_ref(x, spec), iters=2, warmup=1)
+    if spec.has_lut:            # posit8: the computed decode beside
+        kept = os.environ.get("REPRO_LUT_DECODE")
+        os.environ["REPRO_LUT_DECODE"] = "0"
+        try:
+            row["decode_computed_ms"] = cuda_ms(
+                torch, lambda: takum_codec.decode(words, spec))
+        finally:
+            if kept is None:
+                os.environ.pop("REPRO_LUT_DECODE")
+            else:
+                os.environ["REPRO_LUT_DECODE"] = kept
     if n <= 16:
         table = ref.decode_ref(to_words(torch.arange(2 ** n, device=dev),
                                         spec.word_dtype), spec)
@@ -3459,6 +3496,67 @@ def width_times(torch, dev, n, kind, plain):
     else:
         row["decode_library_ms"] = None
     return row
+
+
+def encode_sweep(torch, dev, n, kind):
+    """Every ``SWEEP_STRIDE``-th float32 bit pattern (about 70 M: every
+    exponent and sign, subnormals, infinities and NaNs) through the encode
+    kernel at width n, bit for bit against the plain version on the card,
+    in chunks of 2^24."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import lanes
+    from repro_torch.kernels import ref, takum_codec
+    spec = formats.resolve(kind, n)
+    total, chunk, bad = -(-(1 << 32) // SWEEP_STRIDE), 1 << 24, 0
+    for i0 in range(0, total, chunk):
+        k = torch.arange(i0, min(i0 + chunk, total), device=dev,
+                         dtype=torch.int64)
+        b = k * SWEEP_STRIDE
+        x = torch.where(b >= 1 << 31, b - (1 << 32), b).to(
+            torch.int32).view(torch.float32)
+        bad += int((lanes(takum_codec.encode(x, spec))
+                    != lanes(ref.encode_ref(x, spec))).sum())
+    check(bad == 0, f"{spec.name}: {bad} of {total} swept patterns encode "
+          "otherwise than the plain version")
+    return {"patterns": total, "stride": SWEEP_STRIDE, "differ": bad}
+
+
+def ragged_check(torch, dev):
+    """Counts 1..33 at offsets 0 and 1 (a misaligned view) through the
+    decode and encode wrappers at ``RAGGED_WIDTHS`` and every kind (posit8
+    through its table), against the plain version on the card: the
+    vectors' scalar tail and the wrappers' alignment. Linear and posit
+    bit for bit; LNS decodes within 2 ulp, encodes the plain version's
+    word or, at a logf tie, its neighbour (``lns_encode_ok``)."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import lanes
+    from repro_torch.kernels import ref, takum_codec
+    base = float_sample(torch, dev, 16, "linear", 77)[:64]
+    cases = 0
+    for n in RAGGED_WIDTHS:
+        for kind in CODEC_KINDS:
+            spec = formats.resolve(kind, n)
+            words = takum_codec.encode(base, spec)
+            for off in (0, 1):
+                for cnt in range(1, 34):
+                    x, w = base[off:off + cnt], words[off:off + cnt]
+                    gw = lanes(takum_codec.encode(x, spec))
+                    ww = lanes(ref.encode_ref(x, spec))
+                    ok = (bool(lns_encode_ok(
+                        gw, ww, *lns_encode_bounds(torch, x, n), n).all())
+                          if kind == "lns" else torch.equal(gw, ww))
+                    got = takum_codec.decode(w, spec)
+                    want = ref.decode_ref(w, spec)
+                    nan = torch.isnan(want)
+                    ok = ok and torch.equal(torch.isnan(got), nan) and (
+                        bool(nan.all()) or int(ulps(
+                            torch, got[~nan], want[~nan]).max())
+                        <= (2 if kind == "lns" else 0))
+                    check(ok, f"{spec.name}: count {cnt} at offset {off} "
+                          "differs from the plain version")
+                    cases += 1
+    return {"cases": cases, "counts": "1-33", "offsets": [0, 1],
+            "widths": list(RAGGED_WIDTHS), "equal": True}
 
 
 def width_fake_quant(torch, dev, n, kind):
@@ -3550,12 +3648,43 @@ def fault0_attention_check(torch, dev, hkv, grp, hd, tq, tmax, starts,
                    .repeat_interleave(grp, 0)).abs().max())
     check(early <= ATTN_ATOL, f"hd {hd}: rows before start are not the "
           f"uniform average of V ({early})")
+    # the bound: q read and the output written in f32, K and V words once;
+    # each row r >= start dots and weighs keys start..r (the rows before
+    # start average V, a sum a key)
+    keys_needed = sum(max(0, r - s0 + 1) for s0 in starts
+                      for r in range(tq)) * grp * hkv
+    b_ms, b_by = bound(q.numel() * 4 * 2 + 2 * b * tmax * hkv * hd,
+                       4 * hd * keys_needed * tf32_products(t8), TF32_FLOPS)
+    # the yardstick: scaled_dot_product_attention on K/V decoded
+    # beforehand, keys start..r for row r (rows before start mask every
+    # key and are left out of any comparison: SDPA gives no average there)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kf = ref.decode_ref(kc, t8).transpose(1, 2)
+    vf = ref.decode_ref(vc, t8).transpose(1, 2)
+    qf = q.transpose(1, 2)
+    j = torch.arange(tmax, device=dev)
+    r = torch.arange(tq, device=dev)[:, None]
+    mask = ((j[None, None, :] <= r[None]) & (j[None, None, :]
+            >= st.long()[:, None, None]))[:, None]
+    lib = sdpa(qf, kf, vf, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+    late = (r[None, :, 0] >= st.long()[:, None])[:, :, None, None]
+    lib_err = float(torch.where(late, (lib - got).abs(),
+                                torch.zeros_like(got)).max())
     return {"shape": [b, tq, hkv * grp, hd], "tmax": tmax, "starts": starts,
             "max_abs_err": err, "rows_before_start_max_abs_err": early,
             "ms": cuda_ms(torch, lambda: ops.takum_attention(
                 q, kc, vc, 8, t8, pos=0, start=st), iters=10),
             "ms_no_start": cuda_ms(torch, lambda: ops.takum_attention(
-                q, kc, vc, 8, t8, pos=0, start=None), iters=10)}
+                q, kc, vc, 8, t8, pos=0, start=None), iters=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": cuda_ms(torch, lambda: ref.attention_ref(
+                q, kc, vc, 8, t8, pos=0, start=st), iters=2, warmup=1),
+            "library_ms": cuda_ms(torch, lambda: sdpa(
+                qf, kf, vf, attn_mask=mask, enable_gqa=True), iters=10),
+            "library_call": "scaled_dot_product_attention(enable_gqa=True) "
+                            "on K/V decoded beforehand, keys start..r for "
+                            "row r (rows before start not compared)",
+            "library_max_abs_err_rows_after_start": lib_err}
 
 
 def codec_widths_phase(torch, dev):
@@ -3574,6 +3703,9 @@ def codec_widths_phase(torch, dev):
             checks[f"{kind}{n}"] = width_codec_check(torch, dev, n, kind,
                                                      1000 + 10 * i + j)
     hw = {str(n): hw_path_check(torch, dev, n, 2000 + n) for n in WIDTHS_HW}
+    sweep = {f"{kind}{n}": encode_sweep(torch, dev, n, kind)
+             for kind, n in SWEEP_FORMATS}
+    ragged = ragged_check(torch, dev)
     fq = {f"{kind}{n}": width_fake_quant(torch, dev, n, kind)
           for n in WIDTHS_FQ for kind in CODEC_KINDS}
     times = {str(n): {kind: width_times(torch, dev, n, kind,
@@ -3611,6 +3743,7 @@ def codec_widths_phase(torch, dev):
     torch.cuda.synchronize()
     return {"checks": checks, "hw_path": hw, "fake_quant": fq,
             "times": times, "attention_rows_before_start": attn,
+            "encode_sweep": sweep, "ragged": ragged,
             "launches": launches, "launches_per_format": per}
 
 
@@ -3895,6 +4028,10 @@ def main() -> int:
         kernels[k]["launches"] = launches[k]
     kernels["takum_codec"]["launches"] = (launches["takum_decode"]
                                           + launches["takum_encode"])
+    # the standalone encode's launches by phase: serving, and the set-up
+    # encodes of the wired weights
+    enc_launches = {"5": launches["takum_encode"]}
+    enc_setup = {"5": serve["setup_encode_launches"]}
     kv_append_launches = {"5": launches["kv_append"]}
     phase(5, "serving phi3-medium-14b full width", **serve)
     detail["serving"] = serve
@@ -4004,6 +4141,8 @@ def main() -> int:
           "wire matmul")
     kernels["lns_matmul"]["launches"] = lpath["lns_matmul"]
     kernels["takum_codec"]["launches"] += lpath["takum_codec"]
+    enc_launches["10"] = ll["takum_encode"]
+    enc_setup["10"] = lserve["setup_encode_launches"]
     kv_append_launches["10"] = lpath["kv_append"]
     for k in ("takum_codec", "attention", "paged_attention"):
         kernels[k]["launches_lns_serving"] = lpath[k]
@@ -4075,6 +4214,8 @@ def main() -> int:
           "matmul")
     kernels["takum_codec"]["launches"] += (pl["takum_decode"]
                                            + pl["takum_encode"])
+    enc_launches["15"] = pl["takum_encode"]
+    enc_setup["15"] = pserve["setup_encode_launches"]
     for k in ("qmatmul", "attention", "paged_attention"):
         kernels[k]["launches_posit_serving"] = ppath[k]
     kv_append_launches["15"] = ppath["kv_append"]
@@ -4143,6 +4284,8 @@ def main() -> int:
     check(fl["takum_encode"] == 0 and fl["lns_matmul"] == 0,
           "the float-KV serving run encoded words or ran the LNS matmul")
     kernels["takum_codec"]["launches"] += fl["takum_decode"]
+    enc_launches["18"] = fl["takum_encode"]
+    enc_setup["18"] = fserve["setup_encode_launches"]
     kv_append_launches["18"] = fl["kv_append"]
     phase(18, "float kv caches", attention=fattn, reduced_card_vs_cpu=fred,
           serving=fserve)
@@ -4218,9 +4361,12 @@ def main() -> int:
 
     # -- 20-22. lockstep, the failure model, telemetry ---------------------
     cfg20 = full_width_cfg("takum8")
+    before = takum_codec.encode.launches
     params20, _ = full_width_params(torch, dev, cfg20, "takum8")
+    enc_setup["20"] = takum_codec.encode.launches - before
     lock = lockstep_phase(torch, dev, params20, cfg20, wrappers,
                           PHASE5_PLENS, 16)
+    enc_launches["20"] = lock["launches"].get("takum_encode", 0)
     phase(20, "lockstep phi3-medium-14b full width", **lock, card=card,
           tolerance=f"solo lockstep and the unpadded batch row: tokens "
                     f"equal to the solo scheduler's, or parting at a bf16 "
@@ -4382,8 +4528,13 @@ def main() -> int:
           encode_ms={n: {k: v["encode_ms"] for k, v in r.items()}
                      for n, r in widths_t.items()},
           bound_ms={n: r["linear"]["bound_ms"] for n, r in widths_t.items()},
+          posit8_computed_decode_ms=widths_t["8"]["posit"][
+              "decode_computed_ms"],
+          encode_sweep={k: v["differ"] for k, v in cw["encode_sweep"].items()},
+          ragged_cases=cw["ragged"]["cases"],
           attention_rows_before_start={
-              k: {kk: v[kk] for kk in ("max_abs_err", "ms", "ms_no_start")}
+              k: {kk: v[kk] for kk in ("max_abs_err", "ms", "ms_no_start",
+                                       "bound_ms", "plain_ms", "library_ms")}
               for k, v in cw["attention_rows_before_start"].items()},
           launches=cw["launches"], card=card,
           tolerance="linear and posit bit for bit (NaN by place); LNS "
@@ -4401,6 +4552,22 @@ def main() -> int:
         "decode": cw["launches"]["takum_decode"],
         "encode": cw["launches"]["takum_encode"]}
     kernels["takum_codec"]["max_abs_err_widths_ulps"] = worst_ulps
+    kernels["takum_codec"]["encode_sweep"] = cw["encode_sweep"]
+    kernels["takum_codec"]["redesigned"] = (
+        "magnitudes negated by two's complement, the encode from the "
+        "header cut of the float's exponent (a 4-8 KB block table, one "
+        "64-bit add and two funnel shifts), the takum decode from a "
+        "2048-entry table of the 11 bits after the sign, vectors of 4 "
+        "elements (16-byte float accesses), one wave of blocks")
+    enc = codec_t["encode_weights"]
+    kernels["takum_codec"]["encode"] = dict(
+        shape=enc["shape"], ms=enc["ms"], plain_ms=enc["plain_ms"],
+        bound_ms=enc["bound_ms"], bound_by=enc["bound_by"], library_ms=None,
+        launches=enc_launches, launches_setup=enc_setup,
+        launches_path="standalone encodes while serving (phase 10: the "
+                      "activations entering the LNS matmuls) and at set-up "
+                      "(the wired weights), phases 5 / 10 / 15 / 18 / 20")
+    kernels["takum_codec"]["ragged"] = cw["ragged"]
     kernels["fake_quant"]["widths"] = {
         k: dict(r, launches_phase33=per[k]["fake_quant"])
         for k, r in cw["fake_quant"].items()}

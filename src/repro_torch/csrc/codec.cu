@@ -6,20 +6,47 @@
 // (_decode_tile) and ::encode_kernel_call (_encode_tile), the Pallas
 // passes over (256, 128) VMEM tiles; their tile bodies call the format's
 // decode_tile/encode_tile: the linear takum, LNS takum or posit codec, and
-// for posit8 the 256-entry table of registry.py::_posit8_lut_decode. On the
-// H100 all of them are bound by bytes: 1, 2 or 4 bytes of words (8-, 16-
+// for posit8 the 256-entry table of registry.py::_posit8_lut_decode.
+//
+// What bounds them on the H100. Bytes: 1, 2 or 4 bytes of words (8-, 16-
 // or 32-bit storage) plus 4 bytes of float per element over 3.35 TB/s,
-// against a few dozen integer operations per element (plus one expf or
-// logf for LNS). Widths 8 and 16 are compiled for their N (Codec<N, K>,
-// as the served kernels); the others take n as a kernel argument
-// (wire::AnyWidth<K>, one instantiation per storage width and kind).
-// The design is a grid-stride loop of one element per thread and
-// iteration, so neighbouring threads touch neighbouring addresses and the
-// loads and stores coalesce; the arithmetic is the device functions of
-// takum.cuh and posit.cuh through wire.cuh's Codec<N, K>, shared with the
-// matmul, attention and fake-quant kernels. With the posit8 table
-// (K = POSIT_LUT) each block first builds its 256 entries in shared memory
-// (one computed decode per thread), then reads one entry per word.
+// 0.137 / 0.164 / 0.219 ms at [5120, 17920]. The integer pipes issue
+// about 64 operations an SM and clock (16 lanes a sub-partition), about
+// 15 T/s over 132 SMs, so an element may cost about 22 (8-bit words) to
+// 35 (32-bit) integer instructions before issue, not bytes, bounds the
+// kernel. The first design (one element a thread and iteration, the
+// barred-mantissa codec) spent 95-150 SASS instructions in its loops, one
+// element an iteration, and ran at 1.7-3.8x the byte bound. This design
+// cuts both sides:
+// * Memory: vectors of 4 consecutive elements, one 16-byte float access
+//   and one 4-, 8- or 16-byte word access each, so that a warp covers 512
+//   contiguous bytes of floats an access; two vectors a thread and
+//   iteration, both loads issued first, in a grid-stride loop over one
+//   wave of resident blocks (the kernel's occupancy, read once); a scalar
+//   tail takes the count's ragged end, and misaligned pointers (the
+//   wrappers pass 16-byte aligned ones) take the scalar loop throughout.
+// * Arithmetic (codec.cuh, takum.cuh, posit.cuh): magnitudes, with the
+//   sign applied by two's complement; the encode reads the cut of the
+//   float's exponent (or LNS characteristic) from a 4-8 KB block table
+//   and rounds with one 64-bit add and two funnel shifts, the clamp to
+//   [1, maxpos] being the saturation; the takum decode reads c and the
+//   mantissa's shift for the 11 bits after the sign from a 2048-entry
+//   block table (8 KB), the posit decode counts its regime with one
+//   __clz, and takum8 / lns-takum8 / posit8 read the 256 decoded floats.
+//   LNS keeps one logf (encode) or expf (decode) an element.
+// Each block fills its tables for the launch's n before its loop (2048
+// entries at most, against tens of thousands of elements a block at the
+// main path's sizes). Widths and kinds share one kernel per (storage,
+// kind, mode): n is a kernel argument.
+// What bounds them now (an H100 80GB HBM3 at 700 W, [5120, 17920]): bytes
+// for the table decodes, the takum, LNS and posit decodes to 28 bits and
+// the linear takum and posit encodes, which run at 76-87% of the byte
+// bound, as fast as the 256-float table decode, which does about 13
+// instructions an element (tools/torch_kernel_times.py --codec-widths
+// reads the card's plain float32 stream rates beside them); issue for
+// the takum and posit decodes from n = 29 (the fraction's rounding into
+// float32 in registers: 61-67%) and the LNS encode at 8 bits (its logf:
+// 64%).
 //
 // In serving, the encode kernel writes the wire weights (WireMatrix.encode)
 // and, for LNS weights, the activations entering every LNS matmul; the
@@ -37,62 +64,112 @@
 // host dispatches to move a few KB in a decode step. Here one launch covers
 // K and V of a layer: each thread takes 4 consecutive elements of one head
 // row (one 16-byte load of f32, 8 bytes of bf16), encodes them with
-// Codec<N, K>::encode (or the identity codec's cast for a bf16 or f32
-// cache, round to nearest even as torch's cast), computes the destination
-// row itself from the device pos / table (nothing about pos reaches the
-// host, so the step can be replayed from a CUDA graph), and stores the 4
-// words at once (4, 8 or 16 bytes). Bound by bytes: K and V read once, the
-// words written once, plus pos and the table, over 3.35 TB/s (a decode
-// step's 2 x 4 x 10 x 128 bf16 values: 0.006 us; a prefill chunk's 2 x 256
-// x 10 x 128: 0.5 us; launch latency dominates both).
+// Codec<N, K>::encode (the register-only device functions, or the identity
+// codec's cast for a bf16 or f32 cache, round to nearest even as torch's
+// cast), computes the destination row itself from the device pos / table
+// (nothing about pos reaches the host, so the step can be replayed from a
+// CUDA graph), and stores the 4 words at once (4, 8 or 16 bytes). Bound by
+// bytes: K and V read once, the words written once, plus pos and the
+// table, over 3.35 TB/s (a decode step's 2 x 4 x 10 x 128 bf16 values:
+// 0.006 us; a prefill chunk's 2 x 256 x 10 x 128: 0.5 us; launch latency
+// dominates both).
 #include <cuda_runtime.h>
-#include "wire.cuh"
+#include "codec.cuh"
 
 namespace {
 
-template <int N, int K>
-__global__ void decode_kernel(const takum::WordT<N>* __restrict__ words,
-                              float* __restrict__ out, long long count) {
-    using C = wire::Codec<N, K>;
-    __shared__ typename C::Tab tab;
-    tab.fill(threadIdx.x, blockDim.x);
+// The codec kernels' vectors: 4 consecutive elements, one 16-byte float
+// access and one 4-, 8- or 16-byte word access (S-bit storage), so that a
+// warp's access covers 512 contiguous bytes of floats.
+template <int S>
+__device__ __forceinline__ void load_words(const wire::WordT<S>* p,
+                                           uint32_t w[4]) {
+    if constexpr (S == 8) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+        w[0] = v & 0xFFu; w[1] = (v >> 8) & 0xFFu;
+        w[2] = (v >> 16) & 0xFFu; w[3] = v >> 24;
+    } else if constexpr (S == 16) {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        w[0] = v.x & 0xFFFFu; w[1] = v.x >> 16;
+        w[2] = v.y & 0xFFFFu; w[3] = v.y >> 16;
+    } else {
+        const uint4 v = *reinterpret_cast<const uint4*>(p);
+        w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    }
+}
+
+template <int S>
+__device__ __forceinline__ void store_words(wire::WordT<S>* p,
+                                            const uint32_t w[4]) {
+    if constexpr (S == 8)
+        *reinterpret_cast<uint32_t*>(p) =
+            w[0] | (w[1] << 8) | (w[2] << 16) | (w[3] << 24);
+    else if constexpr (S == 16)
+        *reinterpret_cast<uint2*>(p) =
+            make_uint2(w[0] | (w[1] << 16), w[2] | (w[3] << 16));
+    else
+        *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// count words -> floats: nvec vectors of 4, two a thread and iteration
+// (both loads issued first), then the scalar rest.
+template <int S, int K, int M>
+__global__ void __launch_bounds__(256)
+decode_kernel(const wire::WordT<S>* __restrict__ words,
+              float* __restrict__ out, long long count, long long nvec,
+              int n) {
+    __shared__ uint32_t tab[codec::DecodeSize<M>::value];
+    codec::fill_decode<K, M>(tab, n, threadIdx.x, blockDim.x);
     __syncthreads();
+    const codec::Width c(n, 23);
     const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < count; i += stride)
-        out[i] = C::decode(words[i], tab);
+    const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (long long i = gid; i < nvec; i += 2 * stride) {
+        const long long j = i + stride;
+        uint32_t a[4], b[4];
+        float y[4];
+        load_words<S>(words + 4 * i, a);
+        if (j < nvec) load_words<S>(words + 4 * j, b);
+        codec::decode4<K, M>(a, y, c, tab);
+        out4[i] = make_float4(y[0], y[1], y[2], y[3]);
+        if (j < nvec) {
+            codec::decode4<K, M>(b, y, c, tab);
+            out4[j] = make_float4(y[0], y[1], y[2], y[3]);
+        }
+    }
+    for (long long i = 4 * nvec + gid; i < count; i += stride)
+        out[i] = codec::decode1<K, M>(words[i], c, tab);
 }
 
-template <int N, int K>
-__global__ void encode_kernel(const float* __restrict__ x,
-                              takum::WordT<N>* __restrict__ words,
-                              long long count) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < count; i += stride)
-        words[i] = (takum::WordT<N>)wire::Codec<N, K>::encode(x[i]);
-}
-
-// The other widths (6 <= n <= 32 but for 8 and 16): n at run time, words
-// in S-bit storage (wire::AnyWidth). The same grid-stride design.
+// count floats -> words: nvec vectors of 4, two a thread and iteration,
+// then the scalar rest.
 template <int S, int K>
-__global__ void decode_any_kernel(const wire::WordT<S>* __restrict__ words,
-                                  float* __restrict__ out, long long count,
-                                  int n) {
+__global__ void __launch_bounds__(256)
+encode_kernel(const float* __restrict__ x, wire::WordT<S>* __restrict__ words,
+              long long count, long long nvec, int n) {
+    __shared__ uint4 tab[codec::EncodeSize<K>::value];
+    codec::fill_encode<K>(tab, n, threadIdx.x, blockDim.x);
+    __syncthreads();
+    const codec::Width c(n, K == wire::LNS ? 22 : 23);
     const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < count; i += stride)
-        out[i] = wire::AnyWidth<K>::decode(words[i], n);
-}
-
-template <int S, int K>
-__global__ void encode_any_kernel(const float* __restrict__ x,
-                                  wire::WordT<S>* __restrict__ words,
-                                  long long count, int n) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < count; i += stride)
-        words[i] = (wire::WordT<S>)wire::AnyWidth<K>::encode(x[i], n);
+    const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    for (long long i = gid; i < nvec; i += 2 * stride) {
+        const long long j = i + stride;
+        const float4 a = x4[i];
+        float4 b;
+        if (j < nvec) b = x4[j];
+        uint32_t w[4];
+        codec::encode4<K>(a, w, c, tab);
+        store_words<S>(words + 4 * i, w);
+        if (j < nvec) {
+            codec::encode4<K>(b, w, c, tab);
+            store_words<S>(words + 4 * j, w);
+        }
+    }
+    for (long long i = 4 * nvec + gid; i < count; i += stride)
+        words[i] = (wire::WordT<S>)codec::encode_rare<K>(x[i], n);
 }
 
 // Identity words of a float cache: f32 as it is, bf16 rounded to nearest
@@ -179,59 +256,121 @@ int grid_for(long long count) {
     return blocks < 1 ? 1 : (int)blocks;
 }
 
+// One wave of a codec kernel: as many blocks of 256 threads as fit on
+// every SM at once (the occupancy of that kernel, read once), each filling
+// its tables once, or fewer for a short count.
+template <auto kernel>
+int codec_grid(long long items) {
+    static int wave = 0;
+    if (wave == 0) {
+        int dev = 0, sms = 0, per = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, 256, 0);
+        wave = (sms > 0 ? sms : 132) * (per > 0 ? per : 1);
+    }
+    const long long blocks = (items + 255) / 256;
+    return blocks < 1 ? 1 : (blocks < wave ? (int)blocks : wave);
+}
+
+bool aligned16(const void* a, const void* b) {
+    return ((uintptr_t)a % 16 == 0) && ((uintptr_t)b % 16 == 0);
+}
+
+template <int S, int K, int M>
+int launch_decode(int n, const void* words, float* out, long long count,
+                  cudaStream_t st) {
+    const long long nvec = aligned16(words, out) ? count / 4 : 0;
+    constexpr auto kernel = decode_kernel<S, K, M>;
+    kernel<<<codec_grid<kernel>(nvec ? (nvec + 1) / 2 : count), 256, 0,
+             st>>>((const wire::WordT<S>*)words, out, count, nvec, n);
+    return (int)cudaGetLastError();
+}
+
+template <int S, int K>
+int launch_encode(int n, const float* x, void* words, long long count,
+                  cudaStream_t st) {
+    const long long nvec = aligned16(x, words) ? count / 4 : 0;
+    constexpr auto kernel = encode_kernel<S, K>;
+    kernel<<<codec_grid<kernel>(nvec ? (nvec + 1) / 2 : count), 256, 0,
+             st>>>(x, (wire::WordT<S>*)words, count, nvec, n);
+    return (int)cudaGetLastError();
+}
+
+// The decode of (storage S, kind) at width n: the 256-float table for the
+// 8-bit formats that have one (takum_decode), the header table for linear
+// takum to 28 bits and LNS takum, the registers for posit and for linear
+// takum from 29 bits (32-bit storage only).
+template <int S>
+int decode_storage(int n, int kind, const void* words, float* out,
+                   long long count, cudaStream_t st) {
+    using namespace wire;
+    if constexpr (S == 32)
+        if (kind == LINEAR && n > 28)
+            return launch_decode<S, LINEAR, codec::REGISTERS>(n, words, out,
+                                                               count, st);
+    if (kind == LINEAR)
+        return launch_decode<S, LINEAR, codec::HEADER>(n, words, out, count,
+                                                        st);
+    if (kind == LNS)
+        return launch_decode<S, LNS, codec::HEADER>(n, words, out, count, st);
+    if (kind == POSIT)
+        return launch_decode<S, POSIT, codec::REGISTERS>(n, words, out,
+                                                         count, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int S>
+int encode_storage(int n, int kind, const float* x, void* words,
+                   long long count, cudaStream_t st) {
+    using namespace wire;
+    if (kind == LINEAR) return launch_encode<S, LINEAR>(n, x, words, count, st);
+    if (kind == LNS) return launch_encode<S, LNS>(n, x, words, count, st);
+    if (kind == POSIT) return launch_encode<S, POSIT>(n, x, words, count, st);
+    return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // kind: the format code of wire.cuh (0 linear takum, 1 logarithmic takum,
-// 2 posit, 3 posit8 through the table); n: 6 <= n <= 32 (8 and 16 through
-// Codec<N, K>, the others through AnyWidth<K> in their storage).
+// 2 posit, 3 posit8 through the table); n: 6 <= n <= 32, words in
+// 8-, 16- or 32-bit storage.
 extern "C" int takum_decode(int n, int kind, const void* words, float* out,
                             long long count, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (count <= 0) return (int)cudaGetLastError();
-#define CASE(NN, KK)                                                        \
-    if (n == NN && kind == KK                                               \
-        && (!CODEC_ANY_WIDTH || KK == wire::POSIT_LUT)) {                   \
-        decode_kernel<NN, KK><<<grid_for(count), 256, 0, st>>>(             \
-            (const takum::WordT<NN>*)words, out, count);                    \
-        return (int)cudaGetLastError();                                     \
+    if (n < 6 || n > 32 || (kind == wire::POSIT_LUT && n != 8))
+        return (int)cudaErrorInvalidValue;
+    if (n == 8) {
+        const bool t8 = !WIRE_TAKUM8_COMPUTED;
+        if (kind == wire::POSIT_LUT)
+            return launch_decode<8, wire::POSIT_LUT, codec::TABLE8>(
+                n, words, out, count, st);
+        if (t8 && kind == wire::LINEAR)
+            return launch_decode<8, wire::LINEAR, codec::TABLE8>(
+                n, words, out, count, st);
+        if (t8 && kind == wire::LNS)
+            return launch_decode<8, wire::LNS, codec::TABLE8>(
+                n, words, out, count, st);
     }
-    WIRE_DECODE_FORMATS(CASE)
-#undef CASE
-    if (n < 6 || n > 32) return (int)cudaErrorInvalidValue;
-#define CASE(SS, KK)                                                        \
-    if (wire::storage_bits(n) == SS && kind == KK) {                        \
-        decode_any_kernel<SS, KK><<<grid_for(count), 256, 0, st>>>(         \
-            (const wire::WordT<SS>*)words, out, count, n);                  \
-        return (int)cudaGetLastError();                                     \
+    switch (wire::storage_bits(n)) {
+        case 8: return decode_storage<8>(n, kind, words, out, count, st);
+        case 16: return decode_storage<16>(n, kind, words, out, count, st);
+        default: return decode_storage<32>(n, kind, words, out, count, st);
     }
-    WIRE_ANY_WIDTH_FORMATS(CASE)
-#undef CASE
-    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int takum_encode(int n, int kind, const float* x, void* words,
                             long long count, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (count <= 0) return (int)cudaGetLastError();
-    if (kind == wire::POSIT_LUT) kind = wire::POSIT;   // a decode path only
-#define CASE(NN, KK)                                                        \
-    if (n == NN && kind == KK && !CODEC_ANY_WIDTH) {                        \
-        encode_kernel<NN, KK><<<grid_for(count), 256, 0, st>>>(             \
-            x, (takum::WordT<NN>*)words, count);                            \
-        return (int)cudaGetLastError();                                     \
-    }
-    WIRE_ENCODE_FORMATS(CASE)
-#undef CASE
     if (n < 6 || n > 32) return (int)cudaErrorInvalidValue;
-#define CASE(SS, KK)                                                        \
-    if (wire::storage_bits(n) == SS && kind == KK) {                        \
-        encode_any_kernel<SS, KK><<<grid_for(count), 256, 0, st>>>(         \
-            x, (wire::WordT<SS>*)words, count, n);                          \
-        return (int)cudaGetLastError();                                     \
+    if (kind == wire::POSIT_LUT) kind = wire::POSIT;   // a decode path only
+    switch (wire::storage_bits(n)) {
+        case 8: return encode_storage<8>(n, kind, x, words, count, st);
+        case 16: return encode_storage<16>(n, kind, x, words, count, st);
+        default: return encode_storage<32>(n, kind, x, words, count, st);
     }
-    WIRE_ANY_WIDTH_FORMATS(CASE)
-#undef CASE
-    return (int)cudaErrorInvalidValue;
 }
 
 // The fused K/V append of one layer (see the header). n: word bits (8 or

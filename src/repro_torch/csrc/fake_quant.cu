@@ -6,8 +6,10 @@
 // (256, 128) VMEM tiles without the word tensor ever reaching HBM. Here,
 // for linear takum, logarithmic takum and posit (posit8 computed or through
 // its 256-entry shared-memory table), at every width 6 <= n <= 32, through
-// the same device functions as the codec kernels (wire::Codec<N, K> at 8
-// and 16 bits, wire::AnyWidth<K> with n at run time otherwise).
+// the register-only device functions of takum.cuh and posit.cuh, which
+// the codec kernels (codec.cu) share for their rare elements
+// (wire::Codec<N, K> at 8 and 16 bits, wire::AnyWidth<K> with n at run
+// time otherwise).
 //
 // What bounds it on the H100: bytes. One float32 read and one float32 (or
 // bfloat16) write per element, 8 (or 6) bytes over 3.35 TB/s, against a

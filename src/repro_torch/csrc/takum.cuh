@@ -18,11 +18,37 @@
 // never lands on the 0 or NaR words; NaN -> NaR; +-inf -> largest
 // magnitude). Build without --use_fast_math: the subnormal band is exact.
 //
+// The dataflow takes magnitudes and negates by two's complement: a word w
+// with S = 1 decodes to minus the value of (-w) mod 2^n, and a negative
+// float encodes to (-word of |x|) mod 2^n (both hold for every word and
+// float, linear, LNS and posit; the zero word decodes to +0). So no barred
+// mantissa is ever formed.
+// * Encode: a positive float 2^e (1 + m / 2^23) is the word
+//   clamp(RNE((P << 23 | m) >> cut), 1, 2^(n-1) - 1), where P is the
+//   header of characteristic c = e (D, R and the r bits of c: L = 4 + r
+//   bits) and cut = L + 24 - n (negative from n = 29 next to a short
+//   header: a shift up). The word order is the value order, so a carry out
+//   of the mantissa moves to the next characteristic by itself, and the
+//   clamp is the saturation (never 0 or NaR). P and the cut depend on c
+//   alone: `Cut` holds P << (wm + pre) in two 32-bit lanes with the cut in
+//   the low five bits; one 64-bit add and two funnel shifts round it
+//   (round_entry).
+//   The codec kernels read a Cut per float exponent from a block table
+//   (csrc/codec.cuh); the device functions here compute it (takum_cut).
+// * Decode: the header of a positive word (D, R and at most 7 bits of c)
+//   lies in the 11 bits after the sign (ghost bits appended below 12), so
+//   c and the mantissa width follow from those bits alone: the float32
+//   bits are (c + 127) << 23 | mant << (23 - p); outside float32's normal
+//   range, or from n = 29 (the fraction rounds into float32), the word is
+//   assembled by assemble_f32_n. The codec kernels read the header from a
+//   2048-entry block table (decode_entry); the device functions decode it
+//   in registers (header_of).
+//
 // Widths: 6 <= n <= 32, read from the unsigned storage of the word (8, 16
 // or 32 bits). Every function takes n at run time (the `_n` forms); the
 // template forms decode<N>, encode<N>, lns_parts<N>, lns_decode<N> and
 // lns_encode<N> that the served kernels instantiate at N = 8 and 16 call
-// them with a constant n, which folds to the code they had before. The
+// them with a constant n, which folds to straight-line code. The
 // mantissa field is frac_width = max(n, 12) - 5 bits: up to n = 28 the
 // float32 fraction is a left shift of it; from n = 29 (27 bits at n = 32)
 // it is rounded into float32 as the plain version does (f32_fraction).
@@ -32,7 +58,9 @@
 // logf (full precision), so they agree with the plain torch codec to an ulp
 // or two of exp and log: decode values within 2 ulp, encode words equal or,
 // where the log lands at a rounding tie of the ell_bar grid, the
-// neighbouring word. From n = 28 the decode takes ell in a 64-bit lane.
+// neighbouring word. The LNS encode's integer tail rounds ell_bar's fixed
+// point form through the same Cut (wm = 22, c in [-256, 256]). From n = 28
+// the decode takes ell in a 64-bit lane.
 #pragma once
 #include <cstdint>
 #include <math.h>
@@ -89,9 +117,178 @@ __device__ __forceinline__ float assemble_f32_n(uint32_t s, uint32_t mf,
     return __uint_as_float(bits);
 }
 
+// (-w) mod 2^n for S = 1, else w: the magnitude word (its bit n - 1 is 0
+// but for NaR).
+__device__ __forceinline__ uint32_t magnitude(uint32_t w, uint32_t s, int n) {
+    return s ? (0u - w) & low_bits(n) : w;
+}
+
+// ---- encode: a header P and its cut -----------------------------------
+
+// The shift up applied to P << wm | m so that the cut is at least 1: the
+// shortest header (L = 4) cuts at wm + 5 - n.
+__device__ __forceinline__ int cut_pre(int n, int wm) {
+    return n - wm - 4 > 1 ? n - wm - 4 : 1;
+}
+
+// A header P of L bits for mantissas of wm bits at width n: the 64-bit
+// P << (wm + pre) in two lanes, lo's low five bits (zero in the shifted
+// P, since wm + pre >= 23) holding the cut L + wm + 1 - n + pre, which is
+// in [1, 31]: the kept word has at most n - 1 bits, and the bits below
+// the cut are all in lo.
+struct Cut {
+    uint32_t lo, hi;
+};
+
+__device__ __forceinline__ Cut make_cut(uint64_t p, int len, int n, int wm) {
+    const int pre = cut_pre(n, wm);
+    const uint64_t x = p << (wm + pre);
+    return {(uint32_t)x | (uint32_t)(len + wm + 1 - n + pre),
+            (uint32_t)(x >> 32)};
+}
+
+// Cuts that saturate whatever the mantissa: to the largest magnitude (the
+// kept word has bit 31 set and clamps) and to the smallest (it is 0 and
+// clamps to 1).
+__device__ __forceinline__ Cut cut_over() { return {1u, 1u}; }
+__device__ __forceinline__ Cut cut_under() { return {31u, 0u}; }
+
+// A cut as the codec kernels' encode tables hold it (16 bytes): the
+// shifted P in x (low bits clear) and y, the cut z and the RNE bias
+// 2^(z - 1) - 1 in w.
+__device__ __forceinline__ uint4 cut_entry(Cut k) {
+    const uint32_t sh = k.lo & 31u;
+    return make_uint4(k.lo & ~31u, k.hi, sh, (1u << (sh - 1)) - 1u);
+}
+
+// RNE((P << wm | m) >> cut) clamped to [1, top = 2^(n-1) - 1] from a cut
+// entry e and mp = m << cut_pre(n, wm): the magnitude word of a positive
+// value. The rounding adds the bias and the kept word's last bit before
+// the shift (ties to even), one 64-bit add and two funnel shifts.
+__device__ __forceinline__ uint32_t round_entry(uint4 e, uint32_t mp,
+                                                uint32_t top) {
+    const uint32_t lo = e.x | mp;
+    const uint32_t kept = __funnelshift_r(lo, e.y, e.z);
+    const unsigned long long x =
+        (((unsigned long long)e.y << 32) | lo) + (e.w + (kept & 1u));
+    const uint32_t w = __funnelshift_r((uint32_t)x, (uint32_t)(x >> 32), e.z);
+    return w < 1u ? 1u : (w > top ? top : w);
+}
+
+// round_entry of a cut computed in registers, m of wm bits.
+__device__ __forceinline__ uint32_t round_cut(Cut k, uint32_t m, int n,
+                                              int wm) {
+    return round_entry(cut_entry(k), m << cut_pre(n, wm), low_bits(n - 1));
+}
+
+// The header of characteristic c in [-255, 254]: D, R (r or 7 - r) and
+// the r low bits of c + 1 (D = 1) or of ~c (D = 0), L = 4 + r bits.
+__device__ __forceinline__ Cut takum_cut(int c, int n, int wm) {
+    const uint32_t d = c >= 0 ? 1u : 0u;
+    const uint32_t t = (uint32_t)((d ? c : ~c) + 1);        // [1, 255]
+    const int r = 31 - __clz(t);
+    const uint32_t r3 = d ? (uint32_t)r : (uint32_t)(7 - r);
+    const uint32_t cbits = (d ? t : ~t) & ((1u << r) - 1u);
+    return make_cut((d << (3 + r)) | (r3 << r) | cbits, 4 + r, n, wm);
+}
+
+// A float32's magnitude bits (nonzero, finite) as 2^e (1 + m / 2^23):
+// the index e + 150 of a per-exponent table (1..277: subnormals
+// normalised to 1..23, normals 24..277) and the 23-bit fraction m.
+__device__ __forceinline__ int exp_index(uint32_t mag, uint32_t& m) {
+    const int lz = __clz(mag) - 8;              // > 0: a subnormal
+    const int sh = lz > 0 ? lz : 0;
+    m = (mag << sh) & 0x7FFFFFu;
+    return lz > 0 ? 24 - lz : (int)(mag >> 23) + 23;
+}
+
+// The signed n-bit word of a float from the magnitude word w of |x|:
+// +-0 -> 0, NaN -> NaR, +-inf -> the largest magnitude, then negated for
+// S = 1.
+__device__ __forceinline__ uint32_t signed_word(uint32_t bits, uint32_t w,
+                                                int n) {
+    const uint32_t mag = bits & 0x7FFFFFFFu;
+    if (mag == 0x7F800000u) w = low_bits(n - 1);
+    if (mag == 0u) w = 0u;
+    if (mag > 0x7F800000u) return 1u << (n - 1);
+    return magnitude(w, bits >> 31, n);
+}
+
+// float32 -> n-bit takum word (in the low n bits): c = e.
+__device__ __forceinline__ uint32_t encode_n(float x, int n) {
+    const uint32_t bits = __float_as_uint(x);
+    uint32_t m;
+    const int i = exp_index(bits & 0x7FFFFFFFu, m);
+    return signed_word(bits, round_cut(takum_cut(i - 150, n, 23), m, n, 23),
+                       n);
+}
+
+template <int N>
+__device__ __forceinline__ uint32_t encode(float x) { return encode_n(x, N); }
+
+// ---- decode: the header of a positive word ----------------------------
+
+// The characteristic c, regime r and mantissa bits p12 of a positive word
+// t (n12 = max(n, 12) bits, ghost bits appended), and its header value
+// t >> p12 (D, R, C: 4 + r bits).
+struct Header {
+    int c, r, p12;
+};
+
+__device__ __forceinline__ Header header_of(uint32_t t, int n12) {
+    const uint32_t d = (t >> (n12 - 2)) & 1u;
+    const int rb = (int)((t >> (n12 - 5)) & 7u);
+    const int r = d ? rb : 7 - rb;
+    const int p12 = n12 - 5 - r;
+    const int uc = (int)((t >> p12) & ((1u << r) - 1u));
+    return {d ? (1 << r) - 1 + uc : -(1 << (r + 1)) + 1 + uc, r, p12};
+}
+
+// The float32 bits of a positive n-bit takum word a (not 0).
+__device__ __forceinline__ uint32_t positive_bits(uint32_t a, int n) {
+    const int n12 = n < 12 ? 12 : n;
+    const uint32_t t = a << (n12 - n);           // ghost bits
+    const Header h = header_of(t, n12);
+    const uint32_t mant = t & ((1u << h.p12) - 1u);
+    if (n <= 28 && h.c >= -126 && h.c <= 127)
+        return ((uint32_t)(h.c + 127) << 23) | (mant << (23 - h.p12));
+    return __float_as_uint(assemble_f32_n(0u, mant << h.r, h.c, n12 - 5));
+}
+
+// n-bit takum word -> float32.
+__device__ __forceinline__ float decode_n(uint32_t w, int n) {
+    w &= low_bits(n);
+    const uint32_t s = w >> (n - 1);
+    if ((w & low_bits(n - 1)) == 0u)
+        return s ? __uint_as_float(0x7FC00000u) : 0.0f;
+    return __uint_as_float(positive_bits(magnitude(w, s, n), n) | (s << 31));
+}
+
+template <int N>
+__device__ __forceinline__ float decode(uint32_t w) { return decode_n(w, N); }
+
+// The codec kernels' decode table: one 32-bit entry for each value of the
+// 11 bits after the sign (the header and the mantissa's first bits of the
+// 12-bit form, ghost bits appended), at width n. Linear takum: the float32
+// bits of a positive word are (t << sh) + A, t its n12-bit form, with A =
+// (c + 127 - header) << 23 in bits 23-31 and sh = 23 - p12 in bits 0-4;
+// bit 5 marks a header whose value is not a float32 normal or a width
+// whose fraction rounds (n >= 29), decoded in registers instead. Entry 0
+// (the zero word, NaR, c = -255) is marked with A = 0 and sh = 0, so the
+// zero word gives +0 without the mark.
+__device__ __forceinline__ uint32_t decode_entry(uint32_t idx, int n) {
+    if (idx == 0u) return 32u;      // marked, A = 0 and sh = 0: the zero word
+    const Header h = header_of(idx, 12);
+    const int n12 = n < 12 ? 12 : n;
+    const uint32_t rare = (n > 28 || h.c < -126 || h.c > 127) ? 32u : 0u;
+    return ((uint32_t)(h.c + 127 - (int)(idx >> h.p12)) << 23)
+           | (uint32_t)((23 - (n12 - 5 - h.r)) & 31) | rare;
+}
+
 // The fields of an n-bit takum word (ghost bits appended below 12 bits):
 // sign, characteristic c, the mantissa field left-aligned at
-// frac_width(n) bits, and whether it is the 0 / NaR word.
+// frac_width(n) bits, and whether it is the 0 / NaR word. The raw word's
+// fields (S = 1 barred), as the LNS matmul's integer lanes take them.
 struct Fields {
     uint32_t s;
     int c;
@@ -102,110 +299,14 @@ struct Fields {
 __device__ __forceinline__ Fields fields(uint32_t w, int n) {
     const int n12 = n < 12 ? 12 : n;
     const uint32_t t = w << (n12 - n);          // ghost bits
-    const uint32_t d = (t >> (n12 - 2)) & 1u;
-    const int rb = (int)((t >> (n12 - 5)) & 7u);
-    const int r = d ? rb : 7 - rb;              // regime
-    const int p12 = n12 - 5 - r;                // mantissa bits present
-    const int uc = (int)((t >> p12) & ((1u << r) - 1u));
+    const Header h = header_of(t & low_bits(n12 - 1), n12);
     Fields f;
     f.s = (t >> (n12 - 1)) & 1u;
     f.special = (t & low_bits(n12 - 1)) == 0u;
-    f.mant = (t & ((1u << p12) - 1u)) << r;
-    f.c = d ? (1 << r) - 1 + uc : -(1 << (r + 1)) + 1 + uc;
+    f.mant = (t & ((1u << h.p12) - 1u)) << h.r;
+    f.c = h.c;
     return f;
 }
-
-// n-bit takum word -> float32.
-__device__ __forceinline__ float decode_n(uint32_t w, int n) {
-    const int wf = (n < 12 ? 12 : n) - 5;      // mantissa field width
-    const Fields f = fields(w, n);
-    if (f.special) return f.s ? __uint_as_float(0x7FC00000u) : 0.0f;
-    // linear representation: e = (-1)^S (c + S); then un-bar S = 1 so that
-    // magnitude = (1 + mf / 2^wf) * 2^me
-    int me = f.s ? -(f.c + 1) : f.c;
-    uint32_t mf = f.mant;
-    if (f.s) {
-        if (f.mant != 0u) mf = (1u << wf) - f.mant;
-        else me += 1;
-    }
-    return assemble_f32_n(f.s, mf, me, wf);
-}
-
-template <int N>
-__device__ __forceinline__ float decode(uint32_t w) { return decode_n(w, N); }
-
-// (S, characteristic c, barred mantissa of wm bits) -> n-bit takum word
-// (in the low n bits): round to nearest, ties to the even word, saturating.
-// Out-of-range characteristics saturate to the largest or smallest
-// magnitude (never to 0 or NaR). For wm < n - 4 (n >= 28 from a float32's
-// 23 bits) the cut may lie below the mantissa: it is shifted up.
-__device__ __forceinline__ uint32_t encode_fields_n(uint32_t s, int c,
-                                                    uint32_t mant, int n,
-                                                    int wm) {
-    const bool over = c > 254, under = c < -255;
-    const bool sticky = over || under;
-    c = c > 254 ? 254 : (c < -255 ? -255 : c);
-    if (over) mant = (1u << wm) - 1u;
-    if (under) mant = 0u;
-    const uint32_t d = c >= 0 ? 1u : 0u;
-    const uint32_t cp = (uint32_t)((d ? c : ~c) + 1);        // [1, 255]
-    const int r = 31 - __clz(cp);
-    const uint32_t r3 = d ? (uint32_t)r : (uint32_t)(7 - r);
-    const uint32_t cbits = (d ? cp : ~cp) & ((1u << r) - 1u);
-    const int p = n - 5 - r;                     // mantissa bits that fit
-    const uint32_t header = (s << (n - 1)) | (d << (n - 2)) | (r3 << (n - 5));
-    const bool pad = wm < n - 4;                 // the cut may be below 1
-    uint32_t body, g;
-    bool rest;
-    if (p >= 0) {                                // cut inside the mantissa
-        const int cut = wm - p;
-        body = (cbits << p) | (!pad || cut >= 0 ? mant >> cut : mant << -cut);
-        const bool in = !pad || cut >= 1;
-        g = in ? (mant >> (cut - 1)) & 1u : 0u;
-        rest = in && (mant & ((1u << (cut - 1)) - 1u)) != 0u;
-    } else {                                     // cut inside c (n < 12)
-        const int cut_c = -p;
-        body = cbits >> cut_c;
-        g = (cbits >> (cut_c - 1)) & 1u;
-        rest = (cbits & ((1u << (cut_c - 1)) - 1u)) != 0u || mant != 0u;
-    }
-    rest = rest || sticky;
-    const uint32_t rd = header | body;
-    const uint32_t low = low_bits(n - 1);
-    const uint32_t ru = (rd + 1u) & low_bits(n);
-    const bool underflow_down = (rd & low) == 0u;   // RD is the 0/NaR word
-    const bool overflow_up = (ru & low) == 0u;      // RU wraps onto 0/NaR
-    const bool up = underflow_down || (!overflow_up && g && (rest || (rd & 1u)));
-    return up ? ru : rd;
-}
-
-// float32 -> n-bit takum word (in the low n bits).
-__device__ __forceinline__ uint32_t encode_n(float x, int n) {
-    const uint32_t bits = __float_as_uint(x);
-    const uint32_t s = bits >> 31;
-    const int exp_f = (int)((bits >> 23) & 0xFFu);
-    const uint32_t frac = bits & 0x7FFFFFu;
-    if (exp_f == 0 && frac == 0u) return 0u;                 // +-0
-    if (exp_f == 255 && frac != 0u) return 1u << (n - 1);    // NaN -> NaR
-    int big_e;
-    uint32_t m23;
-    if (exp_f == 0) {            // subnormal: (1 + f') * 2^(b - 149)
-        const int b = 31 - __clz(frac);
-        big_e = b - 149;
-        m23 = (frac << (23 - b)) & 0x7FFFFFu;
-    } else {
-        big_e = exp_f - 127;
-        m23 = frac;
-    }
-    // barred fraction: two's complement for S = 1, exponent borrow at 0
-    int e = (s && m23 == 0u) ? big_e - 1 : big_e;
-    uint32_t mant = (s && m23 != 0u) ? ((1u << 23) - m23) & 0x7FFFFFu : m23;
-    if (exp_f == 255) e = 10000;                 // inf saturates
-    return encode_fields_n(s, s ? ~e : e, mant, n, 23);    // c from e
-}
-
-template <int N>
-__device__ __forceinline__ uint32_t encode(float x) { return encode_n(x, N); }
 
 // The logarithmic side of the codec (representation (10)):
 // ell_bar = c * 2^wf + mant, the characteristic and the mantissa field side
@@ -234,24 +335,42 @@ __device__ __forceinline__ LnsParts lns_parts(uint32_t w) {
     return p;
 }
 
-// n-bit logarithmic takum word -> float32: (-1)^S sqrt(e)^ell, one expf
-// (full precision: no fast-math). Zero -> 0.0, NaR -> NaN. ell is exact in
-// an int up to n = 27 and in a 64-bit lane above; its conversion to
-// float32 rounds to nearest even, as the plain version's.
-__device__ __forceinline__ float lns_decode_n(uint32_t w, int n) {
+// ell_bar = c * 2^wf + mant of a positive word's n12-bit form t, where
+// t >> p12 is its header: (t << r) - (header << wf) + (c << wf). In a
+// 32-bit lane (wrapping, exact up to n = 27), or in 64 bits from n = 28.
+__device__ __forceinline__ float lns_ell(uint32_t t, int r, long long base,
+                                         int n) {
     const int wf = (n < 12 ? 12 : n) - 5;
-    const Fields f = fields(w, n);
-    if (f.special) return f.s ? __uint_as_float(0x7FC00000u) : 0.0f;
-    float ell;
-    if (n <= 27) {
-        const int eb = f.c * (1 << wf) + (int)f.mant;
-        ell = (float)(f.s ? -eb : eb);
-    } else {
-        const long long eb = (long long)f.c * (1ll << wf) + f.mant;
-        ell = (float)(f.s ? -eb : eb);
-    }
-    const float mag = expf(ell * (0.5f / (float)(1 << wf)));
-    return f.s ? -mag : mag;
+    if (n <= 27)
+        return (float)(int)((t << r) + ((uint32_t)base << wf));
+    return (float)(((long long)t << r) + base * (1ll << wf));
+}
+
+// n-bit logarithmic takum word -> float32: (-1)^S sqrt(e)^ell, one expf
+// (full precision: no fast-math), ell = ell_bar of the magnitude word.
+// Zero -> 0.0, NaR -> NaN. ell is exact in an int up to n = 27 and in a
+// 64-bit lane above; its conversion to float32 rounds to nearest even, as
+// the plain version's.
+__device__ __forceinline__ float lns_decode_n(uint32_t w, int n) {
+    w &= low_bits(n);
+    const int n12 = n < 12 ? 12 : n;
+    const int wf = n12 - 5;
+    const uint32_t s = w >> (n - 1);
+    if ((w & low_bits(n - 1)) == 0u)
+        return s ? __uint_as_float(0x7FC00000u) : 0.0f;
+    const uint32_t t = magnitude(w, s, n) << (n12 - n);
+    const Header h = header_of(t, n12);
+    const long long base = (long long)h.c - (long long)(t >> h.p12);
+    const float mag = expf(lns_ell(t, h.r, base, n) *
+                           (0.5f / (float)(1 << wf)));
+    return s ? -mag : mag;
+}
+
+// The LNS decode table of the codec kernels: c - header in bits 8-31
+// (signed) and r in bits 0-2, for the 11 bits after the sign.
+__device__ __forceinline__ int lns_entry(uint32_t idx) {
+    const Header h = header_of(idx, 12);
+    return ((h.c - (int)(idx >> h.p12)) << 8) | h.r;
 }
 
 template <int N>
@@ -259,23 +378,33 @@ __device__ __forceinline__ float lns_decode(uint32_t w) {
     return lns_decode_n(w, N);
 }
 
-// float32 -> n-bit logarithmic takum word: ell_bar = (-1)^S 2 ln|x| (one
-// logf), clipped to +-256, rounded half to even to 22 fraction bits, then
-// the integer RNE of encode_fields_n in ell_bar space (floor characteristic,
-// fractional remainder as the mantissa), saturating. NaN -> NaR,
-// +-0 -> 0, +-inf -> the largest magnitude of that sign.
+// The LNS encode's integer tail: the header cut of ell_bar's floor
+// characteristic c in [-256, 256] (wm = 22), saturating outside
+// [-255, 254].
+__device__ __forceinline__ Cut lns_cut(int c, int n) {
+    if (c > 254) return cut_over();
+    if (c < -255) return cut_under();
+    return takum_cut(c, n, 22);
+}
+
+// The fixed point ell_bar * 2^22 of a magnitude (ell_bar = 2 ln|x| rounded
+// half to even, clipped to +-256).
+__device__ __forceinline__ int lns_fixed(float x) {
+    const float eb = fminf(fmaxf(2.0f * logf(fabsf(x)), -256.0f), 256.0f);
+    return (int)rintf(eb * (float)(1 << 22));
+}
+
+// float32 -> n-bit logarithmic takum word: ell_bar = 2 ln|x| (one logf),
+// clipped to +-256, rounded half to even to 22 fraction bits, then the
+// cut of its floor characteristic rounds it to nearest even, saturating;
+// negated for S = 1. NaN -> NaR, +-0 -> 0, +-inf -> the largest magnitude
+// of that sign.
 __device__ __forceinline__ uint32_t lns_encode_n(float x, int n) {
-    constexpr int WFIX = 22;
-    if (x == 0.0f) return 0u;
-    if (x != x) return 1u << (n - 1);
-    const uint32_t s = x < 0.0f ? 1u : 0u;
-    const float ell = 2.0f * logf(fabsf(x));
-    float eb = s ? -ell : ell;
-    eb = fminf(fmaxf(eb, -256.0f), 256.0f);
-    const int fixed = (int)rintf(eb * (float)(1 << WFIX));
-    const int c = fixed >> WFIX;                           // floor
-    const uint32_t mant = (uint32_t)fixed & ((1u << WFIX) - 1u);
-    return encode_fields_n(s, c, mant, n, WFIX);
+    const uint32_t bits = __float_as_uint(x);
+    const int fixed = lns_fixed(x);
+    const uint32_t w = round_cut(lns_cut(fixed >> 22, n),
+                                 (uint32_t)fixed & 0x3FFFFFu, n, 22);
+    return signed_word(bits, w, n);
 }
 
 template <int N>

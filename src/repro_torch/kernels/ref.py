@@ -16,11 +16,13 @@ import torch
 
 from repro_torch import formats
 from repro_torch.core import lns, takum
-from repro_torch.core.bitops import carrier
+from repro_torch.core.bitops import (carrier, clz, floor_log2, lanes, mask,
+                                     to_words)
 from repro_torch.core.quant import exp2i
 from repro_torch.core.takum import frac_width
 
 __all__ = ["decode_ref", "encode_ref", "kv_append_ref", "takum8_table",
+           "encode_dataflow", "decode_dataflow", "lns_tail_dataflow",
            "fake_quant_ref",
            "fake_quant_lns_ref", "qmatmul_ref", "lns_qmatmul_ref", "lns_matmul_plain",
            "attention_ref", "paged_attention_ref", "MASKED"]
@@ -44,6 +46,139 @@ def takum8_table(device=None) -> torch.Tensor:
 def encode_ref(x, fmt) -> torch.Tensor:
     """float32 -> wire words (RNE, saturating)."""
     return formats.resolve(fmt).encode_tile(x)
+
+
+# -- the codec kernels' dataflow ---------------------------------------------
+# A plain mirror of csrc/codec.cuh and the device functions of takum.cuh and
+# posit.cuh: magnitudes negated by two's complement, the encode from the
+# header cut of the float's exponent, the takum decode from a table of the
+# 11 bits after the sign. The CPU tests hold it against the reference codec
+# (tests/test_torch_codec_dataflow.py); no program path calls it.
+
+
+def _takum_header(c):
+    """(P, L): the header D, R, C of characteristic c in [-255, 254] and
+    its length 4 + r."""
+    d = (c >= 0).to(torch.int64)
+    t = torch.where(d == 1, c, ~c) + 1                  # [1, 255]
+    r = floor_log2(t)
+    r3 = torch.where(d == 1, r, 7 - r)
+    cbits = torch.where(d == 1, t, ~t) & mask(r)
+    return (d << (3 + r)) | (r3 << r) | cbits, 4 + r
+
+
+def _posit_header(e, n: int):
+    """(P, L): the regime of k = floor(e / 4), clamped to [1 - n, n - 2],
+    and the two exponent bits e mod 4."""
+    k = torch.clamp(e >> 2, 1 - n, n - 2)
+    regime = torch.where(k >= 0, ((2 << k.clamp(min=0)) - 1) << 1,
+                         torch.ones_like(k))
+    rl = torch.where(k >= 0, k + 2, 1 - k)
+    return (regime << 2) | (e & 3), rl + 2
+
+
+def _round_cut(p, length, m, n: int, wm: int):
+    """clamp(RNE((P << wm | m) >> (L + wm + 1 - n)), 1, 2^(n-1) - 1), as
+    ``takum::round_entry``: shifted up so that the cut is at least 1, the
+    bias 2^(cut-1) - 1 and the kept word's last bit added before the
+    shift (ties to the even word)."""
+    pre = max(1, n - wm - 4)
+    x = ((p << wm) | m) << pre
+    sh = length + wm + 1 - n + pre
+    kept = x >> sh
+    w = (x + (1 << (sh - 1)) - 1 + (kept & 1)) >> sh
+    return torch.clamp(w, 1, (1 << (n - 1)) - 1)
+
+
+def encode_dataflow(x, fmt) -> torch.Tensor:
+    """float32 -> linear takum or posit words as the encode kernel forms
+    them: the header P and length L read from a table by float exponent
+    (subnormals normalised), the word of |x| rounded and clamped by
+    :func:`_round_cut`, +-inf to the largest magnitude, then negated by
+    two's complement for S = 1; +-0 -> 0, NaN -> NaR."""
+    spec = formats.resolve(fmt)
+    if spec.kind not in ("linear", "posit"):
+        raise ValueError(f"the table encode is linear takum's and posit's, "
+                         f"got {spec.name!r}")
+    n = spec.n
+    b = lanes(torch.as_tensor(x, dtype=torch.float32).contiguous()
+              .view(torch.int32).view(torch.uint32))
+    s, mag = b >> 31, b & 0x7FFFFFFF
+    fexp, frac = mag >> 23, mag & 0x7FFFFF
+    lb = floor_log2(torch.clamp(frac, min=1))
+    sub = fexp == 0
+    e = torch.where(sub, lb - 149, fexp - 127).clamp(max=127)
+    m = torch.where(sub, (frac << (23 - lb).clamp(min=0)) & 0x7FFFFF, frac)
+    es = torch.arange(-150, 128, dtype=torch.int64, device=b.device)
+    p_tab, l_tab = (_takum_header(es.clamp(min=-149)) if spec.kind == "linear"
+                    else _posit_header(es, n))
+    w = _round_cut(p_tab[e + 150], l_tab[e + 150], m, n, 23)
+    w = torch.where(mag == 0x7F800000, (1 << (n - 1)) - 1, w)
+    w = torch.where(mag == 0, 0, w)
+    w = torch.where(s == 1, (-w) & mask(n), w)
+    w = torch.where(mag > 0x7F800000, 1 << (n - 1), w)
+    return to_words(w, spec.word_dtype)
+
+
+def lns_tail_dataflow(s, fixed, n: int) -> torch.Tensor:
+    """The LNS encode's integer tail as the kernels form it: ell_bar's
+    fixed point form (22 fraction bits, of |x|) rounded through the cut
+    of its floor characteristic, saturating outside [-255, 254], then
+    negated for S = 1 (int64 words)."""
+    fixed = lanes(fixed)
+    c = fixed >> 22
+    p, length = _takum_header(torch.clamp(c, -255, 254))
+    w = _round_cut(p, length, fixed & mask(22), n, 22)
+    w = torch.where(c > 254, (1 << (n - 1)) - 1, torch.where(c < -255, 1, w))
+    return torch.where(lanes(s) == 1, (-w) & mask(n), w)
+
+
+def decode_dataflow(words, fmt) -> torch.Tensor:
+    """Linear takum or posit words -> float32 as the decode kernel forms
+    them: the magnitude word (-w mod 2^n for S = 1); for takum the entry
+    of the 11 bits after the sign (c, the header and the mantissa's shift:
+    bits = (t << (23 - p)) + ((c + 127 - header) << 23)), for posit the
+    regime's run by a count of leading zeros; the sign ORed back. Words
+    whose value is not a float32 normal, and widths from 29 (the fraction
+    rounds into float32), take the plain codec, as the kernel takes its
+    register path."""
+    spec = formats.resolve(fmt)
+    if spec.kind not in ("linear", "posit"):
+        raise ValueError(f"the table decode is linear takum's and posit's, "
+                         f"got {spec.name!r}")
+    n = spec.n
+    w = lanes(words) & mask(n)
+    s = w >> (n - 1)
+    a = torch.where(s == 1, (-w) & mask(n), w)
+    if spec.kind == "linear":
+        n12 = max(n, 12)
+        t = a << (n12 - n)
+        idx = (t >> (n12 - 12)) & 0x7FF
+        i = torch.arange(2048, dtype=torch.int64, device=w.device)
+        d = i >> 10
+        r = torch.where(d == 1, (i >> 7) & 7, 7 - ((i >> 7) & 7))
+        uc = (i >> (7 - r)) & mask(r)
+        c = torch.where(d == 1, (1 << r) - 1 + uc, -(1 << (r + 1)) + 1 + uc)
+        shift = 23 - (n12 - 5 - r)
+        base = ((c + 127 - (i >> (7 - r))) << 23) & 0xFFFFFFFF
+        rare_tab = (c < -126) | (c > 127)
+        bits = ((t << shift[idx].clamp(min=0)) + base[idx]) & 0xFFFFFFFF
+        rare = rare_tab[idx] | (n > 28)
+    else:
+        body = (a << (33 - n)) & 0xFFFFFFFF
+        top = body >> 31
+        run = clz(torch.where(top == 1, ~body & 0xFFFFFFFF, body), 32)
+        k = torch.where(top == 1, run - 1, -run)
+        rest = (body << (run + 1)) & 0xFFFFFFFF
+        frac = (rest << 2) & 0xFFFFFFFF
+        bits = (((4 * k + (rest >> 30) + 127) << 23) | (frac >> 9)) & 0xFFFFFFFF
+        rare = torch.full_like(bits, n > 28, dtype=torch.bool)
+    bits = bits | (s << 31)
+    out = to_words(bits, torch.uint32).view(torch.float32)
+    out = torch.where(rare, spec.decode_tile(words), out)
+    special = (w & mask(n - 1)) == 0
+    return torch.where(special, torch.where(s == 1, float("nan"), 0.0),
+                       out)
 
 
 def kv_append_ref(k, v, k_cache, v_cache, fmt, *, pos, table=None,

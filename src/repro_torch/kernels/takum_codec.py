@@ -5,8 +5,11 @@ Replaces ``repro/kernels/takum_codec.py::decode_kernel_call`` and
 takum (``lns-takum<n>``) and posit (``posit<n>``; posit8 decodes through
 its shared-memory table when ``spec.lut_decode``) at every width
 6 <= n <= 32 (``build.CODEC_WIDTHS``; words in uint8, uint16 or uint32).
-Bound by bytes on the H100 (words plus f32 per element); see the source's
-header comment for the design. ``kv_append`` keeps 8 and 16 bits.
+Vectors of 4 elements (16-byte float accesses) over block tables of the
+format's headers (``csrc/codec.cuh``); the source's header comment says
+what bounds them. The wrappers pass 16-byte aligned tensors
+(``build.aligned``: a misaligned view is copied first). ``kv_append``
+keeps 8 and 16 bits.
 
 ``kv_append`` is the encode of the KV cache: one launch encodes a layer's
 fresh K and V and writes the words into a paged pool or a contiguous
@@ -50,7 +53,7 @@ def decode(words: torch.Tensor, spec: FormatSpec) -> torch.Tensor:
     code = build.format_code(spec, words.device,
                              widths=build.CODEC_WIDTHS)
     _check_words(words, spec)
-    words = words.contiguous()
+    words = build.aligned(words)
     out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
     err = _lib().takum_decode(spec.n, code, words.data_ptr(), out.data_ptr(),
                               words.numel(), build.stream_of(words))
@@ -65,7 +68,7 @@ def encode(x: torch.Tensor, spec: FormatSpec) -> torch.Tensor:
         return kref.encode_ref(x, spec)
     code = build.format_code(spec, x.device,
                              widths=build.CODEC_WIDTHS)
-    x = x.to(torch.float32).contiguous()
+    x = build.aligned(x.to(torch.float32))
     out = torch.empty(x.shape, dtype=spec.word_dtype, device=x.device)
     err = _lib().takum_encode(spec.n, code, x.data_ptr(), out.data_ptr(),
                               x.numel(), build.stream_of(x))

@@ -13,6 +13,8 @@ This file imports no JAX: the card's host has none.
 import torch_cpu  # noqa: F401  (one torch thread a test process)
 import contextlib
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1578,3 +1580,107 @@ def test_contiguous_attention_rows_before_start(dev, hd, hkv, grp, name):
                               spec, pos=0, start=st.to(dev)).cpu()
     assert torch.isfinite(nar[0, 17:]).all() and torch.isfinite(nar[1:]).all()
     assert float((nar[0, 17:] - got[0, 17:]).abs().max()) <= 2e-5
+
+
+# -- the codec kernels' vectors and tables (csrc/codec.cu, codec.cuh) -------
+
+SWEEP_SPECS = [formats.resolve(k, n) for k in ("linear", "posit")
+               for n in (8, 16)]
+RAGGED_SPECS = [formats.resolve(k, n) for n in (8, 12, 16, 24, 32)
+                for k in ("linear", "lns", "posit")]
+
+
+@pytest.mark.parametrize("spec", SWEEP_SPECS, ids=lambda s: s.name)
+def test_encode_every_float32_pattern(dev, spec):
+    """All 2^32 float32 bit patterns through the encode kernel, equal to
+    the plain version on the card, 2^26 patterns a chunk."""
+    from repro_torch.core.bitops import lanes
+    chunk = 1 << 26
+    for i0 in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(i0, i0 + chunk, dtype=torch.int64, device=dev).to(
+            torch.int32).view(torch.float32)
+        got = lanes(takum_codec.encode(x, spec))
+        want = lanes(ref.encode_ref(x, spec))
+        assert torch.equal(got, want), (spec.name, i0)
+
+
+def _same_or_lns(spec, x, got_w, want_w, got_f, want_f):
+    """Linear and posit words bit for bit; LNS words the plain version's
+    or, at a logf tie of ``x``, its neighbour (chip_smoke.py's
+    ``lns_encode_ok``); floats NaN by place, LNS within 2 ulp."""
+    from repro_torch.core.bitops import lanes
+    gw, ww = lanes(got_w), lanes(want_w)
+    if spec.kind == "lns":
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+        from chip_smoke import lns_encode_bounds, lns_encode_ok
+        lo, hi = lns_encode_bounds(torch, x, spec.n)
+        assert bool(lns_encode_ok(gw, ww, lo, hi, spec.n).all())
+    else:
+        assert torch.equal(gw, ww)
+    nan = torch.isnan(want_f)
+    assert torch.equal(torch.isnan(got_f), nan)
+    tol = 2 if spec.kind == "lns" else 0
+    if bool((~nan).any()):
+        assert int(_ulps_t(got_f[~nan], want_f[~nan]).max()) <= tol
+
+
+@pytest.mark.parametrize("spec", RAGGED_SPECS, ids=lambda s: s.name)
+def test_codec_ragged_and_misaligned(dev, spec):
+    """Counts 1..33 at offsets 0..3 (views whose data is not 16-byte
+    aligned; the wrappers realign them) through decode and encode, and
+    the C entry points called directly on misaligned pointers (the
+    kernels' scalar loop throughout), against the plain version on the
+    card: linear and posit bit for bit, LNS words equal or the neighbour
+    at a logf tie, LNS floats within 2 ulp."""
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(spec.n)
+    base = torch.from_numpy(_floats(rng, 200)).to(dev)
+    words = takum_codec.encode(base, spec)
+    for off in range(4):
+        for cnt in range(1, 34):
+            x, w = base[off:off + cnt], words[off:off + cnt]
+            _same_or_lns(spec, x, takum_codec.encode(x, spec),
+                         ref.encode_ref(x, spec), takum_codec.decode(w, spec),
+                         ref.decode_ref(w, spec))
+    lib = takum_codec._lib()
+    code = build.format_code(spec, dev, widths=build.CODEC_WIDTHS)
+    cnt = base.numel() - 1
+    out = torch.empty(cnt + 1, dtype=torch.float32, device=dev)
+    wout = torch.empty_like(words)
+    build.check(lib.takum_decode(spec.n, code, words[1:].data_ptr(),
+                                 out[1:].data_ptr(), cnt,
+                                 build.stream_of(words)), "takum_decode")
+    build.check(lib.takum_encode(spec.n, code, base[1:].data_ptr(),
+                                 wout[1:].data_ptr(), cnt,
+                                 build.stream_of(base)), "takum_encode")
+    torch.cuda.synchronize()
+    _same_or_lns(spec, base[1:], wout[1:], ref.encode_ref(base[1:], spec),
+                 out[1:], ref.decode_ref(words[1:], spec))
+
+
+@pytest.mark.parametrize("n", list(range(6, 17)))
+@pytest.mark.parametrize("kind", ["linear", "lns", "posit"])
+def test_decode_every_word_against_plain_and_table8(dev, kind, n,
+                                                    monkeypatch):
+    """Every word at n <= 16 through the decode kernel against the plain
+    version on the card (posit8 through its table and computed), and at
+    n = 8 against the 256 floats of the plain decode (the Table8 every
+    8-bit kernel reads): bit for bit, LNS within 2 ulp."""
+    from repro_torch.core.bitops import to_words
+    spec = formats.resolve(kind, n)
+    words = to_words(torch.arange(2 ** n, device=dev), spec.word_dtype)
+    want = ref.decode_ref(words, spec)
+    tol = 2 if kind == "lns" else 0
+    for lut in (LUT if spec.has_lut else [None]):
+        if lut is not None:
+            monkeypatch.setenv("REPRO_LUT_DECODE", lut)
+        got = takum_codec.decode(words, spec)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert int(_ulps_t(got[~nan], want[~nan]).max()) <= tol
+        if n == 8:
+            table = ref.decode_ref(to_words(torch.arange(256), spec.word_dtype),
+                                   spec).to(dev)
+            tn = torch.isnan(table)
+            assert torch.equal(torch.isnan(got), tn)
+            assert int(_ulps_t(got[~tn], table[~tn]).max()) <= tol

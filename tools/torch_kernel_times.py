@@ -2,8 +2,9 @@
 build-time choices of its kernels, on one CUDA card.
 
     python3 tools/torch_kernel_times.py [--src DIR] [--attention] [--lns]
-        [--paged] [--serve N [--eager]] [--lockstep N] [--step-trace]
-        [--moe-trace] [--variants] [--codec] [--out F]
+        [--append] [--paged] [--serve N [--eager]] [--lockstep N] [--step-trace]
+        [--moe-trace] [--variants] [--codec] [--codec-widths]
+        [--against CSRC] [--sass] [--no-matmul] [--out F]
 
 Times ``takum_matmul.qmatmul`` for takum8, takum16, posit8 (through the
 table) and posit16 words at every projection shape of a phi3-medium-14b
@@ -20,6 +21,10 @@ of a 256-token prefill for every KV format the tree's kernels take.
 lns-takum8 and lns-takum16 words at the same eight shapes, and reads
 ``nvidia-smi``'s SM clock and power draw while 256x5120x17920 lns-takum8
 calls keep the card busy.
+
+``--append`` also times the fused K/V append (``kv_append``) for every
+wire KV format at ``chip_smoke.py`` phase 19's two shapes, from CUDA
+graph replays.
 
 ``--paged`` also times paged attention at ``chip_smoke.py`` phase 4's
 decode step (B 4, Hkv 10, G 4, hd 128, page 256, pos 76 / 520 / 1023 and
@@ -74,11 +79,27 @@ and, not a build, the LNS matmul's K-split target for prefill chunks
 (``lns_matmul.TILE_PER_SM``: 6, 12 and the default) at the four prefill
 shapes.
 
-``--codec`` (this checkout's kernels only) times the codec's decode
-and encode and the fused fake-quant at n = 8 and 16 for each kind
-(posit computed), the default build (n a compile-time constant,
-``Codec<N, K>``) against one with ``CODEC_ANY_WIDTH=1`` (the kernels of
-the other widths, n at run time), their outputs held equal bit for bit.
+``--codec`` (this checkout's kernels only) times the fused fake-quant at
+n = 8 and 16 for each kind, the default build (``Codec<N, K>``, n a
+constant) against one with ``CODEC_ANY_WIDTH=1`` (its kernels of the
+other widths, n at run time), their outputs held equal bit for bit.
+
+``--codec-widths`` (this checkout's kernels) reads ``chip_smoke.py``
+phase 33's ``width_times`` (the codec's decode and encode at
+``WIDTHS_TIMED`` for each kind at ``CODEC_SHAPE``, beside the byte bound,
+``torch.index_select`` for decodes to 16 bits, PyTorch's cast over the
+same bytes, posit8's computed decode) with the fused fake-quant's time
+beside, and the card's rates for plain float32 streams of the same size
+(read, write, copy). Only ``codec.cu`` and ``fake_quant.cu`` are built. ``--against
+DIR`` also builds those two sources of another checkout's ``csrc``
+directory (its own headers; the same C entry points) and times both in
+turns on the same inputs (against, this, this, against), their outputs
+compared bit for bit. ``--sass`` counts the SASS
+instructions of every codec and fake-quant kernel (``cuobjdump -sass``):
+each kernel's total and the span of the longest backward branch whose
+body loads from global memory (its main loop, with the rare paths it
+branches over), of this build and of ``--against``'s; the listings go to
+``chiprun_out/sass_<source>[_against].txt``.
 
 Prints the card (``nvidia-smi``'s name and power limit) and one JSON
 object as its last line; ``--out`` writes the same object to a file.
@@ -113,8 +134,8 @@ VARIANTS = {
                          "lns_matmul"),
                         ("-DWIRE_TAKUM8_COMPUTED=1",)),
 }
-# --codec: widths 8 and 16 through the run-time-n codec kernels
-CODEC_VARIANT = (("codec", "fake_quant"), ("-DCODEC_ANY_WIDTH=1",))
+# --codec: fake-quant's widths 8 and 16 through its run-time-n kernels
+CODEC_VARIANTS = {"any_width": (("fake_quant",), ("-DCODEC_ANY_WIDTH=1",))}
 
 
 def graph_or_none(torch, fn, iters=20):
@@ -172,6 +193,27 @@ def attention_times(torch, dev, names=KV_FORMATS):
                 iters=50)
         except (NotImplementedError, TypeError):
             out[name] = None       # a format this tree's kernels refuse
+    return out
+
+
+def append_times(torch, dev, names=KV_FORMATS[:6]):
+    """{"<format> paged|contiguous": ms} of the fused K/V append at
+    ``chip_smoke.kv_append_inputs``' two shapes (a decode step into the
+    paged pool, a prefill chunk into a contiguous cache) from bf16 K/V,
+    replayed from a CUDA graph."""
+    from chip_smoke import kv_append_inputs
+    from repro_torch import formats
+    from repro_torch.kernels import takum_codec
+    out = {}
+    for name in names:
+        spec = formats.get(name)
+        for mode in ("paged", "contiguous"):
+            k, v, kc, vc, where = kv_append_inputs(
+                torch, dev, spec, None, torch.bfloat16, mode, 99)
+            out[f"{name} {mode}"] = graph_or_none(
+                torch, lambda: takum_codec.kv_append(k, v, kc, vc, spec,
+                                                     **where), iters=200)
+            del k, v, kc, vc
     return out
 
 
@@ -484,55 +526,187 @@ def swap_in(build, libs):
 
 
 def codec_times(torch, dev):
-    """The codec's decode and encode and the fused fake-quant at n = 8 and
-    16, each kind (posit computed: ``REPRO_LUT_DECODE=0``), at [5120,
-    17920]: the default build (``Codec<N, K>``, n a constant) against
-    ``CODEC_ANY_WIDTH`` (the kernels of the other widths, n at run time),
-    on the same inputs, with the outputs of both held equal bit for
-    bit."""
-    import os
+    """The fused fake-quant at n = 8 and 16, each kind, at
+    ``chip_smoke.CODEC_SHAPE``: the default build (``Codec<N, K>``, n a
+    constant) against ``CODEC_VARIANTS`` (its run-time-n kernels), on the
+    same inputs, in turns (default, variant, variant, default), with the
+    outputs of both held equal bit for bit."""
+    from chip_smoke import CODEC_KINDS, CODEC_SHAPE
+    from repro_torch import formats
+    from repro_torch.kernels import build
+    from repro_torch.kernels import quantize as kquant
+    mine = build.build_all(CODEC_SOURCES)
+    var = build_variants(build, CODEC_VARIANTS)["any_width"]
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(CODEC_SHAPE, generator=g, device=dev)
+    res, vals = {}, {}
+    for tag in ("default", "variant", "variant", "default"):
+        swap_in(build, var if tag == "variant" else mine)
+        for n in (8, 16):
+            for kind in CODEC_KINDS:
+                spec = formats.resolve(kind, n)
+                res.setdefault(spec.name, {}).setdefault(
+                    f"fake_quant_ms_{tag}", []).append(
+                    cuda_ms(torch, lambda: kquant.fake_quant(x, spec)))
+                vals.setdefault(tag, {})[spec.name] = kquant.fake_quant(x,
+                                                                       spec)
+    swap_in(build, mine)
+    for name, row in res.items():
+        for k, v in row.items():
+            row[k] = sum(v) / len(v)
+        row["bit_equal"] = torch.equal(
+            vals["default"][name].view(torch.uint8),
+            vals["variant"][name].view(torch.uint8))
+    return res
+
+
+CODEC_SOURCES = ("codec", "fake_quant")
+
+
+def build_against(build, csrc):
+    """``csrc``'s codec and fake-quant sources (another checkout's, with
+    its own headers) built into ``build/repro_torch/variants``:
+    {source: library path}."""
+    csrc = Path(csrc).resolve()
+    dst = build.BUILD_DIR / "variants"
+    dst.mkdir(parents=True, exist_ok=True)
+    procs, paths = [], {}
+    for src in CODEC_SOURCES:
+        lib = dst / f"lib{src}-against.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
+               str(lib), str(csrc / f"{src}.cu")]
+        procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+        paths[src] = lib
+    for src, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {csrc / src}.cu failed:\n{log}")
+    return paths
+
+
+def codec_width_times(torch, dev, against=None):
+    """``chip_smoke.width_times`` at ``WIDTHS_TIMED`` per kind, with the
+    fused fake-quant's time and byte bound beside, and with ``against``'s
+    libraries in turns when given (against, this, this, against; each
+    tree's readings averaged, ``against``'s keys suffixed ``_against``),
+    the outputs of both trees on the same inputs held equal bit for bit:
+    {spec name: row}."""
+    from chip_smoke import CODEC_KINDS, CODEC_SHAPE, WIDTHS_TIMED, bound
+    from chip_smoke import width_times
     from repro_torch import formats
     from repro_torch.kernels import build, takum_codec
     from repro_torch.kernels import quantize as kquant
-    build.build_all()
-    paths = build_variants(build, {"any_width": CODEC_VARIANT})
-    g = torch.Generator(device=dev).manual_seed(22)
-    x = torch.randn((5120, 17920), generator=g, device=dev)
-    kept = os.environ.get("REPRO_LUT_DECODE")
-    os.environ["REPRO_LUT_DECODE"] = "0"
+    mine = build.build_all(CODEC_SOURCES)
+    other = build_against(build, against) if against else None
+    turns = ["against", "this", "this", "against"] if other else ["this"]
+    out = {}
+    for n in WIDTHS_TIMED:
+        for kind in CODEC_KINDS:
+            spec = formats.resolve(kind, n)
+            g = torch.Generator(device=dev).manual_seed(n)
+            x = torch.randn(CODEC_SHAPE, generator=g, device=dev)
+            row, outs = {}, {}
+            for who in turns:
+                swap_in(build, other if who == "against" else mine)
+                suffix = "_against" if who == "against" else ""
+                r = width_times(torch, dev, n, kind, plain=False)
+                r["fake_quant_ms"] = cuda_ms(
+                    torch, lambda: kquant.fake_quant(x, spec))
+                for k, v in r.items():
+                    if isinstance(v, float) and not k.startswith("bound"):
+                        row.setdefault(k + suffix, []).append(v)
+                    else:
+                        row[k] = v
+                if other and who not in outs:
+                    words = takum_codec.encode(x, spec)
+                    outs[who] = {"encode": words,
+                                 "decode": takum_codec.decode(words, spec),
+                                 "fake_quant": kquant.fake_quant(x, spec)}
+            swap_in(build, mine)
+            row = {k: sum(v) / len(v) if isinstance(v, list) else v
+                   for k, v in row.items()}
+            row["fq_bound_ms"] = bound(x.numel() * 8, 0)[0]
+            if other:
+                row["equal"] = {op: torch.equal(
+                    outs["this"][op].view(torch.uint8),
+                    outs["against"][op].view(torch.uint8))
+                    for op in outs["this"]}
+            out[spec.name] = row
+            del x, outs
+    return out
 
-    def measure():
-        out, vals = {}, {}
-        for n in (8, 16):
-            for kind in ("linear", "lns", "posit"):
-                spec = formats.resolve(kind, n)
-                w = takum_codec.encode(x, spec)
-                vals[spec.name] = (w, takum_codec.decode(w, spec),
-                                   kquant.fake_quant(x, spec))
-                out[spec.name] = {
-                    "decode_ms": cuda_ms(torch, lambda: takum_codec.decode(
-                        w, spec)),
-                    "encode_ms": cuda_ms(torch, lambda: takum_codec.encode(
-                        x, spec)),
-                    "fake_quant_ms": cuda_ms(torch, lambda: kquant.fake_quant(
-                        x, spec))}
-        return out, vals
 
-    try:
-        res, want = {}, None
-        res["default"], want = measure()
-        old = swap_in(build, paths["any_width"])
-        res["any_width"], got = measure()
-        for src, lib in old.items():
-            build._LIBS[src] = lib
-    finally:
-        if kept is None:
-            os.environ.pop("REPRO_LUT_DECODE")
-        else:
-            os.environ["REPRO_LUT_DECODE"] = kept
-    res["bit_equal"] = {
-        name: all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-                  for a, b in zip(want[name], got[name])) for name in want}
+def stream_times(torch, dev):
+    """The card's rates for plain streams over ``chip_smoke.CODEC_SHAPE``
+    float32 elements (the codec kernels' float side), by PyTorch's own
+    calls: read only (``torch.sum``), write only (``zero_``) and a copy
+    (``copy_``): {name: {"ms", "bytes", "tb_s"}}."""
+    from chip_smoke import CODEC_SHAPE
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(CODEC_SHAPE, generator=g, device=dev)
+    y = torch.empty_like(x)
+    nb = x.numel() * 4
+    out = {}
+    for name, fn, nbytes in (("read (sum)", lambda: torch.sum(x), nb),
+                             ("write (zero_)", lambda: y.zero_(), nb),
+                             ("copy (copy_)", lambda: y.copy_(x), 2 * nb)):
+        ms = cuda_ms(torch, fn)
+        out[name] = {"ms": ms, "bytes": nbytes, "tb_s": nbytes / ms / 1e9}
+    return out
+
+
+def sass_counts(build, against=None):
+    """{library: {kernel: {"instructions", "loop"}}} of the codec and
+    fake-quant libraries (and ``against``'s), from ``cuobjdump -sass``:
+    each kernel's instruction count and the span of its longest backward
+    branch over a global load (the main loop's body), demangled where
+    ``c++filt`` is found.
+    The listings go to ``chiprun_out``."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = {src: p for src, p in build.build_all(CODEC_SOURCES).items()}
+    if against:
+        libs.update({f"{src}_against": p for src, p in
+                     build_against(build, against).items()})
+    outdir = Path(__file__).resolve().parents[1] / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(\S[^;]*);")
+    res = {}
+    for name, path in libs.items():
+        text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True, check=True).stdout
+        (outdir / f"sass_{name}.txt").write_text(text)
+        kernels, cur = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = kernels.setdefault(m.group(1), [])
+                continue
+            m = insn.search(line)
+            if m and cur is not None:
+                cur.append((int(m.group(1), 16), m.group(2).strip()))
+        rows = {}
+        for fn, ins in kernels.items():
+            loop = 0
+            for addr, op in ins:
+                b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+                if not b or int(b.group(1), 16) >= addr:
+                    continue
+                body = [o for a, o in ins if int(b.group(1), 16) <= a <= addr]
+                if any(o.split()[0].lstrip("@!P0123456789T ").startswith("LDG")
+                       or " LDG" in o for o in body):
+                    loop = max(loop, len(body))
+            rows[fn] = {"instructions": len(ins), "loop": loop}
+        filt = shutil.which("c++filt")
+        if filt:
+            names = subprocess.run([filt], input="\n".join(rows),
+                                   capture_output=True, text=True,
+                                   check=True).stdout.splitlines()
+            rows = dict(zip(names, rows.values()))
+        res[name] = rows
     return res
 
 
@@ -636,6 +810,7 @@ def main() -> int:
                                          / "src"))
     ap.add_argument("--attention", action="store_true")
     ap.add_argument("--lns", action="store_true")
+    ap.add_argument("--append", action="store_true")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--serve", type=int, default=0, metavar="N")
     ap.add_argument("--eager", action="store_true")
@@ -644,6 +819,11 @@ def main() -> int:
     ap.add_argument("--moe-trace", action="store_true")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--codec", action="store_true")
+    ap.add_argument("--codec-widths", action="store_true")
+    ap.add_argument("--against", default=None, metavar="CSRC")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--no-matmul", action="store_true",
+                    help="skip the default wire matmul times")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -659,9 +839,10 @@ def main() -> int:
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card)
-    res = {"src": str(Path(args.src).resolve()), "card": card,
-           "qmatmul_ms": matmul_times(torch, dev, formats, takum_codec,
-                                      takum_matmul)}
+    res = {"src": str(Path(args.src).resolve()), "card": card}
+    if not args.no_matmul:
+        res["qmatmul_ms"] = matmul_times(torch, dev, formats, takum_codec,
+                                         takum_matmul)
     if args.attention:
         res["attention_ms"] = attention_times(torch, dev)
     if args.lns:
@@ -677,6 +858,8 @@ def main() -> int:
         res["lns_busy_clocks"] = busy_clocks(
             torch, lambda: klns.lns_matmul(x, w, spec))
         del x, w
+    if args.append:
+        res["append_ms"] = append_times(torch, dev)
     if args.paged:
         res["paged_ms"] = paged_times(torch, dev)
     if args.serve:
@@ -691,6 +874,12 @@ def main() -> int:
         res["variants_ms"] = variant_times(torch, dev)
     if args.codec:
         res["codec_ms"] = codec_times(torch, dev)
+    if args.codec_widths:
+        res["codec_widths_ms"] = codec_width_times(torch, dev, args.against)
+        res["stream_ms"] = stream_times(torch, dev)
+    if args.sass:
+        from repro_torch.kernels import build
+        res["sass"] = sass_counts(build, args.against)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
