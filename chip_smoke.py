@@ -88,8 +88,14 @@ Phases, one summary line each; any failure exits non-zero:
     posit16, lns-takum8 and lns-takum16; f32 and bf16 out) against the
     plain version (bit-exact; LNS: the codec kernels' round trip bit for
     bit and the plain version's words or their neighbours), times against
-    the byte bound; then ``quantize_weights(mode="fake")`` over one
-    full-width layer in posit8 (7 launches);
+    the byte bound (8 bytes an element f32 out, 6 bf16); every float32
+    bit pattern through the kernel at n = 8 and 16 (linear takum at
+    k = 0 and +-4, LNS, posit; f32 and bf16 out) bit for bit against the
+    plain version (LNS: the codec kernels' round trip), and at posit8
+    once more through its other decode (``REPRO_LUT_DECODE`` flipped:
+    the table or the computed decode of the word path); then
+    ``quantize_weights(mode="fake")`` over one full-width
+    layer in posit8 (7 launches);
 18. float (identity-codec) KV caches, the registered config's own
     ``kv_quant="none"``: contiguous and paged attention over bf16 and f32
     caches (phase 4's shapes, one NaN word) against the plain version on
@@ -215,7 +221,9 @@ Phases, one summary line each; any failure exits non-zero:
     17, 20, 24, 28, 29, 32; 2^24 seeded floats with zeros, +-inf, NaN,
     subnormals and rounding ties): linear and posit bit for bit, LNS
     decodes within 2 ulp and encoded words within those of a log 2 ulp
-    either side; the fused fake-quant at n = 12, 24, 32; the plain
+    either side; the fused fake-quant at n = 8, 12, 16, 24, 32, f32 and
+    bf16 out (every ``SWEEP_STRIDE``-th float32 pattern at 12, 24 and 32;
+    counts 1-33 at offsets 0 and 1, the scalar loop); the plain
     hardware-faithful path (section V) on CUDA tensors word for word
     against the decode and encode kernels at n = 12, 16, 24, 32; decode
     and encode times at n = 8, 12, 16, 24, 32 beside the byte bound
@@ -1416,6 +1424,50 @@ def fake_quant_phase(torch, dev):
     del x
     torch.cuda.empty_cache()
     return rows
+
+
+FQ_SWEEP_WIDTHS = (8, 16)           # every float32 pattern (phase 17)
+FQ_STRIDED_WIDTHS = (12, 24, 32)    # every SWEEP_STRIDE-th one (phase 33)
+FQ_SCALES = (0, 4, -4)              # linear takum's k in the sweeps
+
+
+def fake_quant_sweep(torch, dev, n, kind, k=0, stride=1):
+    """Every ``stride``-th float32 bit pattern (all 2^32 at stride 1:
+    every exponent and sign, subnormals, infinities and NaNs) through the
+    fake-quant kernel at width n, f32 and bf16 out (linear takum scaled
+    by 2^k), in chunks of 2^24 (``encode_sweep``'s form), bit for bit
+    (NaN by place) against the plain version on the card (its bf16
+    output is its f32 output rounded to nearest even) or, for LNS, the
+    codec kernels' round trip."""
+    from repro_torch import formats
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.kernels import ref, takum_codec
+    spec = formats.resolve(kind, n)
+    total, chunk = -(-(1 << 32) // stride), 1 << 24
+    bad = {"float32": 0, "bfloat16": 0}
+
+    def differ(got, want):
+        ng, nw = torch.isnan(got), torch.isnan(want)
+        bits = torch.int16 if got.element_size() == 2 else torch.int32
+        return int(((ng != nw) | (~ng & (got.view(bits) != want.view(bits)))
+                    ).sum())
+
+    for i0 in range(0, total, chunk):
+        b = torch.arange(i0, min(i0 + chunk, total), device=dev,
+                         dtype=torch.int64) * stride
+        x = torch.where(b >= 1 << 31, b - (1 << 32), b).to(
+            torch.int32).view(torch.float32)
+        want = (takum_codec.decode(takum_codec.encode(x, spec), spec)
+                if kind == "lns" else
+                ref.fake_quant_ref(x, spec, scale_exp=k))
+        for dtype in (torch.float32, torch.bfloat16):
+            got = kquant.fake_quant(x, spec, dtype=dtype, scale_exp=k)
+            bad[str(dtype)[6:]] += differ(got, want.to(dtype))
+        del x, want, got
+    check(not any(bad.values()), f"fake-quant {spec.name} k {k}: {bad} of "
+          f"{total} swept patterns differ from the plain version")
+    return {"patterns": total, "stride": stride, "scale_exp": k,
+            "differ": bad}
 
 
 def quantize_layer_fake(torch, dev, fmt):
@@ -3523,16 +3575,21 @@ def encode_sweep(torch, dev, n, kind):
 
 def ragged_check(torch, dev):
     """Counts 1..33 at offsets 0 and 1 (a misaligned view) through the
-    decode and encode wrappers at ``RAGGED_WIDTHS`` and every kind (posit8
-    through its table), against the plain version on the card: the
-    vectors' scalar tail and the wrappers' alignment. Linear and posit
-    bit for bit; LNS decodes within 2 ulp, encodes the plain version's
-    word or, at a logf tie, its neighbour (``lns_encode_ok``)."""
+    decode, encode and fake-quant wrappers at ``RAGGED_WIDTHS`` and every
+    kind (posit8 through its table), against the plain version on the
+    card: the vectors' scalar tail and the wrappers' alignment (the
+    fake-quant wrapper passes the misaligned view as it is: the kernel's
+    scalar loop throughout). Linear and posit bit for bit (fake-quant f32
+    and bf16 out, linear takum also scaled by 2^3); LNS decodes within 2
+    ulp, encodes the plain version's word or, at a logf tie, its
+    neighbour (``lns_encode_ok``), fake-quant the codec kernels' round
+    trip bit for bit."""
     from repro_torch import formats
     from repro_torch.core.bitops import lanes
+    from repro_torch.kernels import quantize as kquant
     from repro_torch.kernels import ref, takum_codec
     base = float_sample(torch, dev, 16, "linear", 77)[:64]
-    cases = 0
+    cases = fq_cases = 0
     for n in RAGGED_WIDTHS:
         for kind in CODEC_KINDS:
             spec = formats.resolve(kind, n)
@@ -3555,16 +3612,29 @@ def ragged_check(torch, dev):
                     check(ok, f"{spec.name}: count {cnt} at offset {off} "
                           "differs from the plain version")
                     cases += 1
-    return {"cases": cases, "counts": "1-33", "offsets": [0, 1],
-            "widths": list(RAGGED_WIDTHS), "equal": True}
+                    for k in ((0, 3) if kind == "linear" else (0,)):
+                        want = (takum_codec.decode(w, spec) if kind == "lns"
+                                else ref.fake_quant_ref(x, spec,
+                                                        scale_exp=k))
+                        for dtype in (torch.float32, torch.bfloat16):
+                            got = kquant.fake_quant(x, spec, dtype=dtype,
+                                                    scale_exp=k)
+                            check(same_floats(torch, got, want.to(dtype)),
+                                  f"fake-quant {spec.name} k {k}: count "
+                                  f"{cnt} at offset {off} differs")
+                            fq_cases += 1
+    return {"cases": cases, "fake_quant_cases": fq_cases, "counts": "1-33",
+            "offsets": [0, 1], "widths": list(RAGGED_WIDTHS), "equal": True}
 
 
 def width_fake_quant(torch, dev, n, kind):
     """The fused fake-quant kernel at width n on ``CODEC_SHAPE`` (seeded
     normals with ``float_sample``'s specials): linear and posit bit for
     bit against the plain version (NaN by place), LNS bit for bit against
-    the codec kernels' round trip (the same device functions); its time
-    beside the byte bound (4 bytes in, 4 out) and the plain version's."""
+    the codec kernels' round trip (the same tables), f32 and bf16 out;
+    its times beside the byte bounds (4 bytes in, 4 or 2 out) and the
+    plain version's; at ``FQ_STRIDED_WIDTHS`` every ``SWEEP_STRIDE``-th
+    float32 pattern too (``fake_quant_sweep``)."""
     from repro_torch import formats
     from repro_torch.kernels import quantize as kquant
     from repro_torch.kernels import ref, takum_codec
@@ -3580,12 +3650,22 @@ def width_fake_quant(torch, dev, n, kind):
           f"{spec.name}: fake-quant kernel differs from "
           + ("the codec kernels' round trip" if kind == "lns"
              else "its plain version"))
+    got16 = kquant.fake_quant(x, spec, dtype=torch.bfloat16)
+    check(same_floats(torch, got16, want.to(torch.bfloat16)),
+          f"{spec.name}: fake-quant kernel's bf16 output differs")
     b_ms, b_by = bound(x.numel() * 8, 0)
-    return {"ms": cuda_ms(torch, lambda: kquant.fake_quant(x, spec)),
-            "plain_ms": cuda_ms(torch, lambda: ref.fake_quant_ref(x, spec),
-                                iters=2, warmup=1),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": codec_err(torch, got, want)}
+    row = {"ms": cuda_ms(torch, lambda: kquant.fake_quant(x, spec)),
+           "plain_ms": cuda_ms(torch, lambda: ref.fake_quant_ref(x, spec),
+                               iters=2, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bf16_ms": cuda_ms(torch, lambda: kquant.fake_quant(
+               x, spec, dtype=torch.bfloat16)),
+           "bf16_bound_ms": bound(x.numel() * 6, 0)[0],
+           "max_abs_err": codec_err(torch, got, want)}
+    if n in FQ_STRIDED_WIDTHS:
+        row["sweep"] = fake_quant_sweep(torch, dev, n, kind,
+                                        stride=SWEEP_STRIDE)
+    return row
 
 
 def hw_path_check(torch, dev, n, seed):
@@ -4228,6 +4308,15 @@ def main() -> int:
 
     # -- 17. fused fake-quant ----------------------------------------------
     fq = fake_quant_phase(torch, dev)
+    fq_sweep = {f"{kind}{n}" + (f" k {k}" if kind == "linear" else ""):
+                fake_quant_sweep(torch, dev, n, kind, k)
+                for n in FQ_SWEEP_WIDTHS for kind in CODEC_KINDS
+                for k in (FQ_SCALES if kind == "linear" else (0,))}
+    # posit8's other decode of the word path (table or computed)
+    lut_other = "0" if p8.lut_decode(dev) else "1"
+    with lut_switch(lut_other):
+        fq_sweep["posit8, " + ("table" if lut_other == "1" else "computed")
+                 + " decode"] = fake_quant_sweep(torch, dev, 8, "posit")
     fq_layer = quantize_layer_fake(torch, dev, "posit8")
     check(fq_layer["launches"] == 7, f"quantize_weights(mode='fake') over "
           f"one layer launched the fake-quant kernel {fq_layer['launches']} "
@@ -4235,11 +4324,13 @@ def main() -> int:
     phase(17, "fake-quant", ms={k: v["ms"] for k, v in fq.items()},
           bound_ms={k: v["bound_ms"] for k, v in fq.items()},
           quantize_weights_layer=fq_layer,
+          every_float32_pattern={k: v["differ"] for k, v in fq_sweep.items()},
           tolerance="bit-exact against the plain version (NaNs by place); "
                     "LNS: the codec kernels' round trip bit for bit, the "
                     "plain version's words or their neighbours, share <= "
                     f"{LNS_NEIGHBOUR_SHARE:g}")
-    detail["fake_quant"] = {"rows": fq, "quantize_weights_layer": fq_layer}
+    detail["fake_quant"] = {"rows": fq, "quantize_weights_layer": fq_layer,
+                            "sweep": fq_sweep}
     main_fq = fq["posit8 table float32"] if p8.lut_decode(dev) \
         else fq["posit8 computed float32"]
     kernels["fake_quant"] = dict(
@@ -4253,6 +4344,15 @@ def main() -> int:
         launches=fq_layer["launches"],
         launches_path="quantize_weights(layer, 'posit8', mode='fake') over "
                       "one full-width layer",
+        redesigned="linear takum and posit round in value space (the "
+                   "float's bits to nearest even at the word's fraction "
+                   "width, from a block table of the float exponents) where "
+                   "the word keeps a fraction bit, LNS the same on ell_bar's "
+                   "fixed point form; any other float takes the codec "
+                   "kernels' table encode and decode (bf16 out: one path a "
+                   "warp, by vote; f32 out and LNS: each lane its own); "
+                   "vectors of 4, one wave of blocks, n a kernel argument",
+        every_float32_pattern=fq_sweep,
         detail={k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms")}
                 for k, v in fq.items()})
     lut_t = pcodec_t["posit8 table decode_weights"]
@@ -4531,7 +4631,13 @@ def main() -> int:
           posit8_computed_decode_ms=widths_t["8"]["posit"][
               "decode_computed_ms"],
           encode_sweep={k: v["differ"] for k, v in cw["encode_sweep"].items()},
+          fake_quant_bf16_ms={k: v["bf16_ms"]
+                              for k, v in cw["fake_quant"].items()},
+          fake_quant_sweep={k: v["sweep"]["differ"]
+                            for k, v in cw["fake_quant"].items()
+                            if "sweep" in v},
           ragged_cases=cw["ragged"]["cases"],
+          ragged_fake_quant_cases=cw["ragged"]["fake_quant_cases"],
           attention_rows_before_start={
               k: {kk: v[kk] for kk in ("max_abs_err", "ms", "ms_no_start",
                                        "bound_ms", "plain_ms", "library_ms")}

@@ -256,33 +256,12 @@ int grid_for(long long count) {
     return blocks < 1 ? 1 : (int)blocks;
 }
 
-// One wave of a codec kernel: as many blocks of 256 threads as fit on
-// every SM at once (the occupancy of that kernel, read once), each filling
-// its tables once, or fewer for a short count.
-template <auto kernel>
-int codec_grid(long long items) {
-    static int wave = 0;
-    if (wave == 0) {
-        int dev = 0, sms = 0, per = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, 256, 0);
-        wave = (sms > 0 ? sms : 132) * (per > 0 ? per : 1);
-    }
-    const long long blocks = (items + 255) / 256;
-    return blocks < 1 ? 1 : (blocks < wave ? (int)blocks : wave);
-}
-
-bool aligned16(const void* a, const void* b) {
-    return ((uintptr_t)a % 16 == 0) && ((uintptr_t)b % 16 == 0);
-}
-
 template <int S, int K, int M>
 int launch_decode(int n, const void* words, float* out, long long count,
                   cudaStream_t st) {
-    const long long nvec = aligned16(words, out) ? count / 4 : 0;
+    const long long nvec = codec::aligned16(words, out) ? count / 4 : 0;
     constexpr auto kernel = decode_kernel<S, K, M>;
-    kernel<<<codec_grid<kernel>(nvec ? (nvec + 1) / 2 : count), 256, 0,
+    kernel<<<codec::codec_grid<kernel>(nvec ? (nvec + 1) / 2 : count), 256, 0,
              st>>>((const wire::WordT<S>*)words, out, count, nvec, n);
     return (int)cudaGetLastError();
 }
@@ -290,9 +269,9 @@ int launch_decode(int n, const void* words, float* out, long long count,
 template <int S, int K>
 int launch_encode(int n, const float* x, void* words, long long count,
                   cudaStream_t st) {
-    const long long nvec = aligned16(x, words) ? count / 4 : 0;
+    const long long nvec = codec::aligned16(x, words) ? count / 4 : 0;
     constexpr auto kernel = encode_kernel<S, K>;
-    kernel<<<codec_grid<kernel>(nvec ? (nvec + 1) / 2 : count), 256, 0,
+    kernel<<<codec::codec_grid<kernel>(nvec ? (nvec + 1) / 2 : count), 256, 0,
              st>>>(x, (wire::WordT<S>*)words, count, nvec, n);
     return (int)cudaGetLastError();
 }

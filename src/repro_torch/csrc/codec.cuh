@@ -1,9 +1,10 @@
-// The element functions and block tables of the codec kernels (codec.cu):
-// one word decoded or one float encoded at a width n known at run time,
-// through tables that each block fills for its n at start. The served
-// kernels (the matmuls, attention, kv_append, fake-quant) keep the
-// register-only device functions of takum.cuh and posit.cuh, which these
-// fall back to for rare inputs, so both give the same words and floats.
+// The element functions and block tables of the codec kernels (codec.cu)
+// and of fake-quant's word path (fake_quant.cu): one word decoded or one
+// float encoded at a width n known at run time, through tables that each
+// block fills for its n at start. The served kernels (the matmuls,
+// attention, kv_append) keep the register-only device functions of
+// takum.cuh and posit.cuh, which these fall back to for rare inputs, so
+// both give the same words and floats.
 //
 // Decode, by mode (the host picks one per launch):
 //   TABLE8     takum8, lns-takum8 and posit8 through the table: the 256
@@ -19,6 +20,7 @@
 // float reads one entry and rounds with takum::round_entry, and zeros,
 // subnormals, infinities and NaNs take the register forms.
 #pragma once
+#include <cuda_runtime.h>
 #include <cstdint>
 #include "wire.cuh"
 
@@ -204,6 +206,29 @@ __device__ __forceinline__ void encode4(const float4 v, uint32_t w[4],
         }
         w[j] = b[j] >> 31 ? (0u - m) & (2u * c.top + 1u) : m;
     }
+}
+
+// One wave of a kernel of 256-thread blocks: as many blocks as fit on
+// every SM at once (the occupancy of that kernel, read once), each filling
+// its tables once, or fewer for a short count of items (one a thread).
+template <auto kernel>
+int codec_grid(long long items) {
+    static int wave = 0;
+    if (wave == 0) {
+        int dev = 0, sms = 0, per = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, 256, 0);
+        wave = (sms > 0 ? sms : 132) * (per > 0 ? per : 1);
+    }
+    const long long blocks = (items + 255) / 256;
+    return blocks < 1 ? 1 : (blocks < wave ? (int)blocks : wave);
+}
+
+// Both pointers 16-byte aligned: the vectors' accesses (else the kernels
+// take their scalar loop throughout).
+inline bool aligned16(const void* a, const void* b) {
+    return ((uintptr_t)a % 16 == 0) && ((uintptr_t)b % 16 == 0);
 }
 
 }  // namespace codec

@@ -110,9 +110,9 @@ struct Codec {
 
 // The codec of kind K (LINEAR, LNS or POSIT) at a width n known only at
 // run time, 6 <= n <= 32, its words in the 8-, 16- or 32-bit storage of
-// WordT<8 | 16 | 32>: the fake-quant kernels take the widths other than 8
-// and 16 through it, and the codec kernels (codec.cuh) their rare
-// elements and the posit decode (the other kernels keep Codec<8 | 16, K>).
+// WordT<8 | 16 | 32>: the codec and fake-quant kernels (codec.cuh) take
+// their rare elements and the posit decode through it (the other kernels
+// keep Codec<8 | 16, K>).
 template <int K>
 struct AnyWidth {
     static_assert(K == LINEAR || K == LNS || K == POSIT, "a computed codec");
@@ -168,9 +168,3 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int e) {
 #define WIRE_KV_FORMATS(X) WIRE_DECODE_FORMATS(X) X(16, 4) X(32, 4)
 #define WIRE_ENCODE_FORMATS(X) \
     X(8, 0) X(8, 1) X(8, 2) X(16, 0) X(16, 1) X(16, 2)
-// CODEC_ANY_WIDTH=1 (a timing build: tools/torch_kernel_times.py --codec)
-// sends widths 8 and 16 of the fake-quant kernels through the run-time-n
-// kernels too, all but the posit8 table.
-#ifndef CODEC_ANY_WIDTH
-#define CODEC_ANY_WIDTH 0
-#endif

@@ -2,10 +2,14 @@
 
 Replaces ``repro/kernels/quantize.py::fake_quant_kernel_call``: a round
 trip through a wire format's grid (encode, then decode) in one pass, f32
-in and f32 or bf16 out, for linear takum, logarithmic takum and posit at
-every width 6 <= n <= 32 (posit8 through its shared-memory table when
-``spec.lut_decode``). Bound
-by bytes on the H100 (4 bytes in, 4 or 2 out per element); see the
+in and f32 or bf16 out, for linear takum (scaled by a power of two or
+not), logarithmic takum and posit at every width 6 <= n <= 32 (posit8's
+table code included, ``spec.lut_decode``). Bound by bytes on the H100 (4
+bytes in, 4 or 2 out per element). Linear takum and posit round in
+value space, the float's own bits to nearest even at the word's
+fraction width, where the word keeps a fraction bit
+(``ref.fake_quant_dataflow`` is the plain mirror); LNS and the rare
+vectors take the codec kernels' table encode and decode. See the
 source's header comment for the design.
 
 ``fake_quant`` launches the kernel for CUDA tensors and runs
@@ -41,11 +45,14 @@ def fake_quant(x: torch.Tensor, spec: FormatSpec, *, dtype=torch.float32,
                scale_exp: int = 0) -> torch.Tensor:
     """decode(encode(x * 2^k)) * 2^-k in ``dtype`` (f32 or bf16), any
     shape; ``x`` of another float dtype is cast to f32 first; k =
-    ``scale_exp`` (0: the unscaled round trip)."""
+    ``scale_exp`` (0: the unscaled round trip; linear takum only, the
+    other kinds round trip unscaled)."""
     if dtype not in OUT_DTYPES:
         raise TypeError(f"fake_quant writes float32 or bfloat16, got {dtype}")
     if not -127 <= scale_exp <= 127:
         raise ValueError(f"scale_exp {scale_exp} outside [-127, 127]")
+    if scale_exp and spec.kind != "linear":
+        raise ValueError(f"{spec.name} fake-quantises unscaled")
     if not x.is_cuda:
         return kref.fake_quant_ref(x, spec, dtype=dtype, scale_exp=scale_exp)
     code = build.format_code(spec, x.device,

@@ -23,7 +23,7 @@ from repro_torch.core.takum import frac_width
 
 __all__ = ["decode_ref", "encode_ref", "kv_append_ref", "takum8_table",
            "encode_dataflow", "decode_dataflow", "lns_tail_dataflow",
-           "fake_quant_ref",
+           "fake_quant_dataflow", "fake_quant_ref",
            "fake_quant_lns_ref", "qmatmul_ref", "lns_qmatmul_ref", "lns_matmul_plain",
            "attention_ref", "paged_attention_ref", "MASKED"]
 
@@ -179,6 +179,53 @@ def decode_dataflow(words, fmt) -> torch.Tensor:
     special = (w & mask(n - 1)) == 0
     return torch.where(special, torch.where(s == 1, float("nan"), 0.0),
                        out)
+
+
+def _value_drop(e, n: int, kind: str):
+    """The fraction bits d = 23 - p that the value-space round drops at
+    biased float32 exponent e (int64 lanes): p = n - 1 - L(c) at c = e -
+    127, L the header's length (takum: 4 + floor_log2((c >= 0 ? c : ~c)
+    + 1); posit: the regime of k = c >> 2 and two exponent bits)."""
+    c = e - 127
+    if kind == "linear":
+        return floor_log2((c ^ (c >> 63)) + 1) + 28 - n
+    k = c >> 2
+    return (k ^ (k >> 63)) + 28 - n
+
+
+def fake_quant_dataflow(x, fmt, dtype=torch.float32, *,
+                        scale_exp: int = 0) -> torch.Tensor:
+    """Linear takum or posit fake-quant as the fused kernel forms it (a
+    plain mirror of ``csrc/fake_quant.cu``): x scaled by 2^k; a normal
+    float whose word keeps p >= 1 fraction bits rounds in value space,
+    to nearest even on its own float32 bits with d = 23 - p bits dropped
+    (unchanged for d <= 0: a carry out of the fraction is the word's
+    carry into the next characteristic, and at c = 127 gives +inf as the
+    decode does); every other float (0, subnormal, inf, NaN, p < 1) takes
+    the word path, :func:`encode_dataflow` then :func:`decode_dataflow`;
+    the result scaled by 2^-k and cast to ``dtype`` (round to nearest
+    even). No program path calls it: the CPU tests hold it against the
+    reference (tests/test_torch_fake_quant_dataflow.py)."""
+    spec = formats.resolve_wire(fmt)
+    if spec.kind not in ("linear", "posit"):
+        raise ValueError(f"the value-space round is linear takum's and "
+                         f"posit's, got {spec.name!r}")
+    x = torch.as_tensor(x).to(torch.float32)
+    if scale_exp:
+        x = x * exp2i(scale_exp).to(x.device)
+    b = lanes(x.contiguous().view(torch.int32).view(torch.uint32))
+    e = (b >> 23) & 0xFF
+    d = _value_drop(e, spec.n, spec.kind)
+    common = (e >= 1) & (e <= 254) & (d <= 22)
+    dd = d.clamp(min=0, max=22)
+    m = (1 << dd) - 1
+    r = ((b + (m >> 1) + ((b >> dd) & m & 1)) & ~m) & 0xFFFFFFFF
+    value = to_words(r, torch.uint32).view(torch.float32).reshape(x.shape)
+    word = decode_dataflow(encode_dataflow(x, spec), spec)
+    y = torch.where(common, value, word)
+    if scale_exp:
+        y = y * exp2i(-scale_exp).to(y.device)
+    return y.to(dtype)
 
 
 def kv_append_ref(k, v, k_cache, v_cache, fmt, *, pos, table=None,

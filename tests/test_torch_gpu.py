@@ -879,6 +879,119 @@ def test_quantize_weights_fake_card_matches_cpu(dev):
             assert float((step != 0).double().mean()) < 1e-4
 
 
+def _value_edges(kind, n):
+    """Floats at the value path's edges for width n, both signs: at every
+    biased exponent the fraction of all ones (the carry into the next
+    exponent; at c = 127 to +inf where the word keeps a fraction bit) and,
+    at that exponent's dropped bits d (``ref._value_drop``), the tie, the
+    tie +- 1, the tie above an odd kept bit; exponents with p < 1 (d > 22)
+    and p = 0 (d = 23) among them. Every fifth element then made rare (0,
+    a subnormal, +-inf, NaN), so that vectors of 4 mix rare and common
+    elements."""
+    e = torch.arange(1, 255, dtype=torch.int64)
+    d = ref._value_drop(e, n, kind).clamp(1, 23)
+    tie = 1 << (d - 1)
+    odd = torch.where(d <= 22, tie | (1 << d.clamp(max=22)), tie)
+    fracs = [torch.full_like(e, 0x7FFFFF), torch.zeros_like(e), tie,
+             tie + 1, tie - 1, odd, odd - 1]
+    bits = torch.cat([(e << 23) | (f & 0x7FFFFF) for f in fracs])
+    bits = torch.cat([bits, bits | (1 << 31)])
+    x = bits.to(torch.int32).view(torch.float32).clone()
+    rare = torch.tensor([0.0, 1e-40, float("inf"), -float("inf"),
+                         float("nan"), -1e-45])
+    x[::5] = rare.repeat(x[::5].numel() // rare.numel() + 1)[:x[::5].numel()]
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [6, 7, 8, 12, 16, 24, 29, 32])
+@pytest.mark.parametrize("kind", ["linear", "posit"])
+def test_fake_quant_value_path_edges(dev, kind, n, dtype):
+    """The value path's edges against the plain version, bit for bit (NaN
+    by place): the carry of an all-ones fraction into the next exponent
+    and to +inf at c = 127, the ties at each exponent's cut, p = 0 and
+    p < 1 exponents (at n = 6 and 8 most of them), vectors mixing rare
+    and common elements, unaligned runs of them."""
+    spec = formats.resolve(kind, n)
+    x = _value_edges(kind, n)
+    for off in (0, 1, 2):
+        xs = x[off:]
+        got = quantize.fake_quant(xs.to(dev), spec, dtype=dtype).cpu()
+        assert _same_floats(got, ref.fake_quant_ref(xs, spec, dtype=dtype))
+    top = torch.tensor([0x7F7FFFFF, 0xFF7FFFFF], dtype=torch.int64).to(
+        torch.int32).view(torch.float32)
+    assert _same_floats(quantize.fake_quant(top.to(dev), spec).cpu(),
+                        ref.fake_quant_ref(top, spec))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [4, -4, 60, -60, 127, -127])
+@pytest.mark.parametrize("n", [8, 12, 16, 32])
+def test_scaled_fake_quant_overflow_and_subnormal(dev, n, k, dtype):
+    """Linear takum scaled by 2^k where x * 2^k overflows to inf or
+    becomes subnormal (the word path), and where 2^-k takes the result
+    into the subnormal band, against the plain version bit for bit."""
+    spec = formats.resolve("linear", n)
+    rng = np.random.default_rng(abs(k) + n)
+    x = torch.from_numpy(_floats(rng, 20_000))
+    x = torch.cat([x, _value_edges("linear", n)])
+    got = quantize.fake_quant(x.to(dev), spec, dtype=dtype,
+                              scale_exp=k).cpu()
+    assert _same_floats(got, ref.fake_quant_ref(x, spec, dtype=dtype,
+                                                scale_exp=k))
+
+
+@pytest.mark.parametrize("name", ["takum8", "takum12", "posit8", "posit16",
+                                  "lns-takum8", "lns-takum16"])
+def test_fake_quant_misaligned_leaf_slice(dev, name, monkeypatch):
+    """A slice of a leaf whose data is not 16-byte aligned (as
+    ``_fake_leaf`` may pass one: the wrapper copies only what is not
+    contiguous) takes the kernel's scalar loop throughout, and the C
+    entry point called on misaligned pointers and counts 1..33: the
+    same floats as the aligned call and, but for LNS, as the plain
+    version."""
+    monkeypatch.setenv("REPRO_LUT_DECODE", "1")
+    spec = formats.resolve(name)
+    rng = np.random.default_rng(31)
+    leaf = torch.from_numpy(_floats(rng, 7 * 1001)[:7 * 1001]).reshape(
+        7, 1001).to(dev)
+    sl = leaf[3:]
+    assert sl.is_contiguous() and sl.data_ptr() % 16 != 0
+    got = quantize.fake_quant(sl, spec)
+    assert _same_floats(got, quantize.fake_quant(sl.clone(), spec))
+    if spec.kind != "lns":
+        assert _same_floats(got.cpu(), ref.fake_quant_ref(sl.cpu(), spec))
+    lib, code = quantize._lib(), build.format_code(spec, dev,
+                                                   widths=build.CODEC_WIDTHS)
+    flat = leaf.reshape(-1)
+    for off in range(4):
+        for cnt in range(1, 34):
+            out = torch.empty(cnt + 4, dtype=torch.float32, device=dev)
+            build.check(lib.takum_fake_quant(
+                spec.n, code, 0, flat[off:].data_ptr(), out[off:].data_ptr(),
+                cnt, 0, 1.0, 1.0, build.stream_of(flat)), "takum_fake_quant")
+            assert _same_floats(out[off:off + cnt],
+                                quantize.fake_quant(flat[off:off + cnt].clone(),
+                                                    spec))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [8, 12, 16, 32])
+def test_lns_fake_quant_is_the_codec_round_trip(dev, n, dtype):
+    """LNS fake-quant against the codec kernels' round trip (the same
+    tables, one logf and one expf an element), bit for bit, NaN by place,
+    f32 and bf16 out."""
+    spec = formats.resolve("lns", n)
+    x = torch.from_numpy(_floats(np.random.default_rng(40 + n),
+                                 100_000)).to(dev)
+    x = torch.cat([x, _value_edges("linear", 16).to(dev)])
+    want = takum_codec.decode(takum_codec.encode(x, spec), spec).to(dtype)
+    assert _same_floats(quantize.fake_quant(x, spec, dtype=dtype), want)
+
+
 def test_posit_and_fake_quant_wrappers_count_launches(dev):
     spec = formats.get("posit8")
     n0, q0 = takum_matmul.qmatmul.launches, quantize.fake_quant.launches

@@ -79,10 +79,16 @@ and, not a build, the LNS matmul's K-split target for prefill chunks
 (``lns_matmul.TILE_PER_SM``: 6, 12 and the default) at the four prefill
 shapes.
 
-``--codec`` (this checkout's kernels only) times the fused fake-quant at
-n = 8 and 16 for each kind, the default build (``Codec<N, K>``, n a
-constant) against one with ``CODEC_ANY_WIDTH=1`` (its kernels of the
-other widths, n at run time), their outputs held equal bit for bit.
+``--codec`` times the fused fake-quant at ``WIDTHS_TIMED`` for each
+kind, f32 and bf16 out, on seeded normals and on weights-like values (x
+0.02, linear takum scaled as served), and at the served leaves of
+phases 26 and 27 (``SERVED_LEAVES``: granite-moe's f32 expert stack,
+kimi-k2's bf16 expert slice; takum8 with the leaf's power-of-two scale),
+each beside its byte bound; kimi's through the wrapper (the bf16 leaf
+cast to f32 first, then the kernel with bf16 out), the kernel alone on
+the cast and the cast alone. With ``--against DIR`` both trees' kernels
+are timed in turns (against, this, this, against) on the same inputs,
+their outputs compared bit for bit.
 
 ``--codec-widths`` (this checkout's kernels) reads ``chip_smoke.py``
 phase 33's ``width_times`` (the codec's decode and encode at
@@ -90,7 +96,8 @@ phase 33's ``width_times`` (the codec's decode and encode at
 ``torch.index_select`` for decodes to 16 bits, PyTorch's cast over the
 same bytes, posit8's computed decode) with the fused fake-quant's time
 beside, and the card's rates for plain float32 streams of the same size
-(read, write, copy). Only ``codec.cu`` and ``fake_quant.cu`` are built. ``--against
+(read, write, copy), and fake-quant with bf16 output beside its own byte
+bound. Only ``codec.cu`` and ``fake_quant.cu`` are built. ``--against
 DIR`` also builds those two sources of another checkout's ``csrc``
 directory (its own headers; the same C entry points) and times both in
 turns on the same inputs (against, this, this, against), their outputs
@@ -98,8 +105,10 @@ compared bit for bit. ``--sass`` counts the SASS
 instructions of every codec and fake-quant kernel (``cuobjdump -sass``):
 each kernel's total and the span of the longest backward branch whose
 body loads from global memory (its main loop, with the rare paths it
-branches over), of this build and of ``--against``'s; the listings go to
-``chiprun_out/sass_<source>[_against].txt``.
+branches over) and, for fake-quant's loop, the instructions that an
+iteration runs when both its vectors take the value path
+(``value_path``), of this build and of ``--against``'s; the listings go
+to ``chiprun_out/sass_<source>[_against].txt``.
 
 Prints the card (``nvidia-smi``'s name and power limit) and one JSON
 object as its last line; ``--out`` writes the same object to a file.
@@ -134,8 +143,13 @@ VARIANTS = {
                          "lns_matmul"),
                         ("-DWIRE_TAKUM8_COMPUTED=1",)),
 }
-# --codec: fake-quant's widths 8 and 16 through its run-time-n kernels
-CODEC_VARIANTS = {"any_width": (("fake_quant",), ("-DCODEC_ANY_WIDTH=1",))}
+# --codec: the fake-quant calls of phases 26 and 27's set-up, takum8
+# with the leaf's power-of-two scale: granite-moe-3b-a800m's expert stack
+# [E 40, d 1536, f 512] f32 (the whole stack one launch) and a slice of
+# kimi-k2's [384, 7168, 2048] bf16 stacks (4 experts a launch: the
+# engine's 2^26-element slices)
+SERVED_LEAVES = {"granite-moe expert stack": ((40, 1536, 512), "float32"),
+                 "kimi-k2 expert slice": ((4, 7168, 2048), "bfloat16")}
 
 
 def graph_or_none(torch, fn, iters=20):
@@ -480,13 +494,13 @@ def takum8_times(torch, dev):
     return out
 
 
-def build_variants(build, variants=VARIANTS):
+def build_variants(build):
     """{variant: {source: library path}}, one nvcc per library, all
     started together, into ``build/repro_torch/variants``."""
     dst = build.BUILD_DIR / "variants"
     dst.mkdir(parents=True, exist_ok=True)
     procs, paths = [], {}
-    for var, (sources, defines) in variants.items():
+    for var, (sources, defines) in VARIANTS.items():
         for src in sources:
             lib = dst / f"lib{src}-{var}.so"
             cmd = [build._nvcc(), *build.NVCC_FLAGS, *defines, "-I",
@@ -525,38 +539,90 @@ def swap_in(build, libs):
     return old
 
 
-def codec_times(torch, dev):
-    """The fused fake-quant at n = 8 and 16, each kind, at
-    ``chip_smoke.CODEC_SHAPE``: the default build (``Codec<N, K>``, n a
-    constant) against ``CODEC_VARIANTS`` (its run-time-n kernels), on the
-    same inputs, in turns (default, variant, variant, default), with the
-    outputs of both held equal bit for bit."""
-    from chip_smoke import CODEC_KINDS, CODEC_SHAPE
+def codec_times(torch, dev, against=None):
+    """The fused fake-quant at ``chip_smoke.WIDTHS_TIMED`` for each kind,
+    f32 and bf16 out, at ``chip_smoke.CODEC_SHAPE``, on seeded normals
+    (``randn``) and on weights (``randn`` x 0.02, linear takum scaled by
+    ``FormatSpec.fake_quant``'s power of two, taken once), and takum8 at
+    ``SERVED_LEAVES`` in the leaf's dtype (in and out), scaled as served;
+    the bf16 leaf also as the kernel alone on its f32 cast and as the
+    cast alone. With ``against`` (another checkout's ``csrc``) both
+    trees in turns (against, this, this, against) on the same inputs,
+    the outputs held equal bit for bit: {"<spec> <dtype> <input>": row}
+    with ``ms``[, ``ms_against``, ``bit_equal``] and ``bound_ms`` (the
+    bytes read and written over ``chip_smoke.HBM_BW``), and
+    ``device_ms``[, ``device_ms_against``] from CUDA graph replays: the
+    card's time with no host between the calls (events over calls of
+    0.1-0.3 ms also count the host's wrapper where it is the slower side,
+    and spread by up to 30% between identical kernels)."""
+    from chip_smoke import CODEC_KINDS, CODEC_SHAPE, WIDTHS_TIMED, bound
     from repro_torch import formats
+    from repro_torch.core import quant
     from repro_torch.kernels import build
     from repro_torch.kernels import quantize as kquant
     mine = build.build_all(CODEC_SOURCES)
-    var = build_variants(build, CODEC_VARIANTS)["any_width"]
+    other = build_against(build, against) if against else None
     g = torch.Generator(device=dev).manual_seed(22)
     x = torch.randn(CODEC_SHAPE, generator=g, device=dev)
+
+    def exp_of(spec, v):
+        # FormatSpec.fake_quant's power of two, taken once, outside the
+        # timed call
+        return (int(quant.scale_exponent(
+            v.to(torch.float32), quant.QuantSpec(fmt="takum", n=spec.n)))
+            if spec.kind == "linear" else 0)
+
+    calls = {}
+    for n in WIDTHS_TIMED:
+        for kind in CODEC_KINDS:
+            spec = formats.resolve(kind, n)
+            for dt in (torch.float32, torch.bfloat16):
+                for src, v, served in (("randn", x, False),
+                                       ("weights", x * 0.02, True)):
+                    k = exp_of(spec, v) if served else 0
+                    calls[f"{spec.name} {str(dt)[6:]} {src}"] = (
+                        lambda v=v, spec=spec, dt=dt, k=k: kquant.fake_quant(
+                            v, spec, dtype=dt, scale_exp=k),
+                        bound(v.numel() * (4 + dt.itemsize), 0)[0])
+    t8 = formats.get("takum8")
+    for name, (shape, dtn) in SERVED_LEAVES.items():
+        dt = getattr(torch, dtn)
+        v = (torch.randn(shape, generator=g, device=dev) * 0.02).to(dt)
+        k = exp_of(t8, v)
+        calls[f"takum8 {dtn} {name}"] = (
+            lambda v=v, dt=dt, k=k: kquant.fake_quant(v, t8, dtype=dt,
+                                                      scale_exp=k),
+            bound(v.numel() * 2 * dt.itemsize, 0)[0])
+        if dt != torch.float32:
+            v32 = v.to(torch.float32)
+            calls[f"takum8 {dtn} {name}, kernel alone on the f32 cast"] = (
+                lambda v=v32, dt=dt, k=k: kquant.fake_quant(
+                    v, t8, dtype=dt, scale_exp=k),
+                bound(v.numel() * (4 + dt.itemsize), 0)[0])
+            calls[f"{name}: the cast to f32 alone"] = (
+                lambda v=v: v.to(torch.float32),
+                bound(v.numel() * (dt.itemsize + 4), 0)[0])
+    turns = ["against", "this", "this", "against"] if other else ["this"]
     res, vals = {}, {}
-    for tag in ("default", "variant", "variant", "default"):
-        swap_in(build, var if tag == "variant" else mine)
-        for n in (8, 16):
-            for kind in CODEC_KINDS:
-                spec = formats.resolve(kind, n)
-                res.setdefault(spec.name, {}).setdefault(
-                    f"fake_quant_ms_{tag}", []).append(
-                    cuda_ms(torch, lambda: kquant.fake_quant(x, spec)))
-                vals.setdefault(tag, {})[spec.name] = kquant.fake_quant(x,
-                                                                       spec)
+    for who in turns:
+        swap_in(build, other if who == "against" else mine)
+        suffix = "_against" if who == "against" else ""
+        for key, (fn, bnd) in calls.items():
+            row = res.setdefault(key, {"bound_ms": bnd})
+            row.setdefault("ms" + suffix, []).append(cuda_ms(torch, fn))
+            row.setdefault("device_ms" + suffix, []).append(
+                graph_or_none(torch, fn))
+            if other and key not in vals.setdefault(who, {}):
+                vals[who][key] = fn()
     swap_in(build, mine)
-    for name, row in res.items():
+    for key, row in res.items():
         for k, v in row.items():
-            row[k] = sum(v) / len(v)
-        row["bit_equal"] = torch.equal(
-            vals["default"][name].view(torch.uint8),
-            vals["variant"][name].view(torch.uint8))
+            if isinstance(v, list):
+                row[k] = None if None in v else sum(v) / len(v)
+        if other:
+            row["bit_equal"] = torch.equal(
+                vals["this"][key].view(torch.uint8),
+                vals["against"][key].view(torch.uint8))
     return res
 
 
@@ -614,6 +680,9 @@ def codec_width_times(torch, dev, against=None):
                 r = width_times(torch, dev, n, kind, plain=False)
                 r["fake_quant_ms"] = cuda_ms(
                     torch, lambda: kquant.fake_quant(x, spec))
+                r["fake_quant_bf16_ms"] = cuda_ms(
+                    torch, lambda: kquant.fake_quant(
+                        x, spec, dtype=torch.bfloat16))
                 for k, v in r.items():
                     if isinstance(v, float) and not k.startswith("bound"):
                         row.setdefault(k + suffix, []).append(v)
@@ -623,11 +692,14 @@ def codec_width_times(torch, dev, against=None):
                     words = takum_codec.encode(x, spec)
                     outs[who] = {"encode": words,
                                  "decode": takum_codec.decode(words, spec),
-                                 "fake_quant": kquant.fake_quant(x, spec)}
+                                 "fake_quant": kquant.fake_quant(x, spec),
+                                 "fake_quant_bf16": kquant.fake_quant(
+                                     x, spec, dtype=torch.bfloat16)}
             swap_in(build, mine)
             row = {k: sum(v) / len(v) if isinstance(v, list) else v
                    for k, v in row.items()}
             row["fq_bound_ms"] = bound(x.numel() * 8, 0)[0]
+            row["fq_bf16_bound_ms"] = bound(x.numel() * 6, 0)[0]
             if other:
                 row["equal"] = {op: torch.equal(
                     outs["this"][op].view(torch.uint8),
@@ -657,11 +729,66 @@ def stream_times(torch, dev):
     return out
 
 
+def value_path(ins, span):
+    """The instructions that a loop iteration runs when both its vectors
+    take fake-quant's value path: from the loop's head to the path's
+    branch (the first forward conditional branch after the vote, or
+    after the last global load where each lane branches on its own, with
+    a global store on one side only before that side's next branch),
+    then the value side to the loop's backward branch, conditional
+    branches taken as falling through (the second vector is there) and
+    unconditional ones followed. None without such a branch. Where the
+    value side calls ``logf``/``expf`` (LNS) their special-case branches
+    fall through too, so the count is an upper bound there."""
+    import re
+    bra = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
+    head, end = span
+    loop = [(a, o) for a, o in ins if head <= a <= end]
+    at = {a: k for k, (a, _) in enumerate(loop)}
+
+    def stores(k):
+        for _, o in loop[k:]:
+            if o.startswith("STG") or " STG" in o:
+                return True
+            if re.search(r"\bBRA\b", o):
+                return False
+        return False
+
+    vote = next((k for k, (_, o) in enumerate(loop) if "VOTE.ALL" in o),
+                None)
+    start = vote if vote is not None else max(
+        (k for k, (_, o) in enumerate(loop) if "LDG" in o), default=0)
+    for k in range(start, len(loop)):
+        o = loop[k][1]
+        m = bra.search(o)
+        t = at.get(int(m.group(1), 16)) if m and o.startswith("@") else None
+        if t is not None and t > k and stores(k + 1) != stores(t):
+            pc = k + 1 if stores(k + 1) else t
+            break
+    else:
+        return None
+    count = k + 1
+    while pc < len(loop):
+        o = loop[pc][1]
+        count += 1
+        m = bra.search(o)
+        if pc == len(loop) - 1:
+            break
+        if m and not o.startswith("@") and int(m.group(1), 16) in at:
+            pc = at[int(m.group(1), 16)]
+        else:
+            pc += 1
+    return count
+
+
 def sass_counts(build, against=None):
-    """{library: {kernel: {"instructions", "loop"}}} of the codec and
-    fake-quant libraries (and ``against``'s), from ``cuobjdump -sass``:
-    each kernel's instruction count and the span of its longest backward
-    branch over a global load (the main loop's body), demangled where
+    """{library: {kernel: {"instructions", "loop"[, "value_path"]}}} of
+    the codec and fake-quant libraries, this checkout's and
+    ``against``'s, from ``cuobjdump -sass``:
+    each kernel's instruction count, the span of its longest backward
+    branch over a global load (the main loop's body, with every path it
+    branches over) and, for fake-quant's loop, the instructions of an
+    iteration on the value path (``value_path``), demangled where
     ``c++filt`` is found.
     The listings go to ``chiprun_out``."""
     import re
@@ -690,16 +817,20 @@ def sass_counts(build, against=None):
                 cur.append((int(m.group(1), 16), m.group(2).strip()))
         rows = {}
         for fn, ins in kernels.items():
-            loop = 0
+            loop, span = 0, None
             for addr, op in ins:
                 b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
                 if not b or int(b.group(1), 16) >= addr:
                     continue
                 body = [o for a, o in ins if int(b.group(1), 16) <= a <= addr]
-                if any(o.split()[0].lstrip("@!P0123456789T ").startswith("LDG")
-                       or " LDG" in o for o in body):
-                    loop = max(loop, len(body))
+                if (any(o.split()[0].lstrip("@!P0123456789T ").startswith("LDG")
+                        or " LDG" in o for o in body) and len(body) > loop):
+                    loop, span = len(body), (int(b.group(1), 16), addr)
             rows[fn] = {"instructions": len(ins), "loop": loop}
+            path = (value_path(ins, span)
+                    if span and name.startswith("fake_quant") else None)
+            if path:
+                rows[fn]["value_path"] = path
         filt = shutil.which("c++filt")
         if filt:
             names = subprocess.run([filt], input="\n".join(rows),
@@ -873,7 +1004,7 @@ def main() -> int:
     if args.variants:
         res["variants_ms"] = variant_times(torch, dev)
     if args.codec:
-        res["codec_ms"] = codec_times(torch, dev)
+        res["codec_ms"] = codec_times(torch, dev, args.against)
     if args.codec_widths:
         res["codec_widths_ms"] = codec_width_times(torch, dev, args.against)
         res["stream_ms"] = stream_times(torch, dev)
