@@ -234,6 +234,23 @@ Phases, one summary line each; any failure exits non-zero:
     plain version, timed with and without starts; the path (every
     width's decode, encode and fake-quant through ``ops``) with the
     launch counters zeroed before it and read after.
+34. the codec at 33-64 bits and the float64 decode: the decode (to
+    float32 and float64), encode and fake-quant (float32, bfloat16 and
+    float64 out) kernels at n = 33, 40, 48, 57, 58, 61 and 64, each kind,
+    over 2^24 seeded words (top bit set and clear) and floats (with the
+    ties of every float exponent's cut), against the plain codec on the
+    card (the counts of differing outputs, all 0: linear and posit bit
+    for bit, LNS decodes within 2 ulp, LNS words in the window of a logf
+    2 ulp either side, LNS fake-quant the codec kernels' round trip);
+    the float64 decode and fake-quant from 8-, 16- and 32-bit words (n =
+    8, 16, 24, 32); every ``SWEEP_STRIDE``-th float32 pattern through the
+    encode at n = 64, linear and posit; times at [5120, 17920] (n = 40 and
+    64; the float64 decode from uint32 words at 32) beside their byte
+    bounds, PyTorch's cast over the same bytes and, at 64 bits, the plain
+    version's; the path (each width's decode, encode and fake-quant
+    through ``ops``) with the launch counters zeroed before it and read
+    after. ``widths`` of the kernels line's ``takum_codec`` and
+    ``fake_quant`` gain these rows.
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
@@ -464,8 +481,20 @@ def smi(*fields) -> str:
 
 
 def ulps(torch, a, b):
-    """|a - b| in float32 units in the last place (+0 and -0 are one
-    value, and a sign change counts the steps through zero)."""
+    """|a - b| in units in the last place of their float32 or float64 type
+    (+0 and -0 are one value, and a sign change counts the steps through
+    zero). Float64 distances are taken in int64 and exact for two values
+    of one sign; across zero each side is counted in float64, exact below
+    2^53 steps and above that far beyond any tolerance."""
+    if a.element_size() == 8:
+        def ordered(t):
+            i = t.contiguous().view(torch.int64)
+            return torch.where(i < 0, -(i & ((1 << 63) - 1)), i)
+        oa, ob = ordered(a), ordered(b)
+        same = (oa >= 0) == (ob >= 0)
+        return torch.where(same, (oa - ob).abs().double(),
+                           oa.abs().double() + ob.abs().double())
+
     def ordered(t):
         i = t.contiguous().view(torch.int32).long()
         return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
@@ -1225,7 +1254,7 @@ def same_floats(torch, a, b) -> bool:
     """Bit-equal where not NaN, NaN in the same places (PyTorch's NaN bits
     differ between its CPU and CUDA arithmetic)."""
     na, nb = torch.isnan(a), torch.isnan(b)
-    it = torch.int16 if a.element_size() == 2 else torch.int32
+    it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
     return (torch.equal(na, nb)
             and torch.equal(a[~na].view(it), b[~nb].view(it)))
 
@@ -3434,7 +3463,12 @@ def lns_encode_ok(got, want, lo, hi, n):
     """Per float, whether an LNS encode kernel's word ``got`` is the plain
     version's ``want`` or, at a ``logf`` tie, its neighbour: one word
     either way and inside the window (``lo``, ``hi``) of
-    :func:`lns_encode_bounds` (int64 words throughout)."""
+    :func:`lns_encode_bounds` (int64 words throughout). From n = 33 a
+    word keeps ell_bar's 22 fraction bits (21 at n = 33 next to the
+    longest header), so a tie of the fixed point form moves the word by
+    2^(wf - 22) words: there the rule is the window alone."""
+    if n > 32:
+        return (got == want) | ((got >= lo) & (got <= hi))
     step = (got - want) % (1 << n)
     near = (step == 1) | (step == (1 << n) - 1)
     return (step == 0) | (near & (got >= lo) & (got <= hi))
@@ -3825,6 +3859,248 @@ def codec_widths_phase(torch, dev):
             "times": times, "attention_rows_before_start": attn,
             "encode_sweep": sweep, "ragged": ragged,
             "launches": launches, "launches_per_format": per}
+
+
+# -- 34. the codec at 33-64 bits and the float64 decode ----------------------
+
+WIDTHS_64 = (33, 40, 48, 57, 58, 61, 64)
+WIDTHS_F64 = (8, 16, 24, 32)          # float64 out from 8-/16-/32-bit words
+WIDTHS_64_TIMED = (40, 64)            # 64-bit words timed (and 32 to f64)
+F64_SWEEP = ((64, "linear"), (64, "posit"))
+
+
+def wide_words(torch, dev, n, seed):
+    """2^24 seeded n-bit words (every word for n <= 16), half with the
+    top bit set and half with it clear at n > 16, and the words around 0
+    and NaR."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import mask, signed64, to_words
+    dtype = formats.resolve("linear", n).word_dtype
+    if n <= 16:
+        return to_words(torch.arange(2 ** n, device=dev), dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randint(-2 ** 63, 2 ** 63 - 1, (CODEC_SAMPLE,), device=dev,
+                      generator=g, dtype=torch.int64) & mask(n, 64)
+    top = signed64(1 << (n - 1))
+    w[: CODEC_SAMPLE // 2] |= top
+    w[CODEC_SAMPLE // 2:] &= ~top
+    edge = [0, 1, (1 << (n - 1)) - 1, 1 << (n - 1), (1 << (n - 1)) + 1,
+            (1 << n) - 1]
+    w[:6] = torch.tensor([signed64(v) for v in edge], device=dev)
+    return to_words(w, dtype)
+
+
+def wide_floats(torch, dev, n, kind, seed):
+    """``float_sample``'s 2^24 floats with, first, every normal float32
+    exponent's fractions 2^j and 3 * 2^j (j = 0..22), both signs: the
+    ties of every cut a 64-bit word can have (linear takum rounds at n =
+    33 and 34, posit next to its long regimes)."""
+    e = torch.arange(1, 255, device=dev, dtype=torch.int64)[:, None] << 23
+    j = torch.arange(23, device=dev, dtype=torch.int64)
+    m = torch.cat([1 << j, (3 << j) & 0x7FFFFF])[None, :]
+    t = (e | m).reshape(-1)
+    t = torch.cat([t, t | (1 << 31)])
+    ties = torch.where(t >= 1 << 31, t - (1 << 32), t).to(
+        torch.int32).view(torch.float32)
+    x = float_sample(torch, dev, n, kind, seed)
+    return torch.cat([ties, x[ties.numel():]])
+
+
+def float_differ(torch, got, want, tol=0) -> int:
+    """Elements whose floats differ (NaN by place; more than ``tol`` ulp
+    apart, bit for bit at 0)."""
+    ng, nw = torch.isnan(got), torch.isnan(want)
+    both = ~ng & ~nw
+    g, w = got[both], want[both]
+    if tol == 0:
+        it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[g.element_size()]
+        far = g.view(it) != w.view(it)
+    else:
+        far = ulps(torch, g, w) > tol
+    return int((ng != nw).sum()) + int(far.sum())
+
+
+def wide_codec_check(torch, dev, n, kind, seed, encode=True):
+    """Decode (``wide_words``) to float32 and float64, encode and
+    fake-quant (f32, bf16 and f64 out; ``wide_floats``) kernels at width
+    n against the plain codec on the card: linear and posit bit for bit
+    (NaN by place), LNS decodes within 2 ulp, encoded words by
+    ``lns_encode_ok`` (at most ``LNS_NEIGHBOUR_SHARE`` apart) and the
+    fused round trip equal to the codec kernels' (their decode to the
+    same dtype). ``encode`` False: the decode to float64 alone (from 8-,
+    16- and 32-bit words) and fake-quant to float64. The row counts the
+    outputs outside each rule (all 0, or the phase fails)."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import lanes
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.kernels import ref, takum_codec
+    spec = formats.resolve(kind, n)
+    words = wide_words(torch, dev, n, seed)
+    row = {"words": words.numel()}
+    tol = 2 if kind == "lns" else 0
+    dtypes = ((torch.float32, torch.float64) if encode else (torch.float64,))
+    for dtype in dtypes:
+        got = takum_codec.decode(words, spec, dtype=dtype)
+        want = ref.decode_ref(words, spec, dtype=dtype)
+        bad = float_differ(torch, got, want, tol)
+        check(got.dtype == dtype and bad == 0, f"{spec.name}: {bad} "
+              f"{dtype} decodes off the plain codec (tolerance {tol} ulp)")
+        row[f"decode_{str(dtype)[6:]}_differ"] = bad
+    xs = wide_floats(torch, dev, n, kind, seed + 1)
+    row["floats"] = xs.numel()
+    gw = takum_codec.encode(xs, spec)
+    if encode:
+        g, w = lanes(gw), lanes(ref.encode_ref(xs, spec))
+        if kind == "lns":
+            share = float((g != w).double().mean())
+            lo, hi = lns_encode_bounds(torch, xs, n)
+            bad = int((~lns_encode_ok(g, w, lo, hi, n)).sum())
+            check(share <= LNS_NEIGHBOUR_SHARE, f"{spec.name}: encode "
+                  f"neighbour share {share} over {LNS_NEIGHBOUR_SHARE}")
+            row["encode_neighbour_share"] = share
+        else:
+            bad = int((g != w).sum())
+        check(bad == 0, f"{spec.name}: {bad} encoded words off the plain "
+              "codec")
+        row["encode_differ"] = bad
+    for dtype in ((torch.float32, torch.bfloat16, torch.float64) if encode
+                  else (torch.float64,)):
+        got = kquant.fake_quant(xs, spec, dtype=dtype)
+        want = (takum_codec.decode(gw, spec, dtype=dtype) if kind == "lns"
+                else ref.fake_quant_ref(xs, spec, dtype))
+        ng, nw = torch.isnan(got), torch.isnan(want)
+        it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            got.element_size()]
+        bad = int(((ng != nw) | (~ng & ~nw & (got.view(it) != want.view(it)))
+                   ).sum())
+        check(bad == 0, f"fake-quant {spec.name} {dtype}: {bad} outputs "
+              "differ from " + ("the codec kernels' round trip"
+                                if kind == "lns" else "its plain version"))
+        row[f"fake_quant_{str(dtype)[6:]}_differ"] = bad
+    return row
+
+
+def wide_times(torch, dev, n, kind, plain):
+    """At ``CODEC_SHAPE``: the decode kernel to float32 (64-bit words) and
+    to float64, the encode (64-bit words) and fake-quant to float32,
+    bfloat16 and float64 (64-bit widths), each beside its byte bound
+    (each input read once, each output written once), PyTorch's
+    elementwise cast over the same bytes (``*_stream_ms``: the words as
+    int64 or int32 to the float, float32 to int64) and, where ``plain``,
+    the plain version's time."""
+    from repro_torch import formats
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.kernels import ref, takum_codec
+    spec = formats.resolve(kind, n)
+    g = torch.Generator(device=dev).manual_seed(3400 + n)
+    x = torch.randn(CODEC_SHAPE, generator=g, device=dev)
+    words = takum_codec.encode(x, spec)
+    wb, el = words.element_size(), x.numel()
+    ints = {4: torch.int32, 8: torch.int64}[wb]
+    as_ints = words.view(ints)
+    f64 = torch.float64
+    row = {"word_bytes": wb,
+           "decode_f64_ms": cuda_ms(torch, lambda: takum_codec.decode(
+               words, spec, dtype=f64)),
+           "decode_f64_bound_ms": bound(el * (wb + 8), 0)[0],
+           "decode_f64_stream_ms": cuda_ms(torch, lambda: as_ints.to(f64)),
+           "bound_by": "bytes"}
+    if plain:
+        row["decode_f64_plain_ms"] = cuda_ms(
+            torch, lambda: ref.decode_ref(words, spec, dtype=f64), iters=2,
+            warmup=1)
+    if n <= 32:
+        return row
+    row.update(
+        decode_ms=cuda_ms(torch, lambda: takum_codec.decode(words, spec)),
+        bound_ms=bound(el * (wb + 4), 0)[0],
+        decode_stream_ms=cuda_ms(torch, lambda: as_ints.to(torch.float32)),
+        encode_ms=cuda_ms(torch, lambda: takum_codec.encode(x, spec)),
+        encode_bound_ms=bound(el * (wb + 4), 0)[0],
+        encode_stream_ms=cuda_ms(torch, lambda: x.to(ints)))
+    fq = {}
+    for dtype, ob in ((torch.float32, 4), (torch.bfloat16, 2), (f64, 8)):
+        key = str(dtype)[6:]
+        fq[f"{key}_ms"] = cuda_ms(torch, lambda: kquant.fake_quant(
+            x, spec, dtype=dtype))
+        fq[f"{key}_bound_ms"] = bound(el * (4 + ob), 0)[0]
+    fq["float64_stream_ms"] = cuda_ms(torch, lambda: x.to(f64))
+    if plain:
+        row["decode_plain_ms"] = cuda_ms(
+            torch, lambda: ref.decode_ref(words, spec), iters=2, warmup=1)
+        row["encode_plain_ms"] = cuda_ms(
+            torch, lambda: ref.encode_ref(x, spec), iters=2, warmup=1)
+        fq["float32_plain_ms"] = cuda_ms(
+            torch, lambda: ref.fake_quant_ref(x, spec), iters=2, warmup=1)
+        fq["float64_plain_ms"] = cuda_ms(
+            torch, lambda: ref.fake_quant_ref(x, spec, f64), iters=2,
+            warmup=1)
+    row["fake_quant"] = fq
+    return row
+
+
+def codec64_phase(torch, dev):
+    """Phase 34: the codec and fake-quant kernels at 33-64 bits (64-bit
+    words) and the float64 decode (every storage) against the plain
+    codec, every 61st float32 pattern through the encode at n = 64, the
+    kernels' times, and the path: each width's decode (f32 and f64),
+    encode and fake-quant (f32, bf16, f64) through ``ops``, with the
+    launch counters zeroed just before and read just after."""
+    from repro_torch import formats
+    from repro_torch.kernels import ops, takum_codec
+    from repro_torch.kernels import quantize as kquant
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        torch.cuda.synchronize()
+        seconds[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    checks = {}
+    for i, n in enumerate(WIDTHS_64):
+        for j, kind in enumerate(CODEC_KINDS):
+            checks[f"{kind}{n}"] = wide_codec_check(torch, dev, n, kind,
+                                                    3400 + 10 * i + j)
+    lap("checks")
+    f64 = {f"{kind}{n}": wide_codec_check(torch, dev, n, kind, 3500 + n,
+                                          encode=False)
+           for n in WIDTHS_F64 for kind in CODEC_KINDS}
+    lap("float64_decode")
+    sweep = {f"{kind}{n}": encode_sweep(torch, dev, n, kind)
+             for n, kind in F64_SWEEP}
+    lap("encode_sweep")
+    times = {str(n): {kind: wide_times(torch, dev, n, kind, n == 64)
+                      for kind in CODEC_KINDS}
+             for n in (32,) + WIDTHS_64_TIMED}
+    lap("times")
+    x = torch.randn(1 << 20, device=dev)
+    fns = {"takum_decode": takum_codec.decode,
+           "takum_encode": takum_codec.encode,
+           "fake_quant": kquant.fake_quant}
+    for fn in fns.values():
+        fn.launches = 0
+    per = {}
+    for n in WIDTHS_64 + WIDTHS_F64:
+        for kind in CODEC_KINDS:
+            before = {k: fn.launches for k, fn in fns.items()}
+            spec = formats.resolve(kind, n)
+            w = ops.takum_encode(x, spec)
+            ops.takum_decode(w, spec, dtype=torch.float64)
+            if n > 32:
+                ops.takum_decode(w, spec)
+            for dtype in ((torch.float32, torch.bfloat16, torch.float64)
+                          if n > 32 else (torch.float64,)):
+                ops.fake_quant_fused(x, n, fmt=kind, dtype=dtype)
+            per[f"{kind}{n}"] = {k: fn.launches - before[k]
+                                 for k, fn in fns.items()}
+    launches = {k: fn.launches for k, fn in fns.items()}
+    check(all(v["takum_decode"] and v["takum_encode"] and v["fake_quant"]
+              for v in per.values()), f"phase 34's path launched {per}")
+    lap("path")
+    return {"checks": checks, "float64_decode": f64, "encode_sweep": sweep,
+            "times": times, "launches": launches,
+            "launches_per_format": per, "seconds": seconds}
 
 
 def phase(n: int, name: str, **fields) -> None:
@@ -4680,6 +4956,61 @@ def main() -> int:
     kernels["fake_quant"]["launches_phase33"] = cw["launches"]["fake_quant"]
     kernels["attention"]["rows_before_start"] = \
         cw["attention_rows_before_start"]
+
+    # -- 34. the codec at 33-64 bits and the float64 decode ------------------
+    t34 = time.perf_counter()
+    c64 = codec64_phase(torch, dev)
+    t64 = c64["times"]
+    rows = list(c64["checks"].values()) + list(c64["float64_decode"].values())
+    differ = {k: sum(r.get(k, 0) for r in rows)
+              for k in ("decode_float32_differ", "decode_float64_differ",
+                        "encode_differ", "fake_quant_float32_differ",
+                        "fake_quant_bfloat16_differ",
+                        "fake_quant_float64_differ")}
+    phase(34, "the codec at 33-64 bits and the float64 decode",
+          widths=list(WIDTHS_64), float64_from=list(WIDTHS_F64),
+          formats=len(c64["checks"]) + len(c64["float64_decode"]),
+          differ=differ, lns_encode_neighbour_share=max(
+              r["encode_neighbour_share"] for r in c64["checks"].values()
+              if "encode_neighbour_share" in r),
+          encode_sweep={k: v["differ"] for k, v in
+                        c64["encode_sweep"].items()},
+          decode_ms={n: {k: v.get("decode_ms") for k, v in r.items()}
+                     for n, r in t64.items()},
+          decode_f64_ms={n: {k: v["decode_f64_ms"] for k, v in r.items()}
+                         for n, r in t64.items()},
+          encode_ms={n: {k: v.get("encode_ms") for k, v in r.items()}
+                     for n, r in t64.items()},
+          fake_quant_ms={n: {k: v.get("fake_quant") for k, v in r.items()}
+                         for n, r in t64.items() if n != "32"},
+          launches=c64["launches"], seconds=time.perf_counter() - t34,
+          seconds_by_part=c64["seconds"],
+          card=card,
+          tolerance="linear and posit bit for bit (NaN by place); LNS "
+                    "decode within 2 ulp, encode the plain word or one in "
+                    "the window of a logf 2 ulp either side, fake-quant the "
+                    "codec kernels' round trip bit for bit")
+    detail["phase34"] = c64
+    per64 = c64["launches_per_format"]
+    for n, row in t64.items():
+        entry = kernels["takum_codec"]["widths"].setdefault(n, {})
+        for kind, r in row.items():
+            r = {k: v for k, v in r.items() if k != "fake_quant"}
+            r["launches_phase34"] = {
+                "decode": per64[f"{kind}{n}"]["takum_decode"],
+                "encode": per64[f"{kind}{n}"]["takum_encode"]}
+            entry.setdefault(kind, {}).update(r)
+    kernels["takum_codec"]["launches_phase34"] = {
+        "decode": c64["launches"]["takum_decode"],
+        "encode": c64["launches"]["takum_encode"]}
+    kernels["takum_codec"]["encode_sweep_64"] = c64["encode_sweep"]
+    for n, row in t64.items():
+        for kind, r in row.items():
+            if "fake_quant" in r:
+                kernels["fake_quant"]["widths"][f"{kind}{n}"] = dict(
+                    r["fake_quant"],
+                    launches_phase34=per64[f"{kind}{n}"]["fake_quant"])
+    kernels["fake_quant"]["launches_phase34"] = c64["launches"]["fake_quant"]
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "kv_append", "qmatmul", "attention",

@@ -9,10 +9,14 @@ linear interpolation where the LNS matmul folds products
 (``accum="gauss"``).
 
 * ``LnsTensor`` carries ``(s, ell_bar, is_zero, is_nar)``;
-  ``from_words``/``to_words`` convert from and to n-bit words;
+  ``from_words``/``to_words`` convert from and to n-bit words; ell_bar
+  lives in an int64 lane, so the arithmetic takes n <= 60 (wf <= 55)
+  and refuses wider words with OverflowError, where the reference's
+  int64 saturation limit ``255 << wf`` overflows (n >= 61);
   ``mul``/``div``/``sqrt`` are exact (an add, a subtract, an arithmetic
   shift of ``ell``, saturated to the dynamic range); ``add`` evaluates
-  ``phi`` in f32 and rounds it to the ``ell`` grid, at every width.
+  ``phi`` in f32 and rounds it to the ``ell`` grid, at every width to
+  n = 60.
 
 * ``gauss_tables`` builds the ``(2, 1024)`` int32 table in numpy float64
   and rounds it once, so it is the same table bit for bit wherever it is
@@ -51,7 +55,16 @@ class LnsTensor(NamedTuple):
     is_nar: torch.Tensor
 
 
+def _check_wf(wf: int) -> None:
+    if wf > 55:
+        raise OverflowError(f"LNS arithmetic holds ell_bar in int64 lanes: "
+                            f"wf <= 55 (n <= 60), got wf={wf} (the "
+                            "reference: Python int too large to convert "
+                            "to C long)")
+
+
 def from_words(words, n: int) -> LnsTensor:
+    _check_wf(frac_width(n))
     d = takum.decode_lns(words, n)
     return LnsTensor(d.s, d.ell_bar, d.is_zero, d.is_nar)
 
@@ -68,6 +81,7 @@ def _ell(t: LnsTensor) -> torch.Tensor:
 
 def _rebar(s, ell, is_zero, is_nar, wf: int) -> LnsTensor:
     """Saturate ``ell`` to the dynamic range and bar it again."""
+    _check_wf(wf)
     lim = ELL_MAX_INT << wf
     ell = torch.clamp(ell, -lim, lim)
     return LnsTensor(s, torch.where(s == 1, -ell, ell), is_zero, is_nar)

@@ -1,6 +1,7 @@
-// Elementwise codec kernels: words -> float32 and float32 -> words, for
-// linear takum, logarithmic takum (lns-takum) and posit (es = 2), at every
-// width 6 <= n <= 32 (words in 8-, 16- or 32-bit storage).
+// Elementwise codec kernels: words -> float32 or float64 and float32 ->
+// words, for linear takum, logarithmic takum (lns-takum) and posit (es =
+// 2), at every width 6 <= n <= 64 (words in 8-, 16-, 32- or 64-bit
+// storage).
 //
 // Replaces src/repro/kernels/takum_codec.py::decode_kernel_call
 // (_decode_tile) and ::encode_kernel_call (_encode_tile), the Pallas
@@ -47,6 +48,21 @@
 // the takum and posit decodes from n = 29 (the fraction's rounding into
 // float32 in registers: 61-67%) and the LNS encode at 8 bits (its logf:
 // 64%).
+//
+// 64-bit words (n = 33..64) and float64 output (every width) take the wide
+// kernels (decode_wide_kernel, encode_wide_kernel): the same skeleton
+// (vectors of 4, two a thread and iteration, one wave, scalar tail and
+// loop), 64-bit lanes, and codec.cuh's wide element functions: linear and
+// LNS takum decode c and r from the 2048-entry table of the 11 bits after
+// the sign (the header window is 12 bits at every width: only the
+// mantissa grows, to n - 5 bits), posit counts its regime with one
+// __clzll, and the IEEE word is assembled with the plain version's two
+// roundings where the fraction is wider than the significand; the encode
+// shifts the header of the float's exponent (a table) and its fraction
+// into place, rounding only where they do not fit. Bound by bytes: 8
+// bytes of words and 4 or 8 bytes of float an element (12 or 16 bytes:
+// 0.329 / 0.438 ms at [5120, 17920]); making them fast was not their
+// first aim (PERF.md, section 6, has their times).
 //
 // In serving, the encode kernel writes the wire weights (WireMatrix.encode)
 // and, for LNS weights, the activations entering every LNS matmul; the
@@ -249,6 +265,111 @@ __global__ void kv_append_kernel(const In* __restrict__ k,
     }
 }
 
+// The wide kernels' vectors: 4 consecutive words of S-bit storage widened
+// to 64-bit lanes, and 4 floats of type O (one 16-byte float32 access, two
+// of float64).
+template <int S>
+__device__ __forceinline__ void load_wide(const wire::WordT<S>* p,
+                                          uint64_t w[4]) {
+    if constexpr (S == 64) {
+        const uint4 a = reinterpret_cast<const uint4*>(p)[0];
+        const uint4 b = reinterpret_cast<const uint4*>(p)[1];
+        w[0] = ((uint64_t)a.y << 32) | a.x; w[1] = ((uint64_t)a.w << 32) | a.z;
+        w[2] = ((uint64_t)b.y << 32) | b.x; w[3] = ((uint64_t)b.w << 32) | b.z;
+    } else {
+        uint32_t v[4];
+        load_words<S>(p, v);
+        for (int j = 0; j < 4; ++j) w[j] = v[j];
+    }
+}
+
+__device__ __forceinline__ void store_wide(uint64_t* p, const uint64_t w[4]) {
+    reinterpret_cast<uint4*>(p)[0] = make_uint4(
+        (uint32_t)w[0], (uint32_t)(w[0] >> 32), (uint32_t)w[1],
+        (uint32_t)(w[1] >> 32));
+    reinterpret_cast<uint4*>(p)[1] = make_uint4(
+        (uint32_t)w[2], (uint32_t)(w[2] >> 32), (uint32_t)w[3],
+        (uint32_t)(w[3] >> 32));
+}
+
+__device__ __forceinline__ void store4_out(float* p, const float y[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+}
+
+__device__ __forceinline__ void store4_out(double* p, const double y[4]) {
+    reinterpret_cast<double2*>(p)[0] = make_double2(y[0], y[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(y[2], y[3]);
+}
+
+// count words of S-bit storage -> O (float32 for 64-bit words, float64 at
+// every storage): nvec vectors of 4, two a thread and iteration, then the
+// scalar rest.
+template <int S, int K, typename O>
+__global__ void __launch_bounds__(256)
+decode_wide_kernel(const wire::WordT<S>* __restrict__ words,
+                   O* __restrict__ out, long long count, long long nvec,
+                   int n) {
+    __shared__ uint32_t tab[K == wire::POSIT ? 1 : 2048];
+    if constexpr (K != wire::POSIT)
+        codec::fill_decode_wide(tab, threadIdx.x, blockDim.x);
+    __syncthreads();
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    for (long long i = gid; i < nvec; i += 2 * stride) {
+        const long long j = i + stride;
+        uint64_t a[4], b[4];
+        O y[4];
+        load_wide<S>(words + 4 * i, a);
+        if (j < nvec) load_wide<S>(words + 4 * j, b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            y[e] = codec::decode_wide1<K, O>(a[e], n, tab);
+        store4_out(out + 4 * i, y);
+        if (j < nvec) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                y[e] = codec::decode_wide1<K, O>(b[e], n, tab);
+            store4_out(out + 4 * j, y);
+        }
+    }
+    for (long long i = 4 * nvec + gid; i < count; i += stride)
+        out[i] = codec::decode_wide1<K, O>((uint64_t)words[i], n, tab);
+}
+
+// count floats -> 64-bit words (n = 33..64), as encode_kernel.
+template <int K>
+__global__ void __launch_bounds__(256)
+encode_wide_kernel(const float* __restrict__ x, uint64_t* __restrict__ words,
+                   long long count, long long nvec, int n) {
+    __shared__ uint4 tab[codec::EncodeSize<K>::value];
+    codec::fill_encode_wide<K>(tab, n, threadIdx.x, blockDim.x);
+    __syncthreads();
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    for (long long i = gid; i < nvec; i += 2 * stride) {
+        const long long j = i + stride;
+        const float4 a = x4[i];
+        float4 b;
+        if (j < nvec) b = x4[j];
+        uint64_t w[4];
+        w[0] = codec::encode_wide1<K>(a.x, n, tab);
+        w[1] = codec::encode_wide1<K>(a.y, n, tab);
+        w[2] = codec::encode_wide1<K>(a.z, n, tab);
+        w[3] = codec::encode_wide1<K>(a.w, n, tab);
+        store_wide(words + 4 * i, w);
+        if (j < nvec) {
+            w[0] = codec::encode_wide1<K>(b.x, n, tab);
+            w[1] = codec::encode_wide1<K>(b.y, n, tab);
+            w[2] = codec::encode_wide1<K>(b.z, n, tab);
+            w[3] = codec::encode_wide1<K>(b.w, n, tab);
+            store_wide(words + 4 * j, w);
+        }
+    }
+    for (long long i = 4 * nvec + gid; i < count; i += stride)
+        words[i] = codec::encode_wide1<K>(x[i], n, tab);
+}
+
 int grid_for(long long count) {
     long long blocks = (count + 255) / 256;
     const long long cap = 132 * 16;   // a few waves over the SMs
@@ -299,43 +420,107 @@ int decode_storage(int n, int kind, const void* words, float* out,
     return (int)cudaErrorInvalidValue;
 }
 
+template <int S, int K, typename O>
+int launch_decode_wide(int n, const void* words, void* out, long long count,
+                       cudaStream_t st) {
+    const long long nvec = codec::aligned16(words, out) ? count / 4 : 0;
+    constexpr auto kernel = decode_wide_kernel<S, K, O>;
+    kernel<<<codec::codec_grid<kernel>(nvec ? (nvec + 1) / 2 : count), 256, 0,
+             st>>>((const wire::WordT<S>*)words, (O*)out, count, nvec, n);
+    return (int)cudaGetLastError();
+}
+
+// The wide decode of (storage S, kind) to O.
+template <int S, typename O>
+int decode_wide_storage(int n, int kind, const void* words, void* out,
+                        long long count, cudaStream_t st) {
+    using namespace wire;
+    if (kind == LINEAR)
+        return launch_decode_wide<S, LINEAR, O>(n, words, out, count, st);
+    if (kind == LNS)
+        return launch_decode_wide<S, LNS, O>(n, words, out, count, st);
+    if (kind == POSIT)
+        return launch_decode_wide<S, POSIT, O>(n, words, out, count, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int K>
+int launch_encode_wide(int n, const float* x, void* words, long long count,
+                       cudaStream_t st) {
+    const long long nvec = codec::aligned16(x, words) ? count / 4 : 0;
+    constexpr auto kernel = encode_wide_kernel<K>;
+    kernel<<<codec::codec_grid<kernel>(nvec ? (nvec + 1) / 2 : count), 256, 0,
+             st>>>(x, (uint64_t*)words, count, nvec, n);
+    return (int)cudaGetLastError();
+}
+
 template <int S>
 int encode_storage(int n, int kind, const float* x, void* words,
                    long long count, cudaStream_t st) {
     using namespace wire;
-    if (kind == LINEAR) return launch_encode<S, LINEAR>(n, x, words, count, st);
-    if (kind == LNS) return launch_encode<S, LNS>(n, x, words, count, st);
-    if (kind == POSIT) return launch_encode<S, POSIT>(n, x, words, count, st);
+    if constexpr (S == 64) {
+        if (kind == LINEAR) return launch_encode_wide<LINEAR>(n, x, words,
+                                                              count, st);
+        if (kind == LNS) return launch_encode_wide<LNS>(n, x, words, count,
+                                                        st);
+        if (kind == POSIT) return launch_encode_wide<POSIT>(n, x, words,
+                                                            count, st);
+    } else {
+        if (kind == LINEAR) return launch_encode<S, LINEAR>(n, x, words,
+                                                            count, st);
+        if (kind == LNS) return launch_encode<S, LNS>(n, x, words, count,
+                                                      st);
+        if (kind == POSIT) return launch_encode<S, POSIT>(n, x, words,
+                                                          count, st);
+    }
     return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // kind: the format code of wire.cuh (0 linear takum, 1 logarithmic takum,
-// 2 posit, 3 posit8 through the table); n: 6 <= n <= 32, words in
-// 8-, 16- or 32-bit storage.
-extern "C" int takum_decode(int n, int kind, const void* words, float* out,
-                            long long count, void* stream) {
+// 2 posit, 3 posit8 through the table); n: 6 <= n <= 64, words in
+// 8-, 16-, 32- or 64-bit storage; f64: out is float64 (the wide kernels,
+// posit8's table code excluded: its table holds float32s), else float32.
+extern "C" int takum_decode(int n, int kind, int f64, const void* words,
+                            void* out, long long count, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (count <= 0) return (int)cudaGetLastError();
-    if (n < 6 || n > 32 || (kind == wire::POSIT_LUT && n != 8))
+    if (n < 6 || n > 64 || (kind == wire::POSIT_LUT && (n != 8 || f64)))
         return (int)cudaErrorInvalidValue;
+    if (f64) {
+        switch (wire::storage_bits(n)) {
+            case 8: return decode_wide_storage<8, double>(n, kind, words, out,
+                                                          count, st);
+            case 16: return decode_wide_storage<16, double>(n, kind, words,
+                                                            out, count, st);
+            case 32: return decode_wide_storage<32, double>(n, kind, words,
+                                                            out, count, st);
+            default: return decode_wide_storage<64, double>(n, kind, words,
+                                                            out, count, st);
+        }
+    }
+    if (n > 32)
+        return decode_wide_storage<64, float>(n, kind, words, out, count, st);
     if (n == 8) {
         const bool t8 = !WIRE_TAKUM8_COMPUTED;
         if (kind == wire::POSIT_LUT)
             return launch_decode<8, wire::POSIT_LUT, codec::TABLE8>(
-                n, words, out, count, st);
+                n, words, (float*)out, count, st);
         if (t8 && kind == wire::LINEAR)
             return launch_decode<8, wire::LINEAR, codec::TABLE8>(
-                n, words, out, count, st);
+                n, words, (float*)out, count, st);
         if (t8 && kind == wire::LNS)
             return launch_decode<8, wire::LNS, codec::TABLE8>(
-                n, words, out, count, st);
+                n, words, (float*)out, count, st);
     }
     switch (wire::storage_bits(n)) {
-        case 8: return decode_storage<8>(n, kind, words, out, count, st);
-        case 16: return decode_storage<16>(n, kind, words, out, count, st);
-        default: return decode_storage<32>(n, kind, words, out, count, st);
+        case 8: return decode_storage<8>(n, kind, words, (float*)out, count,
+                                         st);
+        case 16: return decode_storage<16>(n, kind, words, (float*)out, count,
+                                           st);
+        default: return decode_storage<32>(n, kind, words, (float*)out, count,
+                                           st);
     }
 }
 
@@ -343,12 +528,13 @@ extern "C" int takum_encode(int n, int kind, const float* x, void* words,
                             long long count, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (count <= 0) return (int)cudaGetLastError();
-    if (n < 6 || n > 32) return (int)cudaErrorInvalidValue;
+    if (n < 6 || n > 64) return (int)cudaErrorInvalidValue;
     if (kind == wire::POSIT_LUT) kind = wire::POSIT;   // a decode path only
     switch (wire::storage_bits(n)) {
         case 8: return encode_storage<8>(n, kind, x, words, count, st);
         case 16: return encode_storage<16>(n, kind, x, words, count, st);
-        default: return encode_storage<32>(n, kind, x, words, count, st);
+        case 32: return encode_storage<32>(n, kind, x, words, count, st);
+        default: return encode_storage<64>(n, kind, x, words, count, st);
     }
 }
 

@@ -19,6 +19,13 @@
 // characteristic c in [-256, 256] of ell_bar's fixed point form; a normal
 // float reads one entry and rounds with takum::round_entry, and zeros,
 // subnormals, infinities and NaNs take the register forms.
+// Wide (64-bit words from n = 33, and float64 output at every width): the
+// decode reads c and r of linear and LNS takum from the 2048-entry table
+// of the 11 bits after the sign (takum::lns_entry, the same at every
+// width) and counts posit's regime with one __clzll; the encode reads the
+// header P and the shift of the float's exponent (LNS: of its floor
+// characteristic) from a table and shifts P << wm | m into place
+// (takum::round_wide).
 #pragma once
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -54,10 +61,13 @@ struct Width {
     int n, g, q, pre;      // ghost shift, header shift, cut shift up
     uint32_t top;          // 2^(n-1) - 1: the largest magnitude word
     float scale;           // 0.5 / 2^wf: ell_bar to ln
+    // (top and pre serve the narrow paths, n <= 32; top is clipped to 32
+    // bits above)
     __device__ explicit Width(int n_, int wm)
         : n(n_), g((n_ < 12 ? 12 : n_) - n_), q((n_ < 12 ? 12 : n_) - 12),
-          pre(takum::cut_pre(n_, wm)), top(takum::low_bits(n_ - 1)),
-          scale(0.5f / (float)(1 << ((n_ < 12 ? 12 : n_) - 5))) {}
+          pre(takum::cut_pre(n_, wm)),
+          top(takum::low_bits(n_ <= 33 ? n_ - 1 : 32)),
+          scale(0.5f / (float)(1ull << ((n_ < 12 ? 12 : n_) - 5))) {}
 };
 
 // The register paths, for vectors holding a rare element: out of line,
@@ -206,6 +216,82 @@ __device__ __forceinline__ void encode4(const float4 v, uint32_t w[4],
         }
         w[j] = b[j] >> 31 ? (0u - m) & (2u * c.top + 1u) : m;
     }
+}
+
+// ---- wide: 64-bit words and float64 output ------------------------------
+
+// Threads tid, tid + nt, ... fill the wide decode table: ((c - header) << 8)
+// | r for each value of the 11 bits after the sign (linear and LNS takum).
+__device__ __forceinline__ void fill_decode_wide(uint32_t* tab, int tid,
+                                                 int nt) {
+    for (int i = tid; i < 2048; i += nt)
+        tab[i] = (uint32_t)takum::lns_entry((uint32_t)i);
+}
+
+// Threads tid, tid + nt, ... fill the wide encode table of kind K at width
+// n: the header P of float exponent i - 127 (LNS: characteristic i - 256,
+// clamped into [-255, 254]) in x (low half) and y (high half), the shift
+// n - 1 - L - wm of P << wm | m into place in z.
+template <int K>
+__device__ __forceinline__ void fill_encode_wide(uint4* tab, int n, int tid,
+                                                 int nt) {
+    for (int i = tid; i < EncodeSize<K>::value; i += nt) {
+        int len;
+        uint64_t p;
+        if constexpr (K == wire::LINEAR) p = takum::takum_header(i - 127, len);
+        else if constexpr (K == wire::POSIT)
+            p = posit::posit_header(i - 127, n, len);
+        else p = takum::takum_header(min(max(i - 256, -255), 254), len);
+        const int wm = K == wire::LNS ? 22 : 23;
+        tab[i] = make_uint4((uint32_t)p, (uint32_t)(p >> 32),
+                            (uint32_t)(n - 1 - len - wm), 0u);
+    }
+}
+
+// One word of kind K (in the low n bits, any storage) to O: linear and LNS
+// takum through the wide decode table, posit by its regime's __clzll.
+template <int K, typename O>
+__device__ __forceinline__ O decode_wide1(uint64_t w, int n,
+                                          const uint32_t* tab) {
+    if constexpr (K == wire::POSIT) {
+        return posit::decode_wide<O>(w, n);
+    } else {
+        const takum::WideMag m = takum::wide_mag(w, n);
+        if (m.special) return takum::special_wide<O>(m.s);
+        const int n12 = n < 12 ? 12 : n;
+        uint64_t mf;
+        const int c = takum::wide_fields_tab(m.a << (n12 - n), n12, tab, mf);
+        if constexpr (K == wire::LINEAR)
+            return takum::assemble<O>(m.s, mf, c, n12 - 5);
+        else return takum::lns_value_wide<O>(m.s, c, mf, n12 - 5);
+    }
+}
+
+// One float of kind K to an n-bit word, 33 <= n <= 64: a normal float (LNS:
+// a nonzero finite one whose floor characteristic is in [-255, 254]) by
+// the wide encode table, the others by the register forms.
+template <int K>
+__device__ __forceinline__ uint64_t encode_wide1(float x, int n,
+                                                 const uint4* tab) {
+    const uint32_t b = __float_as_uint(x);
+    if (rare_float(b)) return wire::Wide<K>::encode(x, n);
+    int i;
+    uint32_t m;
+    if constexpr (K == wire::LNS) {
+        const int fixed = takum::lns_fixed(x);
+        i = (fixed >> 22) + 256;
+        if (i < 1 || i > 510) return wire::Wide<K>::encode(x, n);
+        m = (uint32_t)fixed & 0x3FFFFFu;
+    } else {
+        i = (int)((b >> 23) & 0xFFu);
+        m = b & 0x7FFFFFu;
+    }
+    const uint4 e = tab[i];
+    const uint64_t p = ((uint64_t)e.y << 32) | e.x;
+    const uint64_t w = takum::round_wide(
+        (p << (K == wire::LNS ? 22 : 23)) | m, (int)e.z,
+        takum::low_bits64(n - 1));
+    return b >> 31 ? (0ull - w) & takum::low_bits64(n) : w;
 }
 
 // One wave of a kernel of 256-thread blocks: as many blocks as fit on

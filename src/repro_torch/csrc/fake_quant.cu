@@ -1,12 +1,12 @@
 // Fused fake-quantisation: out = decode(encode(x)) in one pass, float32 in,
-// float32 or bfloat16 out.
+// float32, bfloat16 or float64 out.
 //
 // Replaces src/repro/kernels/quantize.py::fake_quant_kernel_call
 // (_fake_quant_tile): the round trip through a wire format's grid over
 // (256, 128) VMEM tiles without the word tensor ever reaching HBM. Here,
 // for linear takum (optionally scaled by a power of two), logarithmic
 // takum and posit (posit8 through its table code too), at every width
-// 6 <= n <= 32.
+// 6 <= n <= 64.
 //
 // What bounds it on the H100: bytes. One float32 read and one float32 (or
 // bfloat16) write per element, 8 (or 6) bytes over 3.35 TB/s: 0.219 (or
@@ -74,6 +74,19 @@
 // NaN bits differ between its CPU and CUDA casts, so NaNs are compared by
 // place). Build without --use_fast_math: the s_out multiply may give
 // subnormals, which the plain version keeps.
+// 64-bit widths (n = 33..64) and float64 output: the value path is the same
+// round (float64 out: on the float64 bits of x with 29 more bits dropped,
+// so that a carry out of float32's range stays finite, as the word's
+// float64 decode is; LNS: the same rounded ell_bar, one exp in double),
+// and the word path runs each element through the wide codec in registers
+// (wire::Wide: 64-bit words, the float64 decode; out of line, since only
+// zeros, subnormals, infinities, NaNs and posit's longest regimes reach
+// it). From n = 35 linear takum keeps every float32 bit (p = n - 12 >= 23
+// whatever the header) and from n = 59 posit does (a normal float's
+// regime and exponent bits take at most 35): there a normal float is its
+// own word's value, and the value path reads no table and rounds nothing.
+// One bytes bound more: float64 out writes 8 bytes an element (12 bytes
+// an element, 0.329 ms at [5120, 17920]).
 #include <cuda_runtime.h>
 #include "codec.cuh"
 
@@ -134,15 +147,22 @@ __device__ __forceinline__ bool lns_value(float v, int n, int& q) {
 }
 
 // The decode of a rounded ell_bar q (22 fraction bits, of x's magnitude):
-// its value in units of 2^-wf (exact: q's low 22 - wf bits are 0 where
-// wf <= 22, n <= 27), converted to float32 as the decode converts the
-// word's, one expf, x's sign.
-__device__ __forceinline__ float lns_value_float(int q, float v, int n,
-                                                 float scale) {
+// its value in units of 2^-wf, converted to O as the decode converts the
+// word's (exact to n = 27, where q's low 22 - wf bits are 0; above, q
+// itself, whose conversion rounds as that of q << (wf - 22)), one exp
+// (expf for float32), x's sign.
+template <typename O>
+__device__ __forceinline__ O lns_value_out(int q, float v, int n,
+                                           float scale) {
     const int wf = (n < 12 ? 12 : n) - 5;
-    const float ell = n <= 27 ? (float)(q >> (22 - wf))
-                              : (float)((long long)q << (wf - 22));
-    const float mag = expf(ell * scale);
+    O mag;
+    if constexpr (sizeof(O) == 4) {
+        mag = expf(n <= 27 ? (float)(q >> (22 - wf)) * scale
+                           : (float)q * 0x1p-23f);
+    } else {
+        mag = exp(n <= 27 ? (double)(q >> (22 - wf)) * (0.5 / (1 << wf))
+                          : (double)q * 0x1p-23);
+    }
     return __float_as_uint(v) >> 31 ? -mag : mag;
 }
 
@@ -156,7 +176,7 @@ struct WordPath {
 };
 
 // Four floats through the codec kernels' encode and decode, the words in
-// registers.
+// registers (n <= 32, float32 out).
 template <int K>
 __device__ __forceinline__ void round_trip4(const float4 v, float y[4],
                                             int n, bool t8,
@@ -169,10 +189,26 @@ __device__ __forceinline__ void round_trip4(const float4 v, float y[4],
     else codec::decode4<K, WordPath<K>::mode>(w, y, cd, dtab);
 }
 
-template <int K, bool SCALED>
+// One float through the wide codec (64-bit words, or float64 out at any
+// width): out of line, the path of rare elements.
+template <int K, typename O>
+__device__ __noinline__ O round_trip_wide(float x, int n) {
+    return wire::Wide<K>::template decode<O>(wire::Wide<K>::encode(x, n), n);
+}
+
+// OUT: 0 float32, 1 bfloat16, 2 float64; O: the type the value is formed
+// in (float32 for bfloat16).
+template <int OUT>
+using OutT = std::conditional_t<OUT == 2, double, float>;
+
+// WIDE: n > 32 or float64 out, the word path through the wide codec (no
+// shared tables); else the narrow codec kernels' word path, with the tables.
+template <int K, bool SCALED, int OUT, bool WIDE>
 struct Ctx {
+    using O = OutT<OUT>;
     int n;
-    bool t8;
+    bool t8;        // narrow only: the word path decodes through n = 8's
+    bool exact;     // wide only: every normal float is its own word's value
     float s_in, s_out, scale;     // scale: 0.5 / 2^wf, ell_bar to ln
     const uint4* etab;
     const uint32_t* dtab;
@@ -182,116 +218,175 @@ struct Ctx {
         return vtab[(b >> 23) & 0xFFu];
     }
 
-    // x = v * s_in, and whether the value path takes all four: u holds
-    // their entries (linear takum, posit) or rounded ell_bar (LNS)
+    // whether the value path takes x (LNS: where t8 is false): u its entry
+    // (linear takum, posit) or rounded ell_bar (LNS). At the exact widths
+    // no table: only zeros, subnormals, infinities and NaNs take the word
+    // path.
+    __device__ bool prep1(float x, uint32_t& u) const {
+        if constexpr (K == wire::LNS) {
+            int q;
+            const bool ok = lns_value(x, n, q);
+            u = (uint32_t)q;
+            return ok;
+        } else {
+            if constexpr (WIDE) {
+                if (exact) {
+                    const uint32_t e = __float_as_uint(x) & 0x7F800000u;
+                    return e != 0u && e != 0x7F800000u;
+                }
+            }
+            u = entry(__float_as_uint(x));
+            return !(u & RARE);
+        }
+    }
+
+    // x = v * s_in, and whether the value path takes all four
     __device__ bool prep(float4 v, float x[4], uint32_t u[4]) const {
         x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
         if constexpr (SCALED) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) x[j] *= s_in;
         }
+        if constexpr (K != wire::LNS) {
+            if (!(WIDE && exact)) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    u[j] = entry(__float_as_uint(x[j]));
+                return !((u[0] | u[1] | u[2] | u[3]) & RARE);
+            }
+        } else if (t8) {
+            return false;
+        }
+        bool ok = true;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ok &= prep1(x[j], u[j]);
+        return ok;
+    }
+
+    // the value path of one float prepared by prep1, times s_out: float32
+    // bits rounded to nearest even at the word's fraction width (nothing
+    // to round at the exact widths), or for float64 out the float64 bits
+    // with 29 more bits dropped (a carry out of float32's exponent range
+    // stays finite, as the word's float64 decode)
+    __device__ O value1(float x, uint32_t u) const {
+        O y;
         if constexpr (K == wire::LNS) {
-            if (t8) return false;
-            bool ok = true;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                int q;
-                ok &= lns_value(x[j], n, q);
-                u[j] = (uint32_t)q;
+            return lns_value_out<O>((int)u, x, n, scale);
+        } else if constexpr (OUT == 2) {
+            y = (double)x;
+            if (!exact) {
+                const int d = (int)(u & 0xFFu) + 29;
+                const uint64_t m = (1ull << d) - 1ull;
+                const uint64_t b = (uint64_t)__double_as_longlong(y);
+                y = __longlong_as_double((long long)(
+                    (b + (m >> 1) + ((b >> d) & 1ull)) & ~m));
             }
-            return ok;
+        } else if constexpr (WIDE) {
+            y = exact ? x : __uint_as_float(value_round(__float_as_uint(x),
+                                                        u));
         } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) u[j] = entry(__float_as_uint(x[j]));
-            return !((u[0] | u[1] | u[2] | u[3]) & RARE);
+            y = __uint_as_float(value_round(__float_as_uint(x), u));
         }
+        if constexpr (SCALED) y *= (O)s_out;
+        return y;
     }
 
-    // the value path of four floats prepared by prep, times s_out
-    __device__ float4 value(const float x[4], const uint32_t u[4]) const {
-        float y[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if constexpr (K == wire::LNS) {
-                y[j] = lns_value_float((int)u[j], x[j], n, scale);
-            } else {
-                y[j] = __uint_as_float(value_round(__float_as_uint(x[j]),
-                                                   u[j]));
-                if constexpr (SCALED) y[j] *= s_out;
-            }
-        }
-        return make_float4(y[0], y[1], y[2], y[3]);
-    }
-
-    // the word path of four floats, times s_out but for NaN
-    __device__ float4 words(const float x[4]) const {
-        float y[4];
-        round_trip4<K>(make_float4(x[0], x[1], x[2], x[3]), y, n, t8, etab,
-                       dtab);
-        if constexpr (SCALED) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                if (y[j] == y[j]) y[j] *= s_out;
-        }
-        return make_float4(y[0], y[1], y[2], y[3]);
-    }
-
-    // one float (the scalar tail and misaligned pointers)
-    __device__ float one(float v) const {
-        if constexpr (SCALED) v *= s_in;
-        if constexpr (K == wire::LNS) {
-            int q;
-            if (!t8 && lns_value(v, n, q))
-                return lns_value_float(q, v, n, scale);
+    // the word path of one float, times s_out but for NaN
+    __device__ O word1(float x) const {
+        O y;
+        if constexpr (WIDE) {
+            y = round_trip_wide<K, O>(x, n);
         } else {
-            const uint32_t b = __float_as_uint(v), e = entry(b);
-            if (!(e & RARE)) {
-                const float y = __uint_as_float(value_round(b, e));
-                return SCALED ? y * s_out : y;
-            }
+            const uint32_t w = codec::encode_rare<K>(x, n);
+            y = t8 ? __uint_as_float(dtab[w & 0xFFu])
+                   : codec::decode_rare<K>(w, n);
         }
-        const uint32_t w = codec::encode_rare<K>(v, n);
-        float y = t8 ? __uint_as_float(dtab[w & 0xFFu])
-                     : codec::decode_rare<K>(w, n);
         if constexpr (SCALED) {
-            if (y == y) y *= s_out;
+            if (y == y) y *= (O)s_out;
         }
         return y;
     }
+
+    __device__ void value(const float x[4], const uint32_t u[4],
+                          O y[4]) const {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[j] = value1(x[j], u[j]);
+    }
+
+    // the word path of four floats
+    __device__ void words(const float x[4], O y[4]) const {
+        if constexpr (WIDE) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) y[j] = word1(x[j]);
+        } else {
+            round_trip4<K>(make_float4(x[0], x[1], x[2], x[3]), y, n, t8,
+                           etab, dtab);
+            if constexpr (SCALED) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    if (y[j] == y[j]) y[j] *= s_out;
+            }
+        }
+    }
+
+    // one float (the scalar tail and misaligned pointers)
+    __device__ O one(float v) const {
+        if constexpr (SCALED) v *= s_in;
+        uint32_t u;
+        const bool t8_lns = K == wire::LNS && t8;
+        return !t8_lns && prep1(v, u) ? value1(v, u) : word1(v);
+    }
 };
 
-template <bool BF16>
-__device__ __forceinline__ void store4(void* out, long long i, float4 y) {
-    if constexpr (BF16)
+template <int OUT>
+__device__ __forceinline__ void store4(void* out, long long i,
+                                       const OutT<OUT> y[4]) {
+    if constexpr (OUT == 1)
         reinterpret_cast<uint2*>(out)[i] = make_uint2(
-            f32_to_bf16_rne(y.x) | ((uint32_t)f32_to_bf16_rne(y.y) << 16),
-            f32_to_bf16_rne(y.z) | ((uint32_t)f32_to_bf16_rne(y.w) << 16));
-    else reinterpret_cast<float4*>(out)[i] = y;
+            f32_to_bf16_rne(y[0]) | ((uint32_t)f32_to_bf16_rne(y[1]) << 16),
+            f32_to_bf16_rne(y[2]) | ((uint32_t)f32_to_bf16_rne(y[3]) << 16));
+    else if constexpr (OUT == 2) {
+        reinterpret_cast<double2*>(out)[2 * i] = make_double2(y[0], y[1]);
+        reinterpret_cast<double2*>(out)[2 * i + 1] = make_double2(y[2], y[3]);
+    } else {
+        reinterpret_cast<float4*>(out)[i] = make_float4(y[0], y[1], y[2],
+                                                        y[3]);
+    }
 }
 
 // count floats: nvec vectors of 4, two a thread and iteration (both loads
 // issued first), then the scalar rest. t8: the word path decodes through
 // the 256 floats of n = 8 (the codec kernels' takum8 / lns-takum8 / posit8
-// table decode).
-template <int K, bool SCALED, bool BF16>
+// table decode; float32 and bfloat16 out). Only the narrow instantiations
+// (n <= 32, float32 or bfloat16 out) hold and fill the word path's tables.
+template <int K, bool SCALED, int OUT, bool WIDE>
 __global__ void __launch_bounds__(256)
 fake_quant_kernel(const float* __restrict__ x, void* __restrict__ out,
                   long long count, long long nvec, int n, int t8,
                   float s_in, float s_out) {
     constexpr bool VALUE = K != wire::LNS;
-    constexpr bool VOTE = BF16 && VALUE;
-    __shared__ uint4 etab[codec::EncodeSize<K>::value];
-    __shared__ uint32_t dtab[WordPath<K>::dsize];
+    constexpr bool VOTE = OUT == 1 && VALUE;
+    using O = OutT<OUT>;
+    __shared__ uint4 etab[WIDE ? 1 : codec::EncodeSize<K>::value];
+    __shared__ uint32_t dtab[WIDE ? 1 : WordPath<K>::dsize];
     __shared__ uint32_t vtab[VALUE ? 256 : 1];
     const int tid = threadIdx.x, nt = blockDim.x;
-    codec::fill_encode<K>(etab, n, tid, nt);
-    if (t8) codec::fill_decode<K, codec::TABLE8>(dtab, n, tid, nt);
-    else codec::fill_decode<K, WordPath<K>::mode>(dtab, n, tid, nt);
+    if constexpr (!WIDE) {
+        codec::fill_encode<K>(etab, n, tid, nt);
+        if (t8) codec::fill_decode<K, codec::TABLE8>(dtab, n, tid, nt);
+        else codec::fill_decode<K, WordPath<K>::mode>(dtab, n, tid, nt);
+    }
     if constexpr (VALUE)
         for (int i = tid; i < 256; i += nt) vtab[i] = value_entry<K>(i, n);
     __syncthreads();
-    const Ctx<K, SCALED> c{n, t8 != 0, s_in, s_out,
-                           codec::Width(n, 23).scale, etab, dtab, vtab};
+    // linear takum keeps every float32 bit from n = 35 (p = n - 12 >= 23
+    // whatever the header), posit from n = 59 (a normal float's regime and
+    // exponent bits take at most 35)
+    const bool exact = WIDE && VALUE
+                       && n >= (K == wire::LINEAR ? 35 : 59);
+    const Ctx<K, SCALED, OUT, WIDE> c{n, t8 != 0 && !WIDE, exact, s_in,
+                                      s_out, codec::Width(n, 23).scale,
+                                      etab, dtab, vtab};
     const long long stride = (long long)gridDim.x * blockDim.x;
     const long long gid = (long long)blockIdx.x * blockDim.x + tid;
     const float4* x4 = reinterpret_cast<const float4*>(x);
@@ -303,55 +398,79 @@ fake_quant_kernel(const float* __restrict__ x, void* __restrict__ out,
         if (two) b = x4[j];
         float xa[4], xb[4];
         uint32_t ua[4], ub[4];
+        O y[4];
         bool value = c.prep(a, xa, ua);
         if (two) value &= c.prep(b, xb, ub);
         if (VOTE ? __all_sync(__activemask(), value) : value) {
-            store4<BF16>(out, i, c.value(xa, ua));
-            if (two) store4<BF16>(out, j, c.value(xb, ub));
+            c.value(xa, ua, y);
+            store4<OUT>(out, i, y);
+            if (two) {
+                c.value(xb, ub, y);
+                store4<OUT>(out, j, y);
+            }
         } else {
-            store4<BF16>(out, i, c.words(xa));
-            if (two) store4<BF16>(out, j, c.words(xb));
+            c.words(xa, y);
+            store4<OUT>(out, i, y);
+            if (two) {
+                c.words(xb, y);
+                store4<OUT>(out, j, y);
+            }
         }
     }
     for (long long i = 4 * nvec + gid; i < count; i += stride) {
-        const float y = c.one(x[i]);
-        if constexpr (BF16) ((uint16_t*)out)[i] = f32_to_bf16_rne(y);
-        else ((float*)out)[i] = y;
+        const O y = c.one(x[i]);
+        if constexpr (OUT == 1) ((uint16_t*)out)[i] = f32_to_bf16_rne(y);
+        else ((O*)out)[i] = y;
     }
 }
 
-template <int K, bool SCALED, bool BF16>
+template <int K, bool SCALED, int OUT, bool WIDE>
 int launch(int n, int t8, const float* x, void* out, long long count,
            float s_in, float s_out, cudaStream_t st) {
     const long long nvec = codec::aligned16(x, out) ? count / 4 : 0;
-    constexpr auto kernel = fake_quant_kernel<K, SCALED, BF16>;
+    constexpr auto kernel = fake_quant_kernel<K, SCALED, OUT, WIDE>;
     kernel<<<codec::codec_grid<kernel>(nvec ? (nvec + 1) / 2 : count), 256,
              0, st>>>(x, out, count, nvec, n, t8, s_in, s_out);
     return (int)cudaGetLastError();
 }
 
+template <int K, bool SCALED, int OUT>
+int launch_n(int n, int t8, const float* x, void* out, long long count,
+             float s_in, float s_out, cudaStream_t st) {
+    return n > 32 ? launch<K, SCALED, OUT, true>(n, t8, x, out, count, s_in,
+                                                 s_out, st)
+                  : launch<K, SCALED, OUT, false>(n, t8, x, out, count,
+                                                  s_in, s_out, st);
+}
+
 template <int K, bool SCALED>
-int launch_out(int bf16, int n, int t8, const float* x, void* out,
+int launch_out(int out_code, int n, int t8, const float* x, void* out,
                long long count, float s_in, float s_out, cudaStream_t st) {
-    return bf16 ? launch<K, SCALED, true>(n, t8, x, out, count, s_in, s_out,
-                                          st)
-                : launch<K, SCALED, false>(n, t8, x, out, count, s_in, s_out,
-                                           st);
+    switch (out_code) {
+        case 0: return launch_n<K, SCALED, 0>(n, t8, x, out, count, s_in,
+                                              s_out, st);
+        case 1: return launch_n<K, SCALED, 1>(n, t8, x, out, count, s_in,
+                                              s_out, st);
+        case 2: return launch<K, SCALED, 2, true>(n, t8, x, out, count,
+                                                  s_in, s_out, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
-// n: 6 <= n <= 32; kind: the format code of wire.cuh (0 linear takum, 1
+// n: 6 <= n <= 64; kind: the format code of wire.cuh (0 linear takum, 1
 // logarithmic takum, 2 posit, 3 posit8 through the table: the posit
 // kernel, its word path decoding through the 256 floats). scaled (linear
-// takum only): apply s_in before the round and s_out after it. bf16: write
-// bfloat16 (else float32). x and out hold `count` elements.
+// takum only): apply s_in before the round and s_out after it. out_code:
+// 0 float32, 1 bfloat16, 2 float64 (the word decoded to float64: no
+// table). x and out hold `count` elements.
 extern "C" int takum_fake_quant(int n, int kind, int scaled, const float* x,
-                                void* out, long long count, int bf16,
+                                void* out, long long count, int out_code,
                                 float s_in, float s_out, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (count <= 0) return (int)cudaGetLastError();
-    if (n < 6 || n > 32 || (kind == wire::POSIT_LUT && n != 8)
+    if (n < 6 || n > 64 || (kind == wire::POSIT_LUT && n != 8)
         || (scaled && kind != wire::LINEAR))
         return (int)cudaErrorInvalidValue;
     const int t8 = n == 8 && (kind == wire::POSIT_LUT
@@ -360,16 +479,18 @@ extern "C" int takum_fake_quant(int n, int kind, int scaled, const float* x,
     switch (kind) {
         case wire::LINEAR:
             return scaled ? launch_out<wire::LINEAR, true>(
-                                bf16, n, t8, x, out, count, s_in, s_out, st)
+                                out_code, n, t8, x, out, count, s_in, s_out,
+                                st)
                           : launch_out<wire::LINEAR, false>(
-                                bf16, n, t8, x, out, count, s_in, s_out, st);
+                                out_code, n, t8, x, out, count, s_in, s_out,
+                                st);
         case wire::LNS:
-            return launch_out<wire::LNS, false>(bf16, n, t8, x, out, count,
-                                                s_in, s_out, st);
+            return launch_out<wire::LNS, false>(out_code, n, t8, x, out,
+                                                count, s_in, s_out, st);
         case wire::POSIT:
         case wire::POSIT_LUT:
-            return launch_out<wire::POSIT, false>(bf16, n, t8, x, out, count,
-                                                  s_in, s_out, st);
+            return launch_out<wire::POSIT, false>(out_code, n, t8, x, out,
+                                                  count, s_in, s_out, st);
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -45,7 +45,9 @@
 //   in registers (header_of).
 //
 // Widths: 6 <= n <= 32, read from the unsigned storage of the word (8, 16
-// or 32 bits). Every function takes n at run time (the `_n` forms); the
+// or 32 bits), in the functions above the "wide" section; the wide section
+// takes 6 <= n <= 64 (64-bit words from n = 33) and decodes to float32 or
+// float64. Every function takes n at run time (the `_n` forms); the
 // template forms decode<N>, encode<N>, lns_parts<N>, lns_decode<N> and
 // lns_encode<N> that the served kernels instantiate at N = 8 and 16 call
 // them with a constant n, which folds to straight-line code. The
@@ -182,14 +184,22 @@ __device__ __forceinline__ uint32_t round_cut(Cut k, uint32_t m, int n,
 }
 
 // The header of characteristic c in [-255, 254]: D, R (r or 7 - r) and
-// the r low bits of c + 1 (D = 1) or of ~c (D = 0), L = 4 + r bits.
-__device__ __forceinline__ Cut takum_cut(int c, int n, int wm) {
+// the r low bits of c + 1 (D = 1) or of ~c (D = 0), len = L = 4 + r bits.
+__device__ __forceinline__ uint32_t takum_header(int c, int& len) {
     const uint32_t d = c >= 0 ? 1u : 0u;
     const uint32_t t = (uint32_t)((d ? c : ~c) + 1);        // [1, 255]
     const int r = 31 - __clz(t);
     const uint32_t r3 = d ? (uint32_t)r : (uint32_t)(7 - r);
     const uint32_t cbits = (d ? t : ~t) & ((1u << r) - 1u);
-    return make_cut((d << (3 + r)) | (r3 << r) | cbits, 4 + r, n, wm);
+    len = 4 + r;
+    return (d << (3 + r)) | (r3 << r) | cbits;
+}
+
+// The cut of that header for mantissas of wm bits at width n <= 32.
+__device__ __forceinline__ Cut takum_cut(int c, int n, int wm) {
+    int len;
+    const uint32_t p = takum_header(c, len);
+    return make_cut(p, len, n, wm);
 }
 
 // A float32's magnitude bits (nonzero, finite) as 2^e (1 + m / 2^23):
@@ -410,6 +420,249 @@ __device__ __forceinline__ uint32_t lns_encode_n(float x, int n) {
 template <int N>
 __device__ __forceinline__ uint32_t lns_encode(float x) {
     return lns_encode_n(x, N);
+}
+
+// ---- wide: 64-bit words and float64 output ------------------------------
+//
+// Words of 6 <= n <= 64 bits in the low bits of a uint64_t (64-bit storage
+// from n = 33), decoded to float32 or float64 (O), and float32 encoded to
+// 64-bit words. The dataflow is the narrow one's: magnitudes negated by
+// two's complement, the header of the 11 bits after the sign (the same
+// 12-bit window at every width: only the mantissa grows, to n - 5 bits in
+// a 64-bit register), the IEEE word assembled with the plain version's two
+// roundings where the fraction is wider than the significand (float32 from
+// wf > 24, float64 from wf > 53: n = 59). The encode shifts the header and
+// the float's fraction into place: (P << wm | m) << (n - 1 - L - wm),
+// rounded to nearest even only where that shift is negative (linear takum
+// at n = 33 and 34, posit next to a long regime), then clamped to [1, top].
+
+// The low n bits set (n in 1..64).
+__device__ __forceinline__ uint64_t low_bits64(int n) {
+    return ~0ull >> (64 - n);
+}
+
+// RNE(v / 2^sh) on a 64-bit lane, sh >= 1 of any size.
+__device__ __forceinline__ uint64_t rne_shr64(uint64_t v, int sh) {
+    const uint64_t kept = sh >= 64 ? 0ull : v >> sh;
+    const uint64_t g = sh - 1 >= 64 ? 0ull : (v >> (sh - 1)) & 1ull;
+    const uint64_t rest =
+        v & (sh - 1 >= 64 ? ~0ull : (1ull << (sh - 1)) - 1ull);
+    return kept + ((g && (rest || (kept & 1ull))) ? 1ull : 0ull);
+}
+
+// float32 and float64: fraction bits, bias, the all-ones exponent, the
+// sign bit, the quiet NaN, and the float of a bit pattern.
+template <typename O> struct Ieee;
+template <> struct Ieee<float> {
+    static constexpr int FB = 23, BIAS = 127, EMAX = 255, SBIT = 31;
+    static constexpr uint64_t NAN_BITS = 0x7FC00000ull;
+    __device__ static float of(uint64_t b) {
+        return __uint_as_float((uint32_t)b);
+    }
+};
+template <> struct Ieee<double> {
+    static constexpr int FB = 52, BIAS = 1023, EMAX = 2047, SBIT = 63;
+    static constexpr uint64_t NAN_BITS = 0x7FF8000000000000ull;
+    __device__ static double of(uint64_t b) {
+        return __longlong_as_double((long long)b);
+    }
+};
+
+// The O of (-1)^s (1 + mf / 2^wf) 2^me, mf < 2^wf, wf <= 59: the plain
+// version's assemble_float (core/takum.py). For wf > FB the fraction is
+// rounded as the reference's oracle rounds it: to FB + 1 significant bits
+// first (where wf > FB + 1: its int-to-float conversion), then to FB
+// fraction bits, both to nearest even, a fraction rounded up to 2 carrying
+// into the exponent; RNE gradual underflow, overflow to inf.
+template <typename O>
+__device__ __forceinline__ O assemble(uint32_t s, uint64_t mf, int me,
+                                      int wf) {
+    using T = Ieee<O>;
+    uint64_t frac;
+    int carry = 0;
+    if (wf <= T::FB) {
+        frac = mf << (T::FB - wf);
+    } else {
+        if (wf > T::FB + 1) {
+            const int sh1 = (63 - __clzll((long long)(mf | 1ull))) - T::FB;
+            if (sh1 > 0) mf = rne_shr64(mf, sh1) << sh1;
+        }
+        frac = rne_shr64(mf, wf - T::FB);
+        carry = (int)(frac >> T::FB);
+        frac &= (1ull << T::FB) - 1ull;
+    }
+    const int be = me + T::BIAS + carry;
+    const uint64_t sign = (uint64_t)s << T::SBIT;
+    uint64_t bits;
+    if (be >= T::EMAX) bits = sign | ((uint64_t)T::EMAX << T::FB);
+    else if (be <= 0) bits = sign | rne_shr64((1ull << T::FB) | frac, 1 - be);
+    else bits = sign | ((uint64_t)be << T::FB) | frac;
+    return T::of(bits);
+}
+
+// The 0 word and NaR.
+template <typename O>
+__device__ __forceinline__ O special_wide(uint32_t s) {
+    return s ? Ieee<O>::of(Ieee<O>::NAN_BITS) : (O)0;
+}
+
+// A word's sign, its magnitude word ((-w) mod 2^n for S = 1) and whether
+// it is 0 or NaR.
+struct WideMag {
+    uint32_t s;
+    uint64_t a;
+    bool special;
+};
+
+__device__ __forceinline__ WideMag wide_mag(uint64_t w, int n) {
+    w &= low_bits64(n);
+    const uint32_t s = (uint32_t)(w >> (n - 1));
+    return {s, s ? (0ull - w) & low_bits64(n) : w,
+            (w & low_bits64(n - 1)) == 0ull};
+}
+
+// The characteristic c of a takum magnitude's header and its mantissa
+// field left-aligned at wf = n12 - 5 bits, from its n12-bit form t (ghost
+// bits appended): mf = (t << r) cut to wf bits (the header's 4 + r bits
+// shift out above); c and r from the header's 12-bit window in registers
+// (header_of) or, in the codec kernels, from the lns_entry table of the 11
+// bits after the sign: ((c - header) << 8) | r.
+__device__ __forceinline__ int wide_fields(uint64_t t, int n12, uint64_t& mf) {
+    const Header h = header_of((uint32_t)(t >> (n12 - 12)) & 0xFFFu, 12);
+    mf = (t << h.r) & low_bits64(n12 - 5);
+    return h.c;
+}
+
+__device__ __forceinline__ int wide_fields_tab(uint64_t t, int n12,
+                                               const uint32_t* tab,
+                                               uint64_t& mf) {
+    const uint32_t idx = (uint32_t)(t >> (n12 - 12)) & 0x7FFu;
+    const int e = (int)tab[idx];
+    const int r = e & 7;
+    mf = (t << r) & low_bits64(n12 - 5);
+    return (e >> 8) + (int)(idx >> (7 - r));
+}
+
+// ell_bar = c * 2^wf + mf rounded once, to nearest even, to O: the integer's
+// conversion where it fits 64 bits (wf <= 55); beyond, |ell_bar| (up to
+// 2^67) converted directly below 2^62 and, above, first cut by wf - 52 bits
+// with the cut bits ORed into the last kept one (round to odd: 55 or more
+// significant bits stay, so the conversion's one rounding is the exact
+// value's), then scaled back (core/takum.py::ell_bar_float).
+template <typename O>
+__device__ __forceinline__ O ell_to(int c, uint64_t mf, int wf) {
+    if (wf <= 55) return (O)((long long)c * (1ll << wf) + (long long)mf);
+    const bool neg = c < 0;
+    const bool borrow = neg && mf != 0ull;
+    const uint64_t cm = (uint64_t)(neg ? -c - (borrow ? 1 : 0) : c);
+    const uint64_t mm = borrow ? (1ull << wf) - mf : mf;
+    O mag;
+    if (cm < (1ull << (62 - wf))) {
+        mag = (O)(long long)((cm << wf) | mm);
+    } else {
+        const int k = wf - 52;
+        const uint64_t odd = (cm << 52) | (mm >> k)
+                             | ((mm & ((1ull << k) - 1ull)) ? 1ull : 0ull);
+        mag = (O)(long long)odd * (O)(1ull << k);
+    }
+    return neg ? -mag : mag;
+}
+
+// (-1)^S sqrt(e)^ell of a magnitude's c and mf: one exp in O (expf for
+// float32, exp for float64; full precision, no fast-math).
+template <typename O>
+__device__ __forceinline__ O lns_value_wide(uint32_t s, int c, uint64_t mf,
+                                            int wf) {
+    const O ell = ell_to<O>(c, mf, wf) * ((O)0.5 / (O)(1ull << wf));
+    O mag;
+    if constexpr (sizeof(O) == 4) mag = expf(ell);
+    else mag = exp(ell);
+    return s ? -mag : mag;
+}
+
+// n-bit linear takum word -> O (6 <= n <= 64).
+template <typename O>
+__device__ __forceinline__ O decode_wide(uint64_t w, int n) {
+    const WideMag m = wide_mag(w, n);
+    if (m.special) return special_wide<O>(m.s);
+    const int n12 = n < 12 ? 12 : n;
+    uint64_t mf;
+    const int c = wide_fields(m.a << (n12 - n), n12, mf);
+    return assemble<O>(m.s, mf, c, n12 - 5);
+}
+
+// n-bit logarithmic takum word -> O (6 <= n <= 64).
+template <typename O>
+__device__ __forceinline__ O lns_decode_wide(uint64_t w, int n) {
+    const WideMag m = wide_mag(w, n);
+    if (m.special) return special_wide<O>(m.s);
+    const int n12 = n < 12 ? 12 : n;
+    uint64_t mf;
+    const int c = wide_fields(m.a << (n12 - n), n12, mf);
+    return lns_value_wide<O>(m.s, c, mf, n12 - 5);
+}
+
+// RNE(v * 2^sh), v < 2^58, clamped to [1, top]: the header and the
+// fraction shifted into place, rounded where sh < 0.
+__device__ __forceinline__ uint64_t round_wide(uint64_t v, int sh,
+                                               uint64_t top) {
+    const uint64_t w = sh >= 0 ? v << sh : rne_shr64(v, -sh);
+    return w < 1ull ? 1ull : (w > top ? top : w);
+}
+
+// The magnitude word of a saturated characteristic (+inf in linear takum,
+// ell_bar >= 255 in LNS): the plain encoder's largest characteristic, 254
+// (header 0x7FF, L = 11), with an all-ones wm-bit mantissa and a sticky
+// bit: the largest word to n = 35 (LNS: 34), that mantissa shifted into
+// place above. A negative one (S = 1) saturates through the smallest
+// characteristic to the word after NaR: the largest magnitude.
+__device__ __forceinline__ uint64_t saturated_wide(int n, int wm) {
+    return round_wide((0x7FFull << wm) | ((1ull << wm) - 1ull),
+                      n - 12 - wm, low_bits64(n - 1));
+}
+
+// float32 -> n-bit linear takum word (in the low n bits), 33 <= n <= 64.
+__device__ __forceinline__ uint64_t encode_wide(float x, int n) {
+    const uint32_t bits = __float_as_uint(x), mag = bits & 0x7FFFFFFFu;
+    const uint32_t s = bits >> 31;
+    const uint64_t top = low_bits64(n - 1);
+    if (mag > 0x7F800000u) return 1ull << (n - 1);
+    if (mag == 0u) return 0ull;
+    uint64_t w;
+    if (mag == 0x7F800000u) {
+        w = s ? top : saturated_wide(n, 23);
+    } else {
+        uint32_t m;
+        int len;
+        const int i = exp_index(mag, m);
+        const uint64_t p = takum_header(i - 150, len);
+        w = round_wide((p << 23) | m, n - 24 - len, top);
+    }
+    return s ? (0ull - w) & low_bits64(n) : w;
+}
+
+// float32 -> n-bit logarithmic takum word, 33 <= n <= 64: lns_encode_n's
+// ell_bar (one logf), shifted into place.
+__device__ __forceinline__ uint64_t lns_encode_wide(float x, int n) {
+    const uint32_t bits = __float_as_uint(x), mag = bits & 0x7FFFFFFFu;
+    const uint32_t s = bits >> 31;
+    const uint64_t top = low_bits64(n - 1);
+    if (mag > 0x7F800000u) return 1ull << (n - 1);
+    if (mag == 0u) return 0ull;
+    const int fixed = lns_fixed(x);
+    const int c = fixed >> 22;
+    uint64_t w;
+    if (c > 254) {
+        w = s ? top : saturated_wide(n, 22);
+    } else if (c < -255) {
+        w = 1ull;
+    } else {
+        int len;
+        const uint64_t p = takum_header(c, len);
+        w = round_wide((p << 22) | ((uint32_t)fixed & 0x3FFFFFu),
+                       n - 23 - len, top);
+    }
+    return s ? (0ull - w) & low_bits64(n) : w;
 }
 
 }  // namespace takum

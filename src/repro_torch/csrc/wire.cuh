@@ -49,6 +49,7 @@ enum Kind { LINEAR = 0, LNS = 1, POSIT = 2, POSIT_LUT = 3, IDENTITY = 4 };
 // f32 bit pattern of the identity codec for 32.
 template <int N> struct Word { using type = takum::WordT<N>; };
 template <> struct Word<32> { using type = uint32_t; };
+template <> struct Word<64> { using type = uint64_t; };   // n = 33..64
 template <int N> using WordT = typename Word<N>::type;
 
 struct NoTable {
@@ -110,9 +111,10 @@ struct Codec {
 
 // The codec of kind K (LINEAR, LNS or POSIT) at a width n known only at
 // run time, 6 <= n <= 32, its words in the 8-, 16- or 32-bit storage of
-// WordT<8 | 16 | 32>: the codec and fake-quant kernels (codec.cuh) take
-// their rare elements and the posit decode through it (the other kernels
-// keep Codec<8 | 16, K>).
+// WordT<8 | 16 | 32>, to float32: the codec and fake-quant kernels
+// (codec.cuh) take their rare elements and the posit decode through it
+// (the other kernels keep Codec<8 | 16, K>). Wide, below, takes 64-bit
+// words and float64 output.
 template <int K>
 struct AnyWidth {
     static_assert(K == LINEAR || K == LNS || K == POSIT, "a computed codec");
@@ -128,8 +130,31 @@ struct AnyWidth {
     }
 };
 
+// The codec of kind K at any width 6 <= n <= 64, words in the low bits of
+// a uint64_t, decoded to float32 or float64 (O): takum.cuh's and
+// posit.cuh's wide forms (64-bit words, float64 output, the rare elements
+// of fake-quant's 64-bit widths). The encode is AnyWidth's to n = 32.
+template <int K>
+struct Wide {
+    static_assert(K == LINEAR || K == LNS || K == POSIT, "a computed codec");
+    template <typename O>
+    __device__ static O decode(uint64_t w, int n) {
+        if constexpr (K == LINEAR) return takum::decode_wide<O>(w, n);
+        else if constexpr (K == LNS) return takum::lns_decode_wide<O>(w, n);
+        else return posit::decode_wide<O>(w, n);
+    }
+    __device__ static uint64_t encode(float x, int n) {
+        if (n <= 32) return AnyWidth<K>::encode(x, n);
+        if constexpr (K == LINEAR) return takum::encode_wide(x, n);
+        else if constexpr (K == LNS) return takum::lns_encode_wide(x, n);
+        else return posit::encode_wide(x, n);
+    }
+};
+
 // The storage bits of an n-bit word.
-inline int storage_bits(int n) { return n <= 8 ? 8 : (n <= 16 ? 16 : 32); }
+inline int storage_bits(int n) {
+    return n <= 8 ? 8 : (n <= 16 ? 16 : (n <= 32 ? 32 : 64));
+}
 
 // Four consecutive N-bit words from (4 * N / 8)-byte aligned memory, in one
 // load (little-endian lanes).

@@ -16,12 +16,15 @@ CUDA kernels inline the same functions from ``csrc/takum.cuh`` and
 ``csrc/posit.cuh`` and are held against these (bit-exact for the integer
 steps, to an ulp or two of ``exp``/``log`` for the LNS conversions).
 
-Other widths (``"takum12"``, ``"posit32"``, ``"lns-takum24"``, the
-``(kind, n)`` pairs and bare ints; 6 <= n <= 32 in the codec) resolve on
-demand and are interned, as the reference's: ``resolve`` returns the
-same object for the same format, and ``names()`` stays the registered
-seven. Only the codec and fake-quant kernels take them on the card
-(``kernels/build.py``, ``format_code``).
+Other widths (``"takum12"``, ``"posit32"``, ``"lns-takum24"``,
+``"takum64"``, the ``(kind, n)`` pairs and bare ints; 6 <= n <= 64 in the
+codec, uint64 words from n = 33; n = 65 is refused by ``word_dtype``)
+resolve on demand and are interned, as the reference's: ``resolve``
+returns the same object for the same format, and ``names()`` stays the
+registered seven. Only the codec and fake-quant kernels take them on the
+card (``kernels/build.py``, ``format_code``). ``decode_tile`` decodes to
+float32 or float64 directly (float64 is exact for every takum and posit
+word to 57 bits, whose fraction fits its 52 bits).
 
 posit8 also decodes through a 256-entry table (``has_lut``): its plain
 version here builds the table with the computed decode and gathers once

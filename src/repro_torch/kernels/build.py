@@ -127,9 +127,9 @@ IDENTITY_BITS = {"torch.bfloat16": 16, "torch.float32": 32}
 
 
 # The word widths of the codec and fake-quant kernels (csrc/codec.cu,
-# csrc/fake_quant.cu: 8 and 16 compiled, the others at run time); every
-# other kernel takes SERVED_WIDTHS only.
-CODEC_WIDTHS = tuple(range(6, 33))
+# csrc/fake_quant.cu: n a kernel argument, words in 8-, 16-, 32- or 64-bit
+# storage); every other kernel takes SERVED_WIDTHS only.
+CODEC_WIDTHS = tuple(range(6, 65))
 SERVED_WIDTHS = (8, 16)
 
 

@@ -25,12 +25,14 @@ __all__ = ["takum_decode", "takum_encode", "kv_append", "fake_quant_fused",
            "WireMatrix"]
 
 
-def takum_decode(words: torch.Tensor, fmt) -> torch.Tensor:
-    """Wire words (any shape) -> float32; zero word -> 0.0, NaR -> NaN."""
+def takum_decode(words: torch.Tensor, fmt,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Wire words (any shape) -> ``dtype`` (f32 and f64 decoded directly,
+    other float dtypes from f32); zero word -> 0.0, NaR -> NaN."""
     spec = formats.resolve(fmt)
     if spec.is_identity:
-        return words.to(torch.float32)
-    return takum_codec.decode(words, spec)
+        return words.to(dtype)
+    return takum_codec.decode(words, spec, dtype=dtype)
 
 
 def takum_encode(x: torch.Tensor, fmt) -> torch.Tensor:
@@ -213,7 +215,7 @@ class WireMatrix:
         return WireMatrix(self.words.to(device), fmt=self.spec)
 
     def decode(self, dtype=torch.float32) -> torch.Tensor:
-        return takum_decode(self.words, self.spec).to(dtype)
+        return takum_decode(self.words, self.spec, dtype=dtype)
 
     def __rmatmul__(self, x: torch.Tensor) -> torch.Tensor:
         if self.spec.has_lns_parts:

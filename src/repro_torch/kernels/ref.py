@@ -16,8 +16,8 @@ import torch
 
 from repro_torch import formats
 from repro_torch.core import lns, takum
-from repro_torch.core.bitops import (carrier, clz, floor_log2, lanes, mask,
-                                     to_words)
+from repro_torch.core.bitops import (bit, carrier, clz, floor_log2, lanes,
+                                     mask, safe_shr, signed64, to_words)
 from repro_torch.core.quant import exp2i
 from repro_torch.core.takum import frac_width
 
@@ -52,8 +52,14 @@ def encode_ref(x, fmt) -> torch.Tensor:
 # A plain mirror of csrc/codec.cuh and the device functions of takum.cuh and
 # posit.cuh: magnitudes negated by two's complement, the encode from the
 # header cut of the float's exponent, the takum decode from a table of the
-# 11 bits after the sign. The CPU tests hold it against the reference codec
-# (tests/test_torch_codec_dataflow.py); no program path calls it.
+# 11 bits after the sign. 64-bit words (n >= 33) and float64 output take the
+# kernels' wide forms: the encode shifts the header and the fraction into
+# place (rounding only where they do not fit, _round_wide), the decode reads
+# c and r from the header table (takum) or counts the regime with one 64-bit
+# count of leading zeros (posit) and assembles the float in a 64-bit lane.
+# The CPU tests hold it against the reference codec
+# (tests/test_torch_codec_dataflow.py, tests/test_torch_codec64.py); no
+# program path calls it.
 
 
 def _takum_header(c):
@@ -90,6 +96,35 @@ def _round_cut(p, length, m, n: int, wm: int):
     return torch.clamp(w, 1, (1 << (n - 1)) - 1)
 
 
+def _round_wide(v, sh):
+    """RNE(v * 2^sh) of v < 2^58: a shift up for sh >= 0, else v shifted
+    down by -sh <= 32 bits to nearest even (``takum::round_wide``)."""
+    k = torch.clamp(-sh, min=1)
+    kept = v >> k
+    g = (v >> (k - 1)) & 1
+    rest = (v & ((1 << (k - 1)) - 1)) != 0
+    down = kept + ((g == 1) & (rest | ((kept & 1) == 1))).to(torch.int64)
+    return torch.where(sh >= 0, v << torch.clamp(sh, min=0), down)
+
+
+def _inf_word(kind: str, n: int, wm: int = 23) -> int:
+    """The magnitude word of +inf (and of LNS's saturated ell_bar) at
+    width n: the plain encoder saturates to the largest characteristic
+    with an all-ones mantissa of ``wm`` bits and a sticky bit, which is
+    the largest word to n = 35 (34 for LNS) and, wider, that mantissa
+    shifted into place; posit saturates to the largest word. -inf is the
+    negated largest word at every width: the barred representation takes
+    it through the smallest characteristic, which rounds up to the word
+    after NaR."""
+    top = (1 << (n - 1)) - 1
+    if kind == "posit" or n <= 32:
+        return top
+    p, length = _takum_header(torch.tensor([254]))
+    v = (p << wm) | ((1 << wm) - 1)
+    w = int(_round_wide(v, torch.tensor([n - 1 - wm]) - length)[0])
+    return min(max(w, 1), top)
+
+
 def encode_dataflow(x, fmt) -> torch.Tensor:
     """float32 -> linear takum or posit words as the encode kernel forms
     them: the header P and length L read from a table by float exponent
@@ -112,11 +147,17 @@ def encode_dataflow(x, fmt) -> torch.Tensor:
     es = torch.arange(-150, 128, dtype=torch.int64, device=b.device)
     p_tab, l_tab = (_takum_header(es.clamp(min=-149)) if spec.kind == "linear"
                     else _posit_header(es, n))
-    w = _round_cut(p_tab[e + 150], l_tab[e + 150], m, n, 23)
-    w = torch.where(mag == 0x7F800000, (1 << (n - 1)) - 1, w)
+    if n <= 32:
+        w = _round_cut(p_tab[e + 150], l_tab[e + 150], m, n, 23)
+    else:
+        w = torch.clamp(_round_wide((p_tab[e + 150] << 23) | m,
+                                    n - 24 - l_tab[e + 150]),
+                        1, (1 << (n - 1)) - 1)
+    w = torch.where(mag == 0x7F800000, torch.where(
+        s == 1, (1 << (n - 1)) - 1, _inf_word(spec.kind, n)), w)
     w = torch.where(mag == 0, 0, w)
-    w = torch.where(s == 1, (-w) & mask(n), w)
-    w = torch.where(mag > 0x7F800000, 1 << (n - 1), w)
+    w = torch.where(s == 1, (-w) & mask(n, 64), w)
+    w = torch.where(mag > 0x7F800000, signed64(1 << (n - 1)), w)
     return to_words(w, spec.word_dtype)
 
 
@@ -124,16 +165,25 @@ def lns_tail_dataflow(s, fixed, n: int) -> torch.Tensor:
     """The LNS encode's integer tail as the kernels form it: ell_bar's
     fixed point form (22 fraction bits, of |x|) rounded through the cut
     of its floor characteristic, saturating outside [-255, 254], then
-    negated for S = 1 (int64 words)."""
+    negated for S = 1 (int64 words). From n = 33 the header and the
+    fraction shift into place (:func:`_round_wide`), and a characteristic
+    above 254 saturates as the plain encoder does (:func:`_inf_word`)."""
     fixed = lanes(fixed)
     c = fixed >> 22
     p, length = _takum_header(torch.clamp(c, -255, 254))
-    w = _round_cut(p, length, fixed & mask(22), n, 22)
-    w = torch.where(c > 254, (1 << (n - 1)) - 1, torch.where(c < -255, 1, w))
-    return torch.where(lanes(s) == 1, (-w) & mask(n), w)
+    if n <= 32:
+        w = _round_cut(p, length, fixed & mask(22), n, 22)
+    else:
+        w = torch.clamp(_round_wide((p << 22) | (fixed & mask(22)),
+                                    n - 23 - length), 1, (1 << (n - 1)) - 1)
+    top = (1 << (n - 1)) - 1
+    w = torch.where(c > 254, torch.where(lanes(s) == 1, top,
+                                         _inf_word("lns", n, 22)),
+                    torch.where(c < -255, 1, w))
+    return torch.where(lanes(s) == 1, (-w) & mask(n, 64), w)
 
 
-def decode_dataflow(words, fmt) -> torch.Tensor:
+def decode_dataflow(words, fmt, dtype=torch.float32) -> torch.Tensor:
     """Linear takum or posit words -> float32 as the decode kernel forms
     them: the magnitude word (-w mod 2^n for S = 1); for takum the entry
     of the 11 bits after the sign (c, the header and the mantissa's shift:
@@ -141,12 +191,15 @@ def decode_dataflow(words, fmt) -> torch.Tensor:
     regime's run by a count of leading zeros; the sign ORed back. Words
     whose value is not a float32 normal, and widths from 29 (the fraction
     rounds into float32), take the plain codec, as the kernel takes its
-    register path."""
+    register path. 64-bit words and float64 output take the wide form
+    (:func:`_decode_wide`)."""
     spec = formats.resolve(fmt)
     if spec.kind not in ("linear", "posit"):
         raise ValueError(f"the table decode is linear takum's and posit's, "
                          f"got {spec.name!r}")
     n = spec.n
+    if n > 32 or dtype == torch.float64:
+        return _decode_wide(words, spec, dtype)
     w = lanes(words) & mask(n)
     s = w >> (n - 1)
     a = torch.where(s == 1, (-w) & mask(n), w)
@@ -154,13 +207,9 @@ def decode_dataflow(words, fmt) -> torch.Tensor:
         n12 = max(n, 12)
         t = a << (n12 - n)
         idx = (t >> (n12 - 12)) & 0x7FF
-        i = torch.arange(2048, dtype=torch.int64, device=w.device)
-        d = i >> 10
-        r = torch.where(d == 1, (i >> 7) & 7, 7 - ((i >> 7) & 7))
-        uc = (i >> (7 - r)) & mask(r)
-        c = torch.where(d == 1, (1 << r) - 1 + uc, -(1 << (r + 1)) + 1 + uc)
+        c, r, hdr = _header_table(w.device)
         shift = 23 - (n12 - 5 - r)
-        base = ((c + 127 - (i >> (7 - r))) << 23) & 0xFFFFFFFF
+        base = ((c + 127 - hdr) << 23) & 0xFFFFFFFF
         rare_tab = (c < -126) | (c > 127)
         bits = ((t << shift[idx].clamp(min=0)) + base[idx]) & 0xFFFFFFFF
         rare = rare_tab[idx] | (n > 28)
@@ -179,6 +228,51 @@ def decode_dataflow(words, fmt) -> torch.Tensor:
     special = (w & mask(n - 1)) == 0
     return torch.where(special, torch.where(s == 1, float("nan"), 0.0),
                        out)
+
+
+def _header_table(device):
+    """The 2048-entry header table of the 11 bits after the sign (the
+    12-bit form, ghost bits appended): each entry's characteristic c,
+    regime r and header value (D, R and the r bits of C)."""
+    i = torch.arange(2048, dtype=torch.int64, device=device)
+    d = i >> 10
+    r = torch.where(d == 1, (i >> 7) & 7, 7 - ((i >> 7) & 7))
+    uc = (i >> (7 - r)) & mask(r)
+    c = torch.where(d == 1, (1 << r) - 1 + uc, -(1 << (r + 1)) + 1 + uc)
+    return c, r, i >> (7 - r)
+
+
+def _decode_wide(words, spec, dtype) -> torch.Tensor:
+    """The wide decode of the kernels (``csrc/codec.cuh``): 64-bit lanes,
+    the magnitude word's characteristic and regime from the header table
+    (takum: the fraction is ``(t << r)`` cut to wf = n12 - 5 bits) or its
+    regime by one 64-bit count of leading zeros (posit), then the IEEE
+    word assembled for ``dtype`` (float32 or float64) with the plain
+    codec's roundings."""
+    n = spec.n
+    w = lanes(words) & mask(n, 64)
+    s = bit(w, n - 1, 64)
+    a = torch.where(s == 1, (-w) & mask(n, 64), w)
+    special = (w & mask(n - 1, 64)) == 0
+    if spec.kind == "linear":
+        n12 = max(n, 12)
+        t = a << (n12 - n)
+        idx = safe_shr(t, n12 - 12, 64) & 0x7FF
+        c_tab, r_tab, _ = _header_table(w.device)
+        r, me = r_tab[idx], c_tab[idx]
+        mf = (t << r) & mask(n12 - 5, 64)
+        wf = n12 - 5
+    else:
+        body = a << (65 - n)
+        top = bit(body, 63, 64)
+        run = clz(torch.where(top == 1, ~body, body), 64)
+        k = torch.where(top == 1, run - 1, -run)
+        rest = (body << torch.clamp(run, max=63)) << 1
+        me = 4 * k + safe_shr(rest, 62, 64)
+        mf = safe_shr(rest << 2, 69 - n, 64)
+        wf = n - 5
+    return takum.assemble_float(s, mf, me, wf, dtype, is_zero=special & (s == 0),
+                                is_nar=special & (s == 1), wide=True)
 
 
 def _value_drop(e, n: int, kind: str):
@@ -204,8 +298,12 @@ def fake_quant_dataflow(x, fmt, dtype=torch.float32, *,
     decode does); every other float (0, subnormal, inf, NaN, p < 1) takes
     the word path, :func:`encode_dataflow` then :func:`decode_dataflow`;
     the result scaled by 2^-k and cast to ``dtype`` (round to nearest
-    even). No program path calls it: the CPU tests hold it against the
-    reference (tests/test_torch_fake_quant_dataflow.py)."""
+    even). For ``dtype`` float64 the value path rounds the float64 bits of
+    x (d + 29 bits dropped: a carry out of float32's exponent range stays
+    finite, as the word's float64 decode) and the word path decodes to
+    float64. No program path calls it: the CPU tests hold it against the
+    reference (tests/test_torch_fake_quant_dataflow.py,
+    tests/test_torch_codec64.py)."""
     spec = formats.resolve_wire(fmt)
     if spec.kind not in ("linear", "posit"):
         raise ValueError(f"the value-space round is linear takum's and "
@@ -218,10 +316,17 @@ def fake_quant_dataflow(x, fmt, dtype=torch.float32, *,
     d = _value_drop(e, spec.n, spec.kind)
     common = (e >= 1) & (e <= 254) & (d <= 22)
     dd = d.clamp(min=0, max=22)
+    f64 = dtype == torch.float64
+    if f64:
+        b = x.to(torch.float64).contiguous().view(torch.int64)
+        dd = dd + 29
     m = (1 << dd) - 1
-    r = ((b + (m >> 1) + ((b >> dd) & m & 1)) & ~m) & 0xFFFFFFFF
-    value = to_words(r, torch.uint32).view(torch.float32).reshape(x.shape)
-    word = decode_dataflow(encode_dataflow(x, spec), spec)
+    r = (b + (m >> 1) + ((b >> dd) & m & 1)) & ~m
+    value = (r.view(torch.float64) if f64 else
+             to_words(r & 0xFFFFFFFF, torch.uint32).view(torch.float32)
+             ).reshape(x.shape)
+    word = decode_dataflow(encode_dataflow(x, spec), spec,
+                           torch.float64 if f64 else torch.float32)
     y = torch.where(common, value, word)
     if scale_exp:
         y = y * exp2i(-scale_exp).to(y.device)
@@ -257,7 +362,8 @@ def kv_append_ref(k, v, k_cache, v_cache, fmt, *, pos, table=None,
 
 def fake_quant_ref(x, fmt, dtype=torch.float32, *,
                    scale_exp: int = 0) -> torch.Tensor:
-    """Round trip through ``fmt``'s grid: encode, then decode to f32, then
+    """Round trip through ``fmt``'s grid: encode, then decode to f32 (f64
+    for ``dtype`` float64, as the reference decodes to its dtype), then
     cast to ``dtype`` (round to nearest even). ``scale_exp`` = k scales by
     2^k before the encode and by 2^-k after the decode (exact powers of
     two: ``core.quant``'s centring, as ``dequantize(quantize(x))``)."""
@@ -265,7 +371,8 @@ def fake_quant_ref(x, fmt, dtype=torch.float32, *,
     x = torch.as_tensor(x).to(torch.float32)
     if scale_exp:
         x = x * exp2i(scale_exp).to(x.device)
-    y = spec.decode_tile(spec.encode_tile(x), dtype=torch.float32)
+    y = spec.decode_tile(spec.encode_tile(x), dtype=(
+        torch.float64 if dtype == torch.float64 else torch.float32))
     if scale_exp:
         y = y * exp2i(-scale_exp).to(y.device)
     return y.to(dtype)

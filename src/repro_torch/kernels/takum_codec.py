@@ -4,7 +4,8 @@ Replaces ``repro/kernels/takum_codec.py::decode_kernel_call`` and
 ``::encode_kernel_call``, for linear takum (``takum<n>``), logarithmic
 takum (``lns-takum<n>``) and posit (``posit<n>``; posit8 decodes through
 its shared-memory table when ``spec.lut_decode``) at every width
-6 <= n <= 32 (``build.CODEC_WIDTHS``; words in uint8, uint16 or uint32).
+6 <= n <= 64 (``build.CODEC_WIDTHS``; words in uint8, uint16, uint32 or
+uint64).
 Vectors of 4 elements (16-byte float accesses) over block tables of the
 format's headers (``csrc/codec.cuh``); the source's header comment says
 what bounds them. The wrappers pass 16-byte aligned tensors
@@ -14,6 +15,9 @@ keeps 8 and 16 bits.
 ``kv_append`` is the encode of the KV cache: one launch encodes a layer's
 fresh K and V and writes the words into a paged pool or a contiguous
 cache in place (the reference's ``_encode_kv`` plus its scatter).
+
+``decode`` writes float32 or float64 (other float dtypes are decoded to
+float32, then cast, as the reference's); every width decodes to either.
 
 ``decode``/``encode``/``kv_append`` launch the kernel for CUDA tensors
 and run the plain versions (``ref.decode_ref``/``ref.encode_ref``/
@@ -35,7 +39,7 @@ __all__ = ["decode", "encode", "kv_append"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "takum_decode": [_I, _I, _P, _P, _LL, _P],
+    "takum_decode": [_I, _I, _I, _P, _P, _LL, _P],
     "takum_encode": [_I, _I, _P, _P, _LL, _P],
     "takum_kv_append": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P],
@@ -46,17 +50,26 @@ def _lib():
     return build.library("codec", _SIGNATURES)
 
 
-def decode(words: torch.Tensor, spec: FormatSpec) -> torch.Tensor:
-    """Wire words (any shape, ``spec.word_dtype``) -> float32."""
+def decode(words: torch.Tensor, spec: FormatSpec,
+           dtype=torch.float32) -> torch.Tensor:
+    """Wire words (any shape, ``spec.word_dtype``) -> ``dtype``: float32
+    and float64 written by the kernel, other float dtypes decoded to
+    float32, then cast."""
     if not words.is_cuda:
-        return kref.decode_ref(words, spec)
+        return kref.decode_ref(words, spec, dtype=dtype)
+    if dtype not in (torch.float32, torch.float64):
+        return decode(words, spec).to(dtype)
     code = build.format_code(spec, words.device,
                              widths=build.CODEC_WIDTHS)
+    f64 = dtype == torch.float64
+    if f64 and code == build.POSIT8_LUT:
+        code = build.KIND_CODES["posit"]   # the table holds float32s
     _check_words(words, spec)
     words = build.aligned(words)
-    out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
-    err = _lib().takum_decode(spec.n, code, words.data_ptr(), out.data_ptr(),
-                              words.numel(), build.stream_of(words))
+    out = torch.empty(words.shape, dtype=dtype, device=words.device)
+    err = _lib().takum_decode(spec.n, code, int(f64), words.data_ptr(),
+                              out.data_ptr(), words.numel(),
+                              build.stream_of(words))
     build.check(err, "takum_decode")
     build.launched(decode, code)
     return out

@@ -16,8 +16,8 @@ the golden model, on the CPU.
 * ``ops.takum_decode``/``takum_encode``/``fake_quant_fused`` against the
   reference's Pallas kernels in interpret mode at n = 12 and 24, ragged.
 * The registry's spellings and interning of unregistered widths; the
-  8/16-bit kernels refusing n = 12 by name before any launch; n = 64
-  refused by name (int64 lanes hold words of at most 32 bits).
+  8/16-bit kernels refusing n = 12 by name before any launch; n = 65 and
+  n = 5 refused by name (tests/test_torch_codec64.py takes 33-64).
 """
 
 import torch_cpu  # noqa: F401  (one torch thread a test process)
@@ -337,7 +337,7 @@ def test_served_kernels_refuse_other_widths_before_launch():
     """The wire matmul, both attention kernels, ``kv_append`` and the LNS
     matmul take 8- and 16-bit words only: their format check names the
     spec before anything is launched; the codec and fake-quant take
-    every width 6..32."""
+    every width 6..64."""
     dev = torch.device("cuda")
     served = [("linear", "posit"), ("linear", "lns", "posit", "none"),
               ("lns",)]
@@ -348,20 +348,24 @@ def test_served_kernels_refuse_other_widths_before_launch():
             spec = formats.resolve(kind, 12)
             with pytest.raises(ValueError, match=spec.name):
                 build.format_code(spec, dev, kinds=kinds)
-    for n in (6, 12, 24, 29, 32):
+    for n in (6, 12, 24, 29, 32, 33, 64):
         for kind in ("linear", "lns", "posit"):
             spec = formats.resolve(kind, n)
             assert build.format_code(spec, dev, widths=build.CODEC_WIDTHS) \
                 == build.KIND_CODES[kind]
-    with pytest.raises(ValueError, match="takum33"):
-        build.format_code(formats.resolve(33), dev,
+    with pytest.raises(ValueError, match="takum65"):
+        build.format_code(formats.resolve(65), dev,
                           widths=build.CODEC_WIDTHS)
 
 
-def test_n64_is_refused_by_name():
-    for call in (lambda: takum.decode(torch.zeros(2, dtype=torch.int64), 64),
-                 lambda: takum.float_to_takum(torch.ones(2), 64),
-                 lambda: posit.float_to_posit(torch.ones(2), 64),
-                 lambda: formats.resolve("takum64").word_dtype):
-        with pytest.raises(ValueError, match="64-bit words"):
-            call()
+def test_n65_and_n5_are_refused_by_name():
+    """The codec takes 6 <= n <= 64, as the reference under x64: widths 65
+    and 5 are refused by the same calls, naming the range."""
+    for n in (65, 5):
+        for call in (lambda: takum.decode(torch.zeros(2, dtype=torch.int64),
+                                          n),
+                     lambda: takum.float_to_takum(torch.ones(2), n),
+                     lambda: posit.float_to_posit(torch.ones(2), n),
+                     lambda: formats.resolve(f"takum{n}").word_dtype):
+            with pytest.raises(ValueError, match="6 <= n <= 64"):
+                call()

@@ -1760,7 +1760,7 @@ def test_codec_ragged_and_misaligned(dev, spec):
     cnt = base.numel() - 1
     out = torch.empty(cnt + 1, dtype=torch.float32, device=dev)
     wout = torch.empty_like(words)
-    build.check(lib.takum_decode(spec.n, code, words[1:].data_ptr(),
+    build.check(lib.takum_decode(spec.n, code, 0, words[1:].data_ptr(),
                                  out[1:].data_ptr(), cnt,
                                  build.stream_of(words)), "takum_decode")
     build.check(lib.takum_encode(spec.n, code, base[1:].data_ptr(),
@@ -1797,3 +1797,97 @@ def test_decode_every_word_against_plain_and_table8(dev, kind, n,
             tn = torch.isnan(table)
             assert torch.equal(torch.isnan(got), tn)
             assert int(_ulps_t(got[~tn], table[~tn]).max()) <= tol
+
+
+# -- the codec at 33-64 bits and the float64 decode ----------------------------
+
+WIDE_SPECS = [formats.resolve(k, n) for n in (33, 40, 48, 57, 58, 61, 64)
+              for k in ("linear", "lns", "posit")]
+F64_SPECS = [formats.resolve(k, n) for n in (8, 16, 24, 32)
+             for k in ("linear", "lns", "posit")]
+
+
+def _wide_words(spec, rng, size):
+    from repro_torch.core.bitops import to_words
+    n = spec.n
+    w = rng.integers(0, 1 << 64, size, dtype=np.uint64) & np.uint64(
+        (1 << n) - 1)
+    w[: size // 2] |= np.uint64(1 << (n - 1))
+    w[:4] = [0, 1 << (n - 1), 1, (1 << n) - 1]
+    return to_words(torch.from_numpy(w.view(np.int64)), spec.word_dtype)
+
+
+def _check_wide(spec, x, w, dev, dtypes_out):
+    """Decode (float32, float64 where 64-bit), encode (64-bit) and
+    fake-quant to ``dtypes_out`` through the wrappers on the card against
+    the plain versions: linear and posit bit for bit (NaN by place); LNS
+    decodes within 2 ulp, words in chip_smoke.py's logf window, fake-quant
+    the codec kernels' round trip."""
+    from repro_torch.core.bitops import lanes
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import (float_differ, lns_encode_bounds, lns_encode_ok,
+                            same_floats)
+    tol = 2 if spec.kind == "lns" else 0
+    xd, wd = x.to(dev), w.to(dev)
+    for dtype in ((torch.float32, torch.float64) if spec.n > 32
+                  else (torch.float64,)):
+        got = takum_codec.decode(wd, spec, dtype=dtype)
+        assert got.dtype == dtype
+        assert float_differ(torch, got, ref.decode_ref(wd, spec, dtype),
+                            tol) == 0, (spec.name, dtype)
+    gw = takum_codec.encode(xd, spec)
+    if spec.n > 32:
+        g, want = lanes(gw), lanes(ref.encode_ref(xd, spec))
+        if spec.kind == "lns":
+            lo, hi = lns_encode_bounds(torch, xd, spec.n)
+            assert bool(lns_encode_ok(g, want, lo, hi, spec.n).all())
+        else:
+            assert torch.equal(g, want), spec.name
+    for dtype in dtypes_out:
+        got = quantize.fake_quant(xd, spec, dtype=dtype)
+        want = (takum_codec.decode(gw, spec, dtype=dtype)
+                if spec.kind == "lns" else ref.fake_quant_ref(xd, spec, dtype))
+        assert got.dtype == dtype
+        assert same_floats(torch, got, want), (spec.name, dtype)
+
+
+@pytest.mark.parametrize("spec", WIDE_SPECS, ids=lambda s: s.name)
+def test_codec_and_fake_quant_at_64_bits(dev, spec):
+    """The decode (float32 and float64), encode and fake-quant (float32,
+    bfloat16, float64) kernels at 33-64 bits on 100k seeded words (top
+    bit set and clear) and floats against the plain versions on the
+    card."""
+    rng = np.random.default_rng(spec.n)
+    _check_wide(spec, torch.from_numpy(_floats(rng, 100_000)),
+                _wide_words(spec, rng, 100_000), dev,
+                (torch.float32, torch.bfloat16, torch.float64))
+
+
+@pytest.mark.parametrize("spec", F64_SPECS, ids=lambda s: s.name)
+def test_float64_decode_from_narrow_words(dev, spec):
+    """The float64 decode and fake-quant from 8-, 16- and 32-bit words
+    (every word at 8 and 16 bits) against the plain versions."""
+    rng = np.random.default_rng(64 + spec.n)
+    w = (_words(spec) if spec.n <= 16 else
+         _wide_words(spec, rng, 100_000))
+    _check_wide(spec, torch.from_numpy(_floats(rng, 100_000)), w, dev,
+                (torch.float64,))
+
+
+@pytest.mark.parametrize("spec", [formats.resolve(k, n) for n in (40, 64, 8, 24)
+                                  for k in ("linear", "lns", "posit")],
+                         ids=lambda s: s.name)
+def test_codec_64_ragged_and_misaligned(dev, spec):
+    """Counts 1..33 at offsets 0 and 1 through the decode, encode and
+    fake-quant wrappers at 64-bit words and float64 out (the vectors'
+    scalar tail; a misaligned view: the codec wrappers realign it,
+    fake-quant's kernel takes its scalar loop)."""
+    rng = np.random.default_rng(spec.n + 1)
+    base = torch.from_numpy(_floats(rng, 27)).to(dev)    # 64 floats
+    words = ref.encode_ref(base, spec)
+    out = ((torch.float32, torch.bfloat16, torch.float64) if spec.n > 32
+           else (torch.float64,))
+    for off in (0, 1):
+        for cnt in range(1, 34):
+            _check_wide(spec, base[off:off + cnt], words[off:off + cnt],
+                        dev, out)

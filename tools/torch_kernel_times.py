@@ -97,7 +97,12 @@ phase 33's ``width_times`` (the codec's decode and encode at
 same bytes, posit8's computed decode) with the fused fake-quant's time
 beside, and the card's rates for plain float32 streams of the same size
 (read, write, copy), and fake-quant with bf16 output beside its own byte
-bound. Only ``codec.cu`` and ``fake_quant.cu`` are built. ``--against
+bound; then, on this checkout's kernels alone, ``chip_smoke.py`` phase
+34's ``wide_times`` (the float64 decode from uint32 words at n = 32, and
+at n = 40 and 64 the 64-bit words' decode to float32 and float64, the
+encode, and fake-quant to float32, bfloat16 and float64, each beside its
+byte bound and PyTorch's cast over the same bytes; keys ``<format>
+wide``). Only ``codec.cu`` and ``fake_quant.cu`` are built. ``--against
 DIR`` also builds those two sources of another checkout's ``csrc``
 directory (its own headers; the same C entry points) and times both in
 turns on the same inputs (against, this, this, against), their outputs
@@ -707,6 +712,15 @@ def codec_width_times(torch, dev, against=None):
                     for op in outs["this"]}
             out[spec.name] = row
             del x, outs
+    # phase 34's cases, this tree's kernels only: the float64 decode from
+    # uint32 words (n = 32), and the 64-bit words' decode (float32 and
+    # float64), encode and fake-quant (float32, bfloat16, float64 out)
+    from chip_smoke import WIDTHS_64_TIMED, wide_times
+    for n in (32,) + WIDTHS_64_TIMED:
+        for kind in CODEC_KINDS:
+            spec = formats.resolve(kind, n)
+            out[f"{spec.name} wide"] = wide_times(torch, dev, n, kind,
+                                                  plain=False)
     return out
 
 
