@@ -336,6 +336,13 @@ LNS_FREE_LOGITS_TOL = {"lns-takum8": 1e-4, "takum8": 5e-3}
 # the card's encode inputs against the CPU run's, once both encode the
 # same words upstream (f32 sums in another order)
 ENCODE_INPUT_ATOL = 1e-5
+# rwkv6's WKV takes its decay from the difference of two cumulative sums of
+# log w, |cl| up to 286 in a 64-token chunk of the reduced config (f32 ulp
+# 2^-15 there), so the time mix's outputs of two sum orders part by more:
+# the inputs of the LNS encodes after it differ by up to 1.7e-4 card
+# against CPU (phase 37, and 5.7e-5 between the port and the reference on
+# the CPU, tests/test_torch_family_formats_rwkv6.py)
+RWKV6_ENCODE_INPUT_ATOL = 1e-3
 # int32 operations per product of the Gauss-log fold, counted from the
 # steps of core/lns.py::gauss_add_parts on nonzero operands, each once:
 # the product (ell add, sign xor), the ordering (max, difference, base
@@ -750,7 +757,7 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
 
 
 @contextlib.contextmanager
-def encode_tap(torch, replay=None):
+def encode_tap(torch, replay=None, atol=ENCODE_INPUT_ATOL):
     """Every ``takum_codec.encode`` call of the port (the activations
     entering each LNS matmul) and every K/V encode of
     ``takum_codec.kv_append`` (K, then V, through the plain append with
@@ -760,15 +767,17 @@ def encode_tap(torch, replay=None):
     Without ``replay``: yields the list of ``(format, input, words)`` on
     the CPU. With ``replay`` (such a list from another run): each call
     must match the recorded call's format and shape and its input must
-    lie within ENCODE_INPUT_ATOL of the recorded one; it returns the
+    lie within ``atol`` of the recorded one; it returns the
     recorded words. Yields a dict with the words encoded, the number that
-    differed from the recorded ones and the first that did."""
+    differed from the recorded ones, the first that did, and each call's
+    differing (own, recorded, spec) words (``pairs``)."""
     from repro_torch.core.bitops import carrier, to_words
     from repro_torch.core.takum import frac_width
     from repro_torch.kernels import ref, takum_codec
     orig, orig_kv = takum_codec.encode, takum_codec.kv_append
     calls = []
-    seen = {"words": 0, "differ": 0, "max_input_diff": 0.0, "first": None}
+    seen = {"words": 0, "differ": 0, "max_input_diff": 0.0, "first": None,
+            "pairs": []}
     it = enumerate(replay or [])
 
     def tap(x, spec):
@@ -783,10 +792,12 @@ def encode_tap(torch, replay=None):
               f"{tuple(rwords.shape)}")
         xc = x.detach().cpu().reshape(own.shape).float()
         dx = float((xc - rx.reshape(own.shape)).abs().max())
-        check(dx <= ENCODE_INPUT_ATOL, f"forced run: encode call {i} "
+        check(dx <= atol, f"forced run: encode call {i} "
               f"({spec.name}) input differs by {dx}")
         differ = carrier(own.cpu()) != carrier(rwords)
         nd = int(differ.sum())
+        if nd:
+            seen["pairs"].append((own.cpu()[differ], rwords[differ], spec))
         seen["words"] += own.numel()
         seen["differ"] += nd
         seen["max_input_diff"] = max(seen["max_input_diff"], dx)
@@ -2436,32 +2447,52 @@ def wire_grad_phase(torch, dev, wrappers, sm_clock_hz):
     return out, total
 
 
-def train_cfg(layers):
-    """phi3-medium-14b's registered config, its depth cut to ``layers``
-    (None: as registered)."""
+def train_cfg(layers, arch="phi3-medium-14b"):
+    """``arch``'s registered config, its depth cut to ``layers`` (None:
+    as registered)."""
     from repro_torch.configs import get_arch
-    cfg = get_arch("phi3-medium-14b").config
+    cfg = get_arch(arch).config
     return cfg if layers is None else dataclasses.replace(cfg,
                                                           n_layers=layers)
 
 
-def full_width_training(torch, dev):
-    """Phase 24: phi3-medium-14b at full width, depth cut to
-    ``TRAIN_LAYERS``, ``TRAIN_STEPS`` AdamW steps on one repeated
-    ``SyntheticLM(seed=0)`` batch of 1 x ``TRAIN_T`` tokens, remat per
-    block, each step ``trainer.make_train_step``'s three calls
-    (``_grads_fn``, ``clip_by_global_norm``, ``apply_update``) timed one
-    by one (phase 25 drives ``make_train_step`` itself); per step the
-    loss, the grad norm, the step's host time (synchronised) and its
-    split into the forward+backward and the optimizer (clip + AdamW)."""
+def train_media(torch, dev, cfg, batch):
+    """Seeded media for one training batch of ``batch`` rows: seamless's
+    ``SEAMLESS_FRAMES`` audio frames (phase 31's), vlm's patch embeddings
+    [n_media_tokens, d_media] (phase 32's); None for a text-only config."""
+    g = torch.Generator(device=dev).manual_seed(35)
+    if cfg.frontend == "audio":
+        return torch.randn((batch, SEAMLESS_FRAMES, cfg.d_model),
+                           generator=g, device=dev)
+    if cfg.frontend == "vision":
+        return torch.randn((batch, cfg.n_media_tokens,
+                            cfg.d_media or cfg.d_model), generator=g,
+                           device=dev)
+    return None
+
+
+def full_width_training(torch, dev, arch="phi3-medium-14b",
+                        layers=TRAIN_LAYERS, steps=TRAIN_STEPS, lr=TRAIN_LR,
+                        falls=True):
+    """Phases 24 and 35: ``arch`` at full width, depth cut to ``layers``
+    (None: all), ``steps`` steps on one repeated ``SyntheticLM(seed=0)``
+    batch of 1 x ``TRAIN_T`` tokens (with the family's seeded media,
+    :func:`train_media`), remat per block, each step
+    ``trainer.make_train_step``'s three calls (``_grads_fn``,
+    ``clip_by_global_norm``, ``apply_update``) timed one by one (phase 25
+    drives ``make_train_step`` itself); per step the loss, the grad norm,
+    the step's host time (synchronised) and its split into the
+    forward+backward and the optimizer (clip + AdamW at the constant rate
+    ``lr``). The losses must fall unless ``falls`` is False (a probe of
+    another rate, reported only)."""
     from repro_torch.configs.base import RuntimeConfig
     from repro_torch.data import pipeline as dp
     from repro_torch.models import model
     from repro_torch.optim import adamw as opt
     from repro_torch.train import trainer
     from repro_torch.tree import tree_leaves
-    cfg = train_cfg(TRAIN_LAYERS)
-    full_layers = train_cfg(None).n_layers
+    cfg = train_cfg(layers, arch)
+    full = train_cfg(None, arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0), cfg,
@@ -2470,12 +2501,15 @@ def full_width_training(torch, dev):
     state = opt.init_state(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=0, schedule="const")
+    ocfg = opt.AdamWConfig(lr=lr, warmup_steps=0, schedule="const")
     grads_of = trainer._grads_fn(cfg, RuntimeConfig(remat="block"))
     batch = dp.SyntheticLM(cfg.vocab, TRAIN_T, 1, seed=0).batch_at(0)
     batch = trainer._device_batch(batch, dev)
+    media = train_media(torch, dev, cfg, 1)
+    if media is not None:
+        batch["media"] = media
     rows = []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         _, met, grads = grads_of(params, batch)
@@ -2494,27 +2528,38 @@ def full_width_training(torch, dev):
                      "tokens_per_s": TRAIN_T / (t1 - t)})
     for r in rows:
         check(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
-              f"training step {r['step']}: loss or grad norm not finite")
-    check(rows[-1]["loss"] < rows[0]["loss"],
-          f"training loss did not fall: {rows[0]['loss']} -> "
+              f"{arch} training step {r['step']}: loss or grad norm not "
+              "finite")
+    check(not falls or rows[-1]["loss"] < rows[0]["loss"],
+          f"{arch} training loss did not fall: {rows[0]['loss']} -> "
           f"{rows[-1]['loss']}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steady = rows[1:]
-    res = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+    reduced = {}
+    if cfg.n_layers != full.n_layers:
+        reduced["n_layers"] = f"{full.n_layers} -> {cfg.n_layers}"
+    res = {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+           "d_model": cfg.d_model,
            "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
-           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-           "reduced": {"n_layers": f"{full_layers} -> {TRAIN_LAYERS}"},
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "reduced": reduced,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
            "params": n_params, "batch": [1, TRAIN_T], "remat": "block",
-           "optimizer": f"AdamW lr {TRAIN_LR:g} const, clip 1.0",
+           "media": None if media is None else list(media.shape),
+           "optimizer": f"AdamW lr {lr:g} const, clip 1.0",
            "init_s": init_s, "steps": rows,
            "loss_first_last": [rows[0]["loss"], rows[-1]["loss"]],
            "step_ms_steady_mean": sum(r["step_ms"] for r in steady)
            / len(steady),
+           "fwd_bwd_ms_steady_mean": sum(r["fwd_bwd_ms"] for r in steady)
+           / len(steady),
+           "optimizer_ms_steady_mean": sum(r["optimizer_ms"] for r in steady)
+           / len(steady),
            "tokens_per_s_steady_mean": sum(r["tokens_per_s"] for r in steady)
            / len(steady),
-           "peak_gb": peak_gb}
-    del params, state
+           "peak_gb": peak_gb, "bytes_per_param": peak_gb * 1e9 / n_params}
+    if cfg.n_enc_layers:
+        res["enc_layers"] = cfg.n_enc_layers
+    del params, state, batch, media
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -3252,18 +3297,27 @@ VLM_MM = ((4, 4096, 14336), (4, 14336, 4096), (4096, 4096, 14336),
           (4096, 14336, 4096), (6404, 4096, 1024))
 
 
-def reduced_lockstep_card_vs_cpu(torch, dev, arch, kv):
-    """The reduced config of ``arch`` with takum8 wire weights and a
-    ``kv`` cache, served through lockstep with the frontend stub's media
-    on the card and on the CPU (plain versions): identical greedy tokens
-    for left-padded prompts (rwkv6's no multiple of 64); the prefill
-    logits' largest difference reported."""
+def reduced_lockstep_card_vs_cpu(torch, dev, arch, kv, wfmt="takum8",
+                                 wrappers=None):
+    """The reduced config of ``arch`` with ``wfmt`` wire weights and a
+    ``kv`` cache, served through ``generate`` with the frontend stub's
+    media on the card and on the CPU (plain versions): identical greedy
+    tokens for left-padded prompts (rwkv6's no multiple of 64); the
+    prefill logits' largest difference reported. With ``wrappers``, their
+    launches in the card's ``generate`` are returned. LNS weights encode
+    the activations entering each LNS matmul with a ``logf``: one more
+    ``generate`` on each, of prompts cut to one length, has the card's
+    encodes replay the CPU run's words (``encode_tap``); it must give the
+    CPU's tokens, and every word the card's own encode gave must be the
+    CPU's or its neighbour (phase 7's rule). The free-running tokens may
+    differ only where such a word was found."""
+    from repro_torch import formats
     from repro_torch.configs import get_arch
     from repro_torch.models import model
     from repro_torch.serve.engine import ServeEngine, quantize_weights
     rcfg = dataclasses.replace(get_arch(arch).reduced, kv_quant=kv)
     rparams = quantize_weights(model.init(torch.Generator().manual_seed(0),
-                                          rcfg, device="cpu"), "takum8",
+                                          rcfg, device="cpu"), wfmt,
                                mode="wire", cfg=rcfg, verbose=False)
     g = torch.Generator().manual_seed(31)
     prompts = [torch.randint(0, rcfg.vocab, (n,), generator=g).tolist()
@@ -3274,10 +3328,15 @@ def reduced_lockstep_card_vs_cpu(torch, dev, arch, kv):
                              rcfg.d_media or rcfg.d_model), generator=g)
     elif rcfg.frontend == "audio":
         media = torch.randn((3, 12, rcfg.d_model), generator=g)
-    toks, rows = {}, {}
+    toks, rows, launches = {}, {}, None
     for d in ("cpu", dev):
         eng = ServeEngine(rparams, rcfg, max_len=64, device=d)
+        if d != "cpu" and wrappers:
+            for f in wrappers.values():
+                f.launches = 0
         toks[str(d)] = eng.generate(prompts, 8, media=media)
+        if d != "cpu" and wrappers:
+            launches = {k: f.launches for k, f in wrappers.items()}
         t = torch.zeros((1, 64), dtype=torch.long)
         t[0, -len(prompts[0]):] = torch.as_tensor(prompts[0])
         c = model.init_cache(rcfg, 1, 72, device=d)
@@ -3286,13 +3345,44 @@ def reduced_lockstep_card_vs_cpu(torch, dev, arch, kv):
                                else media[:1].to(d))
         rows[str(d)] = row.cpu()
     same = toks["cpu"] == toks[str(dev)]
-    check(same, f"reduced {arch} (takum8 weights, {kv} KV): card and CPU "
-          "tokens differ")
-    return {"arch": arch, "weights": "takum8", "kv": kv,
-            "media": None if media is None else list(media.shape),
-            "tokens_identical": same,
-            "prefill_logits_max_abs_err": float(
-                (rows["cpu"] - rows[str(dev)]).abs().max())}
+    what = f"reduced {arch} ({wfmt} weights, {kv} KV)"
+    out = {"arch": arch, "weights": wfmt, "kv": kv,
+           "media": None if media is None else list(media.shape),
+           "tokens_identical": same,
+           "prefill_logits_max_abs_err": float(
+               (rows["cpu"] - rows[str(dev)]).abs().max())}
+    if launches is not None:
+        out["launches"] = launches
+    if not formats.get(wfmt).has_lns_parts:
+        check(same, f"{what}: card and CPU tokens differ")
+        return out
+    # the replay runs prompts of one length: a left-padded row before its
+    # start averages V over the whole cache, which the card rounds up to
+    # the KV tile (ROADMAP.md section 3), so its values differ from the
+    # CPU's by design, and no real row reads them
+    even = [p[:len(prompts[-1])] for p in prompts]
+    atol = RWKV6_ENCODE_INPUT_ATOL if rcfg.family == "rwkv6" \
+        else ENCODE_INPUT_ATOL
+    with eager_mode(True), encode_tap(torch) as calls:
+        want = ServeEngine(rparams, rcfg, max_len=64,
+                           device="cpu").generate(even, 8, media=media)
+    with eager_mode(True), encode_tap(torch, replay=calls, atol=atol) as seen:
+        forced = ServeEngine(rparams, rcfg, max_len=64,
+                             device=dev).generate(even, 8, media=media)
+    near, far = lns_neighbours(torch, seen["pairs"])
+    check(forced == want, f"{what}: the card's tokens differ from the "
+          "CPU's with the CPU's words replayed")
+    check(far <= 1, f"{what}: a card encode lies {far} words from the "
+          "CPU's")
+    check(same or seen["differ"] > 0, f"{what}: card and CPU tokens differ "
+          "and no encoded word does")
+    out.update(forced_tokens_identical=True, forced_prompts=len(even[0]),
+               encode_input_atol=atol, encoded_words=seen["words"],
+               words_differing=seen["differ"], neighbours=near,
+               max_word_step=far,
+               max_encode_input_diff=seen["max_input_diff"],
+               first_differing_word=seen["first"])
+    return out
 
 
 def family_phase(torch, dev, n, wrappers):
@@ -4101,6 +4191,163 @@ def codec64_phase(torch, dev):
     return {"checks": checks, "float64_decode": f64, "encode_sweep": sweep,
             "times": times, "launches": launches,
             "launches_per_format": per, "seconds": seconds}
+
+
+# -- 35-37. training of the served families, other 8-bit weights -----------
+
+# phase 35: (arch, layers trained: None = all, AdamW's lr) at full width,
+# 1 x TRAIN_T tokens, FAMILY_TRAIN_STEPS steps. Depths fit one card at
+# phase 24's bytes a parameter (f32 parameters, gradients, two AdamW
+# moments, the functional update's second copy, activations under remat):
+# recurrentgemma two (rec, rec, attn) super-blocks, llama-3.2-vision one
+# super-block (its cross block first). At TRAIN_LR the losses of
+# starcoder2-15b and llama-3.2-vision-11b rise in four steps (AdamW's first
+# step moves every weight by about lr): they train at SLOW_LR, and the
+# phase reports their losses at TRAIN_LR beside (``losses_at_train_lr``)
+SLOW_LR = 1e-5
+TRAIN_FAMILIES = (("minitron-4b", 2, TRAIN_LR),
+                  ("starcoder2-15b", 2, SLOW_LR),
+                  ("granite-moe-3b-a800m", 8, TRAIN_LR),
+                  ("recurrentgemma-2b", 6, TRAIN_LR),
+                  ("rwkv6-1.6b", None, TRAIN_LR),
+                  ("seamless-m4t-large-v2", None, TRAIN_LR),
+                  ("llama-3.2-vision-11b", 5, SLOW_LR))
+FAMILY_TRAIN_STEPS = 4
+# configs whose one layer does not train on one card at full width: their
+# one-layer parameters are counted without memory (FakeTensorMode)
+TRAIN_CPU_ONLY = ("nemotron-4-340b", "kimi-k2-1t-a32b")
+# phase 36 for rwkv6: its WKV decay is a difference of two cumulative sums
+# of log w (RWKV6_ENCODE_INPUT_ATOL), so card and CPU gradients part more
+# and AdamW spreads it: measured on an H100 (NVIDIA H100 80GB HBM3, 700 W)
+# losses 1.6e-5 apart at the second step, leaves up to 3.5e-4 in relative L2
+RWKV6_LOSS_REL = 1e-4
+RWKV6_PARAM_REL_L2 = 2e-3
+# phase 36: one reduced config a family (and the relu2 / gelu MLPs),
+# trained 3 steps on the card and on the CPU
+REDUCED_TRAIN_ARCHS = ("minitron-4b", "starcoder2-15b",
+                       "granite-moe-3b-a800m", "recurrentgemma-2b",
+                       "rwkv6-1.6b", "seamless-m4t-large-v2",
+                       "llama-3.2-vision-11b")
+# phase 37: the five families beyond dense with each format's weights,
+# card against CPU (the KV cache of phases 26 and 29-32)
+FAMILY_FMTS = ("lns-takum8", "posit8")
+FAMILY_KV = (("granite-moe-3b-a800m", "takum8"),
+             ("recurrentgemma-2b", "takum8"), ("rwkv6-1.6b", "takum8"),
+             ("seamless-m4t-large-v2", "none"),
+             ("llama-3.2-vision-11b", "takum8"))
+
+
+def one_layer_params(torch, arch):
+    """Parameters of one layer of ``arch`` at full width with its
+    embeddings, counted under FakeTensorMode (no memory is allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import model
+    from repro_torch.tree import tree_leaves
+    with FakeTensorMode():
+        p = model.init(torch.Generator(), train_cfg(1, arch), device="cpu")
+        return sum(x.numel() for x in tree_leaves(p))
+
+
+def family_training_phase(torch, dev, bytes_per_param):
+    """Phase 35: every served family trained at full width
+    (:func:`full_width_training` over ``TRAIN_FAMILIES``); the configs of
+    ``TRAIN_CPU_ONLY`` are not run: their one layer's parameters and the
+    bytes they would take at ``bytes_per_param`` (phase 24's, this run)."""
+    rows = {}
+    for arch, layers, lr in TRAIN_FAMILIES:
+        rows[arch] = full_width_training(torch, dev, arch, layers,
+                                         FAMILY_TRAIN_STEPS, lr)
+        if lr != TRAIN_LR:   # why this row trains slower: TRAIN_LR's losses
+            probe = full_width_training(torch, dev, arch, layers,
+                                        FAMILY_TRAIN_STEPS, TRAIN_LR,
+                                        falls=False)
+            rows[arch]["losses_at_train_lr"] = [r["loss"]
+                                                for r in probe["steps"]]
+    not_run = {}
+    for arch in TRAIN_CPU_ONLY:
+        n = one_layer_params(torch, arch)
+        not_run[arch] = {"one_layer_params": n,
+                         "one_layer_gb_at_phase24_rate":
+                         n * bytes_per_param / 1e9,
+                         "card_gb": torch.cuda.get_device_properties(0)
+                         .total_memory / 1e9}
+    return rows, not_run
+
+
+def reduced_family_training(torch, dev, arch):
+    """Phase 36: phase 25's card-against-CPU check on the reduced
+    ``arch`` (f32): 3 AdamW steps of ``make_train_step`` (remat per block,
+    no clipping, ``TRAIN_LR``) from the same parameters on the same batches
+    (``SyntheticLM(seed=3)``, 4 x 64, seeded media a step) on both:
+    losses within ``LOSS_REL``, each parameter leaf within
+    ``PARAM_REL_L2`` relative L2 (rwkv6: ``RWKV6_LOSS_REL``,
+    ``RWKV6_PARAM_REL_L2``), elementwise differences reported. At phase
+    25's lr 1e-3 AdamW's step on gradient elements near 0 (ROADMAP.md
+    section 3) put starcoder2's, seamless's and llama-3.2-vision's leaves
+    2.8e-5 to 3.7e-5 apart in relative L2 on an H100; at ``TRAIN_LR``,
+    2.8e-6 to 3.7e-6."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import model
+    from repro_torch.optim import adamw as opt
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_map
+    cfg = get_arch(arch).reduced
+    cpu_params = model.init(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    ds = dp.SyntheticLM(cfg.vocab, 64, 4, seed=3)
+    batches = []
+    for s in range(3):
+        b = ds.batch_at(s)
+        g = torch.Generator().manual_seed(100 + s)
+        if cfg.frontend == "audio":
+            b["media"] = torch.randn((4, 16, cfg.d_model), generator=g)
+        elif cfg.frontend == "vision":
+            b["media"] = torch.randn((4, cfg.n_media_tokens,
+                                      cfg.d_media or cfg.d_model),
+                                     generator=g)
+        batches.append(b)
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=0, schedule="const",
+                           clip_norm=1e9)
+    step = trainer.make_train_step(cfg, ocfg, RuntimeConfig(remat="block"))
+    runs = {}
+    for d, p in (("cpu", cpu_params),
+                 ("card", tree_map(lambda t: t.to(dev), cpu_params))):
+        state, losses = opt.init_state(p), []
+        for b in batches:
+            p, state, met = step(p, state, b)
+            losses.append(float(met["loss"]))
+        runs[d] = (p, losses)
+    loss_tol, param_tol = ((RWKV6_LOSS_REL, RWKV6_PARAM_REL_L2)
+                           if cfg.family == "rwkv6"
+                           else (LOSS_REL, PARAM_REL_L2))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["card"][1],
+                                                  runs["cpu"][1]))
+    check(rel <= loss_tol, f"reduced {arch} training: card losses "
+          f"{runs['card'][1]} against the CPU's {runs['cpu'][1]}")
+    pd = _max_diffs(torch, runs["card"][0], runs["cpu"][0])
+    check(pd["max_leaf_rel_l2"] <= param_tol, f"reduced {arch} training: "
+          f"card parameters differ from the CPU's by {pd}")
+    return {"family": cfg.family, "loss_tol": loss_tol,
+            "param_rel_l2_tol": param_tol, "losses_card": runs["card"][1],
+            "losses_cpu": runs["cpu"][1], "loss_max_rel": rel, "params": pd,
+            "media": list(batches[0]["media"].shape)
+            if "media" in batches[0] else None}
+
+
+def lns_neighbours(torch, pairs):
+    """Of (card word, CPU word, spec) triples that differ: how many are
+    one word apart (the card's ``logf`` on the other side of an ell_bar
+    rounding tie, phase 7's neighbour rule), and the farthest step."""
+    from repro_torch.core.bitops import lanes
+    near, far = 0, 0
+    for own, rec, spec in pairs:
+        step = (lanes(own) - lanes(rec)) % (1 << spec.n)
+        step = torch.minimum(step, (1 << spec.n) - step)
+        near += int((step == 1).sum())
+        far = max(far, int(step.max()))
+    return near, far
 
 
 def phase(n: int, name: str, **fields) -> None:
@@ -5011,6 +5258,66 @@ def main() -> int:
                     r["fake_quant"],
                     launches_phase34=per64[f"{kind}{n}"]["fake_quant"])
     kernels["fake_quant"]["launches_phase34"] = c64["launches"]["fake_quant"]
+
+    # -- 35. training every served family at full width --------------------
+    t35 = time.perf_counter()
+    fam, not_run = family_training_phase(torch, dev,
+                                         train["bytes_per_param"])
+    phase(35, "training the served families full width",
+          rows={a: {k: r[k] for k in (
+              "layers", "params", "reduced", "media", "optimizer",
+              "step_ms_steady_mean", "fwd_bwd_ms_steady_mean",
+              "optimizer_ms_steady_mean", "tokens_per_s_steady_mean",
+              "loss_first_last", "peak_gb", "bytes_per_param")}
+              | ({"losses_at_train_lr": r["losses_at_train_lr"]}
+                 if "losses_at_train_lr" in r else {})
+              for a, r in fam.items()},
+          not_run_on_the_card=not_run, batch=[1, TRAIN_T],
+          steps=FAMILY_TRAIN_STEPS, remat="block", lr=TRAIN_LR,
+          seconds=time.perf_counter() - t35, card=card)
+    detail["phase35"] = {"rows": fam, "not_run": not_run}
+
+    # -- 36. the reduced families trained card against CPU ------------------
+    red36 = {a: reduced_family_training(torch, dev, a)
+             for a in REDUCED_TRAIN_ARCHS}
+    phase(36, "reduced training card vs cpu, every family", **red36,
+          lr=TRAIN_LR,
+          tolerance=f"losses {LOSS_REL:g} relative; each parameter leaf "
+                    f"within {PARAM_REL_L2:g} relative L2 (rwkv6: "
+                    f"{RWKV6_LOSS_REL:g}, {RWKV6_PARAM_REL_L2:g}; elementwise "
+                    f"against rtol {REORDER_RTOL:g} atol {REORDER_ATOL:g} "
+                    f"reported)")
+    detail["phase36"] = red36
+
+    # -- 37. lns-takum8 and posit8 weights on the served families -----------
+    red37, path37 = {}, {k: 0 for k in wrappers}
+    for wfmt in FAMILY_FMTS:
+        for arch, kv in FAMILY_KV:
+            r = reduced_lockstep_card_vs_cpu(torch, dev, arch, kv, wfmt,
+                                             wrappers)
+            red37[f"{arch} {wfmt}"] = r
+            for k in path37:
+                path37[k] += r["launches"][k]
+            need = (("lns_matmul", "takum_encode") if wfmt == "lns-takum8"
+                    else ("qmatmul", "posit8_lut"))
+            for k in need:
+                check(r["launches"][k] > 0, f"phase 37: {arch} with {wfmt} "
+                      f"weights launched no {k}")
+    phase(37, "reduced families with lns-takum8 and posit8 weights card "
+          "vs cpu", cases=red37, launches=path37,
+          tolerance="greedy tokens identical; LNS: also on prompts of "
+                    "one length with the CPU's activation words replayed "
+                    "(inputs within ENCODE_INPUT_ATOL, rwkv6's within "
+                    "RWKV6_ENCODE_INPUT_ATOL), each card word the CPU's or "
+                    "its neighbour")
+    detail["phase37"] = red37
+    kernels["lns_matmul"]["launches_phase37"] = path37["lns_matmul"]
+    kernels["qmatmul"]["launches_phase37"] = path37["qmatmul"]
+    kernels["posit8_lut"]["launches_phase37"] = path37["posit8_lut"]
+    kernels["takum_codec"]["encode"]["launches"]["37"] = \
+        path37["takum_encode"]
+    kernels["takum_codec"]["launches_phase37"] = {
+        "decode": path37["takum_decode"], "encode": path37["takum_encode"]}
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "kv_append", "qmatmul", "attention",

@@ -11,13 +11,19 @@
   ``REPRO_OBS=1``), a falling loss from the trainer; ``--dp-mode
   manual``, ``--grad-compress`` and ``--coordinator`` raise, naming the
   roadmap item, and ``RuntimeConfig`` takes none of the reference's
-  multi-device fields.
+  multi-device fields;
+* ``python -m repro_torch.launch.train --reduced --steps 2 --device cpu``
+  as a subprocess, once per family (see
+  ``test_train_launcher_every_family``).
 """
 
 import torch_cpu  # noqa: F401  (one torch thread a test process)
 import json
+import os
 import re
 import signal
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -116,6 +122,37 @@ def test_train_launcher_on_cpu(tmp_path, capsys, sigterm_restored):
     assert [line.split()[1] for line in lines[1:]] == ["0", "5"]
     assert int(state.step) == 6 and len(losses) == 6
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "granite-moe-3b-a800m",
+                                  "recurrentgemma-2b", "rwkv6-1.6b",
+                                  "seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_train_launcher_every_family(arch):
+    """One config a family through the train launcher as a subprocess, two
+    steps of SyntheticLM batches. ``SyntheticLM`` makes no media: vlm
+    trains text-only, as the reference's forward allows, and seamless
+    stops in ``encdec.encode`` with its named ``ValueError``. The
+    reference's launcher stops there too (``python -m repro.launch.train
+    --arch seamless-m4t-large-v2 --reduced --steps 2``: an AttributeError
+    in its ``encdec.encode``, which reads the missing media)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--reduced", "--steps", "2", "--seq", "64", "--batch", "2",
+         "--device", "cpu"],
+        cwd=PORT.parents[1], capture_output=True, text=True, timeout=240,
+        env=dict(os.environ, PYTHONPATH=str(PORT.parent)))
+    lines = proc.stdout.splitlines()
+    assert lines[0] == env.audit_line(), proc.stderr[-2000:]
+    if arch == "seamless-m4t-large-v2":
+        assert proc.returncode == 1
+        assert ("ValueError: encdec: encode needs the frontend's media"
+                in proc.stderr)
+        assert len(lines) == 1
+        return
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert [line.split()[:2] for line in lines[1:]] == [["step", "0"],
+                                                        ["step", "1"]]
 
 
 @pytest.mark.parametrize("extra", [["--dp-mode", "manual"],
