@@ -251,6 +251,39 @@ Phases, one summary line each; any failure exits non-zero:
     through ``ops``) with the launch counters zeroed before it and read
     after. ``widths`` of the kernels line's ``takum_codec`` and
     ``fake_quant`` gain these rows.
+38. tensor-parallel serving (``ServeEngine(shard=ShardPlan(...))``,
+    ``repro_torch.serve.shard``) with ranks as processes on the one card,
+    their rings over gloo (CUDA payloads staged through host memory;
+    several ranks of one card cannot share an NCCL communicator): the
+    ring hop's encode and decode kernels against the plain codec at a
+    rank's columns (``HOP_SHAPES``: [4 | 256, 2560 | 8960]), [4, 23040]
+    and [256, 5120] for takum8, takum16, lns-takum8 and posit8 (words and
+    wire values bit for bit, LNS by phase 7's rule); the wire matmul at a
+    rank's column slices (``SHARD_MM``: K 5120, N 2560, 640, 8960, M 4
+    and 256) and both attention kernels and the append at a rank's heads
+    (Hkv 5, G 4, hd 128), each against its plain version at its
+    tolerance; the compressed ``ring_all_reduce`` at 4 and 2 ranks on the
+    card against the same ring on the CPU, bit for bit; the reduced cases of
+    ``shard_selftest`` (tp 2 and 4, dp 2 x tp 2, psum, lns-takum8 wire
+    weights) against one rank on the card, whose tokens equal the CPU's;
+    phi3-medium-14b at full width (40 layers, takum8 wire weights and KV,
+    page 256, decode batch 4) at tp 2, gather mode, each rank building
+    every seeded layer whole and keeping its slice: phase 5's prompts
+    with 32 new tokens, eagerly, tokens and every step's two best logits
+    bit for bit those of one card running the same column slices
+    (``SplitCols``: the wire matmul's K split depends on N), and against
+    one card's whole matrices equal or parting at a tie (phase 20's
+    ``TIE_REL``; one card's column slices are held to the same rule);
+    then with takum16 collectives (they hold this run's bf16 activations
+    exactly: tokens and top-2 logits bit for bit the uncompressed run's)
+    and takum8 collectives (lossy: residual norms finite and not all 0,
+    the two ranks' tokens equal, those against the uncompressed run and
+    one card reported); compressed, one encode and two decodes a seam
+    and the bytes a decode step equal to ``step_interconnect_bytes``;
+    per rank ``peak_gb``, ``weights_s``, TTFT, the eager step and the
+    ring hops' host share of it. The kernels line's codec,
+    append, wire matmul and both attention entries gain
+    ``launches_phase38``.
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
@@ -582,12 +615,13 @@ def wire_matmul_check(torch, dev, spec, m, k, n, timed=False):
     return row
 
 
-def full_width_params(torch, dev, cfg, wfmt, dtype=None):
+def full_width_params(torch, dev, cfg, wfmt, dtype=None, place=None):
     """phi3-medium-14b's weights at full width (all layers; ``cfg``
     another dense config), random from a seeded generator on the card,
     every projection ``wfmt`` wire words, embeddings bf16; each layer made
-    in ``dtype`` (None: the config's ``param_dtype``) before its encode:
-    (params, seconds)."""
+    in ``dtype`` (None: the config's ``param_dtype``) before its encode,
+    and passed through ``place`` (a shard plan's slice, phase 38) after
+    it: (params, seconds)."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer
     from repro_torch.serve.engine import quantize_weights
@@ -599,9 +633,9 @@ def full_width_params(torch, dev, cfg, wfmt, dtype=None):
     params["layers"] = []
     for _ in range(cfg.n_layers):
         layer = transformer.init_layer(gen, cfg, device=dev, dtype=dtype)
-        params["layers"].append(quantize_weights(layer, wfmt, mode="wire",
-                                                 verbose=False))
-        del layer
+        wired = quantize_weights(layer, wfmt, mode="wire", verbose=False)
+        params["layers"].append(wired if place is None else place(wired))
+        del layer, wired
     torch.cuda.synchronize()
     return params, time.perf_counter() - t0
 
@@ -625,8 +659,37 @@ def eager_mode(eager: bool):
     return disable_graphs()
 
 
+def kernel_wrappers():
+    """Every kernel wrapper whose launch counter a serving run reads."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lns_matmul as klns
+    from repro_torch.kernels import quantize as kquant
+    from repro_torch.kernels import takum_attention as kattn
+    from repro_torch.kernels import takum_codec, takum_matmul
+    return {"takum_decode": takum_codec.decode,
+            "takum_encode": takum_codec.encode,
+            "kv_append": takum_codec.kv_append,
+            "qmatmul": takum_matmul.qmatmul,
+            "lns_matmul": klns.lns_matmul,
+            "attention": kattn.attention,
+            "paged_attention": kattn.paged_attention,
+            "fake_quant": kquant.fake_quant,
+            "posit8_lut": build.posit8_lut}
+
+
+def ring_hops(since=None):
+    """The ring collectives' hop counters of this process (hops, bytes
+    sent, hops staged through host memory, host seconds in them), less
+    ``since``'s."""
+    from repro_torch.dist.collectives import transport
+    now = (transport.hops, transport.bytes_sent, transport.staged,
+           transport.seconds)
+    return now if since is None else tuple(a - b for a, b in zip(now, since))
+
+
 def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
-                     wrappers, seed=5, eager=False, params=None, cfg=None):
+                     wrappers, seed=5, eager=False, params=None, cfg=None,
+                     shard=None, prepare=None, inspect=None):
     """Serve phi3-medium-14b at full width (all 40 layers, random weights
     from a seeded generator on the card, ``wfmt`` wire weights, a ``kv``
     KV cache, page size 256, decode batch 4): one request per prompt
@@ -639,7 +702,12 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
     (an eager step and the capture: ``capture_step_ms``). ``params``
     (from :func:`full_width_params`) are built here when not given;
     ``cfg`` (default phi3-medium-14b's with ``kv``) serves another model
-    with the ``params`` given."""
+    with the ``params`` given. ``shard`` (a ``ShardPlan``) serves this
+    rank's share of a sharded model (phase 38), with the host time and
+    bytes of the rings' hops beside each phase's; ``prepare(eng, sched,
+    prompts)`` runs before the requests are submitted and ``inspect(eng,
+    sched, outputs)`` after they are served, its dict joining the
+    result."""
     from repro_torch.kernels import takum_codec
     from repro_torch.models import model
     from repro_torch.serve.engine import ServeEngine
@@ -652,12 +720,16 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
         before = takum_codec.encode.launches
         params, weights_s = full_width_params(torch, dev, cfg, wfmt)
         setup_encodes = takum_codec.encode.launches - before
+    kw = {} if shard is None else {"shard": shard}
     eng = ServeEngine(params, cfg, max_len=max_len, page_size=ps,
-                      decode_batch=4, device=dev)
+                      decode_batch=4, device=dev, **kw)
     sched = eng.scheduler()
     runner = getattr(sched, "step", None)      # None: a tree without graphs
     walls = {"prefill": 0.0, "decode": 0.0, "capture": 0.0}
     steps = {"prefill": 0, "decode": 0, "capture": 0}
+    hops = None if shard is None else {
+        k: {"hops": 0, "bytes_sent": 0, "staged": 0, "seconds": 0.0}
+        for k in walls}
 
     def timed(fn, key, state):
         def wrapped():
@@ -666,6 +738,7 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
             if key == "decode":
                 busy = min(busy, 1)     # one packed step for all slots
             caps = getattr(runner, "captures", 0)
+            before = None if hops is None else ring_hops()
             torch.cuda.synchronize()
             t = time.perf_counter()
             events = list(fn())
@@ -673,6 +746,9 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
             k = key if getattr(runner, "captures", 0) == caps else "capture"
             walls[k] += time.perf_counter() - t
             steps[k] += busy
+            if hops is not None:
+                for f, v in zip(hops[k], ring_hops(before)):
+                    hops[k][f] += v
             yield from events
         return wrapped
 
@@ -682,6 +758,8 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
     g = torch.Generator().manual_seed(seed)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
                for n in plens]
+    if prepare is not None:
+        prepare(eng, sched, prompts)
     from repro_torch.kernels import lns_matmul as klns
     for fn in wrappers.values():
         fn.launches = 0
@@ -716,12 +794,18 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
     check(eager or runner is None or (graphs == 1 and runner.replays > 0),
           f"the decode step was captured {graphs} times, not once")
     # the first served token of the shortest request is the argmax of a
-    # fresh single-request prefill (serving is batch-invariant)
-    cache = model.init_cache(cfg, 1, 2 * ps, device=dev)
+    # fresh single-request prefill (serving is batch-invariant), through
+    # the engine's own step where it has one (a rank's, under a plan)
+    cache = model.init_cache(getattr(eng, "run_cfg", cfg), 1, 2 * ps,
+                             device=dev)
     toks = torch.zeros((1, ps), dtype=torch.long)
     toks[0, :plens[0]] = torch.as_tensor(prompts[0])
-    row, _ = model.prefill_chunk(eng.params, toks.to(dev), cfg, cache, pos=0,
-                                 last_idx=plens[0] - 1)
+    if hasattr(eng, "prefill_chunk"):
+        row, _ = eng.prefill_chunk(toks.to(dev), cache, pos=0,
+                                   last_idx=plens[0] - 1)
+    else:
+        row, _ = model.prefill_chunk(eng.params, toks.to(dev), cfg, cache,
+                                     pos=0, last_idx=plens[0] - 1)
     check(bool(torch.isfinite(row).all()), "prefill logits not finite")
     check(int(row.argmax()) == outs[0][plens[0]],
           "served first token differs from a fresh prefill's argmax")
@@ -748,6 +832,10 @@ def serve_full_width(torch, dev, *, wfmt, kv, plens, max_new, max_len,
              "peak_gb": round(peak_gb, 2), "launches": launches,
              "setup_encode_launches": setup_encodes,
              "lns_matmul_split_sum_launches": split_sums}
+    if hops is not None:
+        serve["ring_hops"] = hops
+    if inspect is not None:
+        serve.update(inspect(eng, sched, outs))
     # the timing wrappers and the scheduler reference each other: collect
     # the cycle so the model's memory is free before the next phase
     del eng, sched, runner, params, cache, row
@@ -4350,6 +4438,480 @@ def lns_neighbours(torch, pairs):
     return near, far
 
 
+# -- 38. tensor-parallel serving over gloo ranks on the one card ------------
+
+SHARD_TP = 2                      # phase 38's full-width plan
+SHARD_NEW = 32                    # its new tokens a request
+# the wire hop's shapes: a rank's columns at tp 2 in a decode step (batch
+# 4; H*hd/tp = 2560 after attention, d_ff/tp = 8960 after the MLP) and in
+# a 256-token prompt chunk, one gather step's columns at full width
+# (batch 4, H*hd + d_ff = 23040: the rings' shape) and a 256-row block of
+# d_model
+HOP_SHAPES = ((4, 2560), (4, 8960), (256, 2560), (256, 8960), (4, 23040),
+              (256, 5120))
+RING_SHAPE = (4, 23040)
+# the wire matmul at the column slices a tp-2 gather plan gives a rank
+# (wq 2560, wk/wv 640, wg/w1 8960 columns), a decode step and a prompt
+# chunk; wo and w2 stay whole (MM_SHAPES)
+SHARD_MM = tuple((m, 5120, n) for m in (4, 256) for n in (2560, 640, 8960))
+# phase 38's full-width runs: the collectives' wire format of each
+SHARD_RUNS = (("uncompressed", None), ("takum16", "takum16"),
+              ("takum8", "takum8"))
+HOP_FORMATS = ("takum8", "takum16", "lns-takum8", "posit8")
+RING_FORMATS = ("takum16", "takum8", "posit8")
+# the reduced cases of repro_torch.serve.shard_selftest run on the card
+SHARD_REDUCED = ("tp2", "tp4", "dp2tp2", "psum2", "lns2")
+
+
+def hop_floats(torch, dev, shape, seed):
+    """Seeded f32 values spread over 10^-3..10^3 times a normal draw."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    e = torch.empty(shape, device=dev).uniform_(-3.0, 3.0, generator=g)
+    return x * torch.pow(10.0, e)
+
+
+def wire_hop_check(torch, dev):
+    """The ring hop's encode and decode kernels (``collectives.encode_hop``
+    and ``wire_roundtrip`` on CUDA tensors) against the plain codec on the
+    same card, at ``HOP_SHAPES``: words bit for bit (LNS by phase 7's
+    neighbour rule), wire values bit for bit (LNS within 2 ulp of the
+    plain decode of the same words), the residual exactly x - wire, and
+    two encodes and two decodes for the two calls."""
+    from repro_torch import formats
+    from repro_torch.core.bitops import lanes
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import ref, takum_codec
+    out = {}
+    for name in HOP_FORMATS:
+        spec = formats.get(name)
+        for shape in HOP_SHAPES:
+            x = hop_floats(torch, dev, shape, 38)
+            enc, dec = takum_codec.encode.launches, takum_codec.decode.launches
+            words, wire = coll.encode_hop(x, spec)
+            y, res = coll.wire_roundtrip(x, spec)
+            launched = [takum_codec.encode.launches - enc,
+                        takum_codec.decode.launches - dec]
+            check(launched == [2, 2], f"phase 38: {name}'s hops launched "
+                  f"{launched} encodes and decodes, not [2, 2]")
+            gw = lanes(words).reshape(-1)
+            pw = lanes(ref.encode_ref(x, spec)).reshape(-1)
+            plain = ref.decode_ref(words, spec)
+            row = {"shape": list(shape)}
+            if spec.kind == "lns":
+                lo, hi = lns_encode_bounds(torch, x.reshape(-1), spec.n)
+                check(bool(lns_encode_ok(gw, pw, lo, hi, spec.n).all()),
+                      f"phase 38: a {name} hop word other than the plain "
+                      "version's or, at a logf tie, its neighbour")
+                share = float((gw != pw).double().mean())
+                check(share <= LNS_NEIGHBOUR_SHARE, f"phase 38: {name} "
+                      f"neighbour share {share}")
+                u = int(ulps(torch, wire.reshape(-1),
+                             plain.reshape(-1)).max())
+                check(u <= 2, f"phase 38: {name} wire {u} ulp off")
+                row.update(encode_neighbour_share=share, wire_max_ulps=u)
+            else:
+                check(torch.equal(gw, pw), f"phase 38: {name} hop words "
+                      "differ from the plain codec's")
+                check(torch.equal(wire.view(torch.int32),
+                                  plain.view(torch.int32)),
+                      f"phase 38: {name} wire values differ from the plain "
+                      "decode")
+                row.update(words_bit_exact=True, wire_bit_exact=True)
+            check(torch.equal(y.view(torch.int32), wire.view(torch.int32))
+                  and torch.equal(res.view(torch.int32),
+                                  (x - wire).view(torch.int32)),
+                  f"phase 38: {name} wire_roundtrip is not (wire, x - wire)")
+            out[f"{name} {shape[0]}x{shape[1]}"] = row
+    return out
+
+
+def ring_check(torch, rank, world):
+    """The compressed ``ring_all_reduce`` of this rank's seeded
+    ``RING_SHAPE`` values over the job's ranks, on the card and on the
+    CPU: outputs and residuals bit for bit, a format each."""
+    import torch.distributed as dist
+    from repro_torch import formats
+    from repro_torch.dist import collectives as coll
+    from repro_torch.serve.shard import ShardPlan
+    dev = ShardPlan().device_for()      # cuda:(rank % device_count)
+    x = hop_floats(torch, dev, RING_SHAPE, 100 + rank).reshape(-1)
+    out = {}
+    for name in RING_FORMATS:
+        spec = formats.get(name)
+        y, r = coll.ring_all_reduce(x, dist.group.WORLD, world, spec=spec)
+        yc, rc = coll.ring_all_reduce(x.cpu(), dist.group.WORLD, world,
+                                      spec=spec)
+        same = (torch.equal(y.cpu().view(torch.int32), yc.view(torch.int32))
+                and torch.equal(r.cpu().view(torch.int32),
+                                rc.view(torch.int32)))
+        check(same, f"phase 38: {name} ring_all_reduce at world {world} "
+              "differs between the card and the CPU")
+        out[name] = "bit-equal"
+    return out
+
+
+def full_width_rank(torch):
+    """This rank's share of phi3-medium-14b at full width under
+    ``ShardPlan(tp=SHARD_TP)``: every layer made whole from the seeded
+    generator (as :func:`full_width_params` makes it for one card),
+    wired and sliced before the next, then phase 5's requests with
+    ``SHARD_NEW`` new tokens, eagerly, once for each of ``SHARD_RUNS``:
+    tokens, every step's two best logits (:func:`top2_recorder`) and,
+    compressed, the residual norms of the last step."""
+    from repro_torch.dist.tp import residual_norms
+    from repro_torch.serve.shard import ShardPlan, place_params
+    plan = ShardPlan(tp=SHARD_TP)
+    dev = plan.device_for()
+    torch.cuda.set_device(dev)
+    cfg = full_width_cfg("takum8")
+    mesh = plan.build_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    params, weights_s = full_width_params(
+        torch, dev, cfg, "takum8",
+        place=lambda layer: place_params(layer, plan, mesh, cfg))
+    out = {"weights_s": round(weights_s, 2),
+           "peak_gb_setup": round(torch.cuda.max_memory_allocated() / 1e9,
+                                  2)}
+
+    for label, comp in SHARD_RUNS:
+        tops = {}
+
+        def inspect(eng, sched, outs, tops=tops, comp=comp):
+            res = {"tokens": outs,
+                   "tops": [[r, i, v, t] for (r, i), (v, t) in tops.items()]}
+            if comp is not None:
+                n = list(residual_norms(sched.pool.cache).values())
+                check(bool(n) and all(math.isfinite(v) for v in n),
+                      f"phase 38: {comp} residual norms not finite: {n[:4]}")
+                res.update(residual_sites=len(n), residual_norm_min=min(n),
+                           residual_norm_max=max(n))
+            return res
+
+        out[label] = serve_full_width(
+            torch, dev, wfmt="takum8", kv="takum8", plens=PHASE5_PLENS,
+            max_new=SHARD_NEW, max_len=1280, wrappers=kernel_wrappers(),
+            eager=True, params=params, cfg=cfg,
+            shard=ShardPlan(tp=SHARD_TP, compress=comp),
+            prepare=top2_recorder(torch, tops), inspect=inspect)
+    return out
+
+
+def shard_rank(rank, world, tmp):
+    """One rank of phase 38's job (``torch.multiprocessing.spawn``'s
+    target; every rank on the one card, the rings over gloo): the ring
+    check at ``world`` ranks, then ranks below ``SHARD_TP`` in a group of
+    their own: the ring check again and :func:`full_width_rank`. Writes
+    ``tmp/rank_<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import RANK_TIMEOUT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg_all",
+                            world_size=world, rank=rank,
+                            timeout=RANK_TIMEOUT)
+    try:
+        res[f"ring_world{world}"] = ring_check(torch, rank, world)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank < SHARD_TP:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/pg_tp",
+                                world_size=SHARD_TP, rank=rank,
+                                timeout=RANK_TIMEOUT)
+        try:
+            res[f"ring_world{SHARD_TP}"] = ring_check(torch, rank, SHARD_TP)
+            res.update(full_width_rank(torch))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    (Path(tmp) / f"rank_{rank}.json").write_text(json.dumps(res))
+
+
+def top2_recorder(torch, tops):
+    """A ``prepare`` hook for :func:`serve_full_width` that keeps, for
+    every generated token, the two best logits of the step that chose it
+    and their ids: ``tops[(rid, i)] = (values, ids)`` (the last prompt
+    chunk for i = 0, decode steps after)."""
+    def prepare(eng, sched, prompts):
+        chunk, step = eng.prefill_chunk, sched.step
+
+        def prefill(tokens, cache, *, pos, last_idx):
+            row, cache = chunk(tokens, cache, pos=pos, last_idx=last_idx)
+            for s in sched._slots:
+                if (s is not None and s.state == "prefilling"
+                        and s._cursor == pos
+                        and pos + last_idx + 1 == len(s.prefill_tokens)):
+                    t = torch.topk(row[0].float(), 2)
+                    tops[(s.rid, 0)] = (t.values.tolist(), t.indices.tolist())
+            return row, cache
+
+        def decode(tok, pos):
+            live = [(i, s.rid, len(s.generated))
+                    for i, s in enumerate(sched._slots)
+                    if s is not None and s.state == "active"]
+            logits, head = step(tok, pos)
+            t = torch.topk(logits.float(), 2, dim=-1)
+            vals, ids = t.values.cpu(), t.indices.cpu()
+            for i, rid, n in live:
+                tops[(rid, n)] = (vals[i].tolist(), ids[i].tolist())
+            return logits, head
+
+        eng.prefill_chunk = prefill
+        sched.step = decode
+    return prepare
+
+
+def tie_or_equal(want, got, plen, tops, rid):
+    """"equal", or "tie at i (gap g)" where ``got`` leaves ``want`` at
+    generated token i for the other of ``want``'s run's two best logits,
+    within ``TIE_REL`` of each other (phase 20's rule; bf16 logits tie
+    exactly too, in either order), or None."""
+    if got == want:
+        return "equal"
+    i = next(i for i, (a, b) in enumerate(zip(want[plen:], got[plen:]))
+             if a != b)
+    v, t = tops[(rid, i)]
+    if (v[0] - v[1] <= TIE_REL * abs(v[0])
+            and {got[plen + i], want[plen + i]} == set(t)):
+        return f"tie at {i} (gap {(v[0] - v[1]) / abs(v[0]):.2e})"
+    return None
+
+
+def top2_drift(tops, other, rid):
+    """The largest difference of the best logit between two runs' steps of
+    request ``rid`` while they chose the same token, over its value, and
+    the step of the first choice that differs (or None)."""
+    drift, i = 0.0, 0
+    while (rid, i) in tops and (rid, i) in other:
+        (v, t), (w, u) = tops[(rid, i)], other[(rid, i)]
+        if t[0] != u[0]:
+            return drift, i
+        drift = max(drift, abs(v[0] - w[0]) / max(abs(v[0]), 1e-30))
+        i += 1
+    return drift, None
+
+
+def reduced_shard_check(torch):
+    """The reduced cases (``SHARD_REDUCED`` of ``shard_selftest``) in a
+    4-rank gloo job on the card against the card's single-rank engine,
+    whose greedy tokens must equal the CPU's."""
+    import tempfile
+    from repro_torch.serve import shard_selftest as sst
+    weights = sst.make_weights()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = sst.run_job(4, weights, tmp, device="cuda",
+                              names=SHARD_REDUCED)
+    card = sst.single_rank(weights, SHARD_REDUCED, "cuda")
+    cpu = sst.single_rank(weights, SHARD_REDUCED, "cpu")
+    try:
+        lines = sst.check(results, card)
+    except AssertionError as e:
+        fail(f"phase 38 (reduced, card): {e}")
+    for key in ("greedy", "takum8", "lns-takum8"):
+        if key in card:
+            check(card[key] == cpu[key], f"phase 38: the reduced {key} "
+                  "tokens differ between the card and the CPU")
+    return {"cases": [ln.lstrip("# ") for ln in lines],
+            "card_vs_cpu": "greedy tokens equal (float, lns-takum8 wire)"}
+
+
+class SplitCols:
+    """A wire matrix multiplied as ``parts`` column blocks, each through
+    its own wire matmul, the products concatenated: one card computing
+    the column slices a gather-mode plan of ``parts`` ranks gives each
+    rank, at the ranks' shapes (the wire matmul's K split depends on N,
+    so its sums run in another order than the whole matrix's)."""
+
+    def __init__(self, w, parts):
+        from repro_torch.kernels.ops import WireMatrix
+        n = w.shape[1] // parts
+        self.shape = w.shape
+        self.blocks = [WireMatrix(w.words[:, i * n:(i + 1) * n].contiguous(),
+                                  fmt=w.spec) for i in range(parts)]
+
+    def __rmatmul__(self, x):
+        import torch
+        return torch.cat([x @ b for b in self.blocks], dim=-1)
+
+
+def split_columns(params, parts):
+    """``params`` with every projection a gather-mode plan column-shards
+    (wq, wk, wv, wg, w1) made a :class:`SplitCols`, in place."""
+    for layer in params["layers"]:
+        for block, names in (("attn", ("wq", "wk", "wv")),
+                             ("mlp", ("wg", "w1"))):
+            for name in names:
+                layer[block][name] = SplitCols(layer[block][name], parts)
+    return params
+
+
+def shard_phase(torch, dev, card):
+    """Phase 38: the wire hop's kernels, and the wire matmul, both
+    attention kernels and the append at a rank's shapes, against their
+    plain versions; the rings on the card, the reduced cases, and
+    phi3-medium-14b at full width over two ranks on the one card (gloo),
+    held against one rank on the same card."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch import formats
+    from repro_torch.serve.shard import ShardPlan
+    t0 = time.perf_counter()
+    out = {"card": card, "transport": "gloo, CUDA payloads staged through "
+           "host memory (collectives.transport): several ranks on one card "
+           "cannot share an NCCL communicator; the NCCL path is not run"}
+    out["wire_hop"] = wire_hop_check(torch, dev)
+    cfg = full_width_cfg("takum8")
+    t8 = formats.get("takum8")
+    out["wire_matmul_rank_columns"] = [
+        wire_matmul_check(torch, dev, t8, m, k, n) for m, k, n in SHARD_MM]
+    out["attention_rank_heads"] = hd_attention_check(
+        torch, dev, ShardPlan(tp=SHARD_TP).local_cfg(cfg), seed=38)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one rank on this card on the same weights, eagerly, the top-2 logits
+    # of every step kept: the whole matrices, then the ranks' column
+    # slices (SplitCols), whose arithmetic the ranks repeat bit for bit
+    params, weights_s = full_width_params(torch, dev, cfg, "takum8")
+    tops, split_tops = {}, {}
+    runs = {}
+    for label, rec in (("single", tops), ("split", split_tops)):
+        if label == "split":
+            split_columns(params, SHARD_TP)
+        runs[label] = serve_full_width(
+            torch, dev, wfmt="takum8", kv="takum8", plens=PHASE5_PLENS,
+            max_new=SHARD_NEW, max_len=1280, wrappers=kernel_wrappers(),
+            eager=True, params=params, cfg=cfg,
+            prepare=top2_recorder(torch, rec),
+            inspect=lambda eng, sched, outs: {"tokens": outs})
+    single, split = runs["single"], runs["split"]
+    single["weights_s"] = round(weights_s, 2)
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(shard_rank, args=(4, tmp), nprocs=4, join=True)
+        ranks = [json.loads((Path(tmp) / f"rank_{r}.json").read_text())
+                 for r in range(4)]
+    out["rings"] = {k: v for k, v in ranks[0].items()
+                    if k.startswith("ring")}
+    out["reduced"] = reduced_shard_check(torch)
+    census = {c: ShardPlan(tp=SHARD_TP, compress=c).step_interconnect_bytes(
+        cfg, 4) for _, c in SHARD_RUNS}
+
+    def against_single(toks):
+        """Each request's tokens against one card's whole matrices: equal,
+        parting at a tie (phase 20's rule), or None."""
+        return [tie_or_equal(w, g, len(w) - SHARD_NEW, tops, i)
+                for i, (w, g) in enumerate(zip(single["tokens"], toks))]
+
+    full = {"single_rank": {k: single[k] for k in (
+        "decode_ms_per_step", "ttft_s", "peak_gb", "weights_s")}}
+    # the column slices on one card against the whole matrices: the
+    # wire matmul's order of summation alone, so the tokens part only
+    # where the two best logits tie
+    verdicts = against_single(split["tokens"])
+    check(all(v is not None for v in verdicts),
+          f"phase 38: one card's column slices part from its whole "
+          f"matrices where the logits do not tie: {verdicts}")
+    full["single_rank_column_slices"] = {
+        "decode_ms_per_step": split["decode_ms_per_step"],
+        "tokens_vs_single_rank": verdicts,
+        "top_logit_drift": [top2_drift(tops, split_tops, i)
+                            for i in range(len(PHASE5_PLENS))]}
+    served = {}
+    for label, comp in SHARD_RUNS:
+        check(ranks[0][label]["tokens"] == ranks[1][label]["tokens"],
+              f"phase 38: the two ranks served different tokens ({label})")
+        per_rank, sent = [], 0
+        for r in range(SHARD_TP):
+            s = ranks[r][label]
+            toks = s.pop("tokens")
+            own = {(a, b): (v, t) for a, b, v, t in s.pop("tops")}
+            served.setdefault(label, (toks, own))
+            verdicts = against_single(toks)
+            if comp is None:
+                # the sharded step repeats one card's arithmetic on the
+                # same column slices: tokens and every step's top-2
+                # logits bit for bit
+                check(toks == split["tokens"] and own == split_tops,
+                      f"phase 38: rank {r}'s tokens or top-2 logits differ "
+                      "from one card's on the same column slices")
+                check(all(v is not None for v in verdicts),
+                      f"phase 38: rank {r}'s tokens part from one card's "
+                      f"whole matrices where the logits do not tie: "
+                      f"{verdicts}")
+                s["tokens_vs_single_rank_column_slices"] = "bit-equal"
+            elif comp == "takum16":
+                # takum16 holds this run's bf16 activations exactly (its
+                # residuals are 0): the gathered wire values are the
+                # uncompressed run's, and so is every product after them
+                check(toks == served["uncompressed"][0]
+                      and own == served["uncompressed"][1],
+                      f"phase 38: rank {r}'s takum16 tokens or top-2 "
+                      "logits differ from the uncompressed run's")
+                s["tokens_vs_uncompressed"] = "bit-equal"
+            else:
+                # a lossy wire: error feedback must be carrying something
+                check(s["residual_norm_max"] > 0.0, f"phase 38: rank {r}'s "
+                      f"{comp} residuals are all 0: no error feedback")
+                ref_toks, ref_tops = served["uncompressed"]
+                s["tokens_vs_uncompressed"] = [
+                    "equal" if a == b else next(
+                        f"parts at {i}" for i, (x, y) in enumerate(
+                            zip(a[len(a) - SHARD_NEW:],
+                                b[len(b) - SHARD_NEW:])) if x != y)
+                    for a, b in zip(ref_toks, toks)]
+                s["top_logit_drift_vs_uncompressed"] = [
+                    top2_drift(ref_tops, own, i)
+                    for i in range(len(PHASE5_PLENS))]
+            s["top_logit_drift"] = [top2_drift(tops, own, i)
+                                    for i in range(len(PHASE5_PLENS))]
+            # against the whole matrices: equal or parting at a tie
+            # (phase 20's rule; held for the exact runs above), or None
+            s["tokens_vs_single_rank"] = verdicts
+            hops = s.pop("ring_hops")
+            steps = max(s["decode_steps"], 1)
+            n_fwd = s["decode_steps"] + s["prefill_chunks"]
+            dec = hops["decode"]
+            sent += dec["bytes_sent"] / steps
+            s.update(bytes_sent_per_decode_step=dec["bytes_sent"] / steps,
+                     hops_per_decode_step=dec["hops"] / steps,
+                     staged_hops=dec["staged"] + hops["prefill"]["staged"],
+                     transport_share_of_step=round(
+                         dec["seconds"] / max(s["decode_s"], 1e-9), 4),
+                     peak_gb=max(s["peak_gb"], ranks[r]["peak_gb_setup"]),
+                     weights_s=ranks[r]["weights_s"])
+            launches = s["launches"]
+            seams = 2 * cfg.n_layers * n_fwd
+            if comp is None:
+                check(launches["takum_encode"] == 0
+                      and launches["takum_decode"] == 0,
+                      "phase 38: the uncompressed seams launched the codec")
+            else:
+                check(launches["takum_encode"] == seams
+                      and launches["takum_decode"] == SHARD_TP * seams,
+                      f"phase 38: {launches['takum_encode']} encodes and "
+                      f"{launches['takum_decode']} decodes for {seams} "
+                      f"compressed seams (one encode and {SHARD_TP} "
+                      "decodes a seam)")
+            for k in ("kv_append", "qmatmul", "attention", "paged_attention"):
+                check(launches[k] > 0, f"phase 38: rank {r} launched no {k}")
+            per_rank.append(s)
+        if comp is not None:
+            # a compressed hop moves n/8 bytes an element, as counted
+            check(sent == census[comp], f"phase 38: {comp} ranks sent "
+                  f"{sent} bytes a decode step, the census {census[comp]}")
+        full[label] = {"ranks": per_rank,
+                       "bytes_sent_per_decode_step_all_ranks": sent,
+                       "step_interconnect_bytes": census[comp]}
+    out["full_width"] = full
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, sort_keys=False))
 
@@ -4606,15 +5168,7 @@ def main() -> int:
                     "calls replayed from a CUDA graph", **patt)
 
     # -- 5. serving at full width -----------------------------------------
-    wrappers = {"takum_decode": takum_codec.decode,
-                "takum_encode": takum_codec.encode,
-                "kv_append": takum_codec.kv_append,
-                "qmatmul": takum_matmul.qmatmul,
-                "lns_matmul": klns.lns_matmul,
-                "attention": kattn.attention,
-                "paged_attention": kattn.paged_attention,
-                "fake_quant": kquant.fake_quant,
-                "posit8_lut": build.posit8_lut}
+    wrappers = kernel_wrappers()
     serve = serve_full_width(torch, dev, wfmt="takum8", kv="takum8",
                              plens=PHASE5_PLENS, max_new=16,
                              max_len=1280, wrappers=wrappers)
@@ -5318,6 +5872,22 @@ def main() -> int:
         path37["takum_encode"]
     kernels["takum_codec"]["launches_phase37"] = {
         "decode": path37["takum_decode"], "encode": path37["takum_encode"]}
+
+    # -- 38. tensor-parallel serving over gloo ranks on the one card -------
+    shard = shard_phase(torch, dev, card)
+    path38 = {k: 0 for k in wrappers}
+    for label, _ in SHARD_RUNS:
+        for rank in shard["full_width"][label]["ranks"]:
+            for k in path38:
+                path38[k] += rank["launches"][k]
+    shard["launches"] = path38
+    phase(38, "tensor-parallel serving phi3-medium-14b full width, tp 2 "
+          "over gloo ranks on one card", **shard)
+    detail["phase38"] = shard
+    kernels["takum_codec"]["launches_phase38"] = {
+        "decode": path38["takum_decode"], "encode": path38["takum_encode"]}
+    for k in ("kv_append", "qmatmul", "attention", "paged_attention"):
+        kernels[k]["launches_phase38"] = path38[k]
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "kv_append", "qmatmul", "attention",

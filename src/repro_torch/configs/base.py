@@ -75,7 +75,7 @@ class RuntimeConfig:
     """The single-device train step's options: the reference's
     ``RuntimeConfig`` without its multi-device fields (``multi_pod``,
     ``zero1``, ``seq_shard`` and the ``QuantConfig`` of gradient
-    compression), which come with the multi-device modules (ROADMAP.md
+    compression), which come with multi-device training (ROADMAP.md
     section 1 item 6)."""
     remat: str = "block"       # 'none' | 'block' (per-layer rematerialisation)
     microbatch: int = 0        # 0 = no microbatching

@@ -1,1 +1,2 @@
-"""Fault tolerance: the serving scheduler's watchdog."""
+"""Fault tolerance: the serving scheduler's watchdog and the elastic
+re-mesh plan."""

@@ -1,8 +1,8 @@
 """Heartbeats and the watchdog that reads them.
 
-The port's copy of the JAX package's ``ft/watchdog.py`` (``Heartbeat``
-and ``Watchdog``; its elastic re-mesh plan belongs to multi-device
-training, not ported). The loop is host-local and deterministic so tests
+The port's copy of the JAX package's ``ft/watchdog.py``: ``Heartbeat``,
+``Watchdog`` and :func:`plan_elastic_remesh`, the mesh a restart takes
+after chips are lost. The loop is host-local and deterministic so tests
 can drive it on a fake clock; the serving scheduler feeds it one beat per
 tick and reports itself stalled when the beats stop:
 
@@ -16,7 +16,7 @@ import dataclasses
 import time
 from typing import Callable, Dict, List, Optional
 
-__all__ = ["Heartbeat", "Watchdog"]
+__all__ = ["Heartbeat", "Watchdog", "plan_elastic_remesh"]
 
 
 @dataclasses.dataclass
@@ -75,3 +75,20 @@ class Watchdog:
 
     def healthy(self) -> bool:
         return not self.dead_hosts()
+
+
+def plan_elastic_remesh(n_alive_chips: int, *,
+                        model_axis: int = 16) -> Optional[dict]:
+    """The largest (data, model) mesh the surviving chips hold, the model
+    axis kept whole (the TP degree is baked into the weight layout; the
+    data degree is elastic), the data axis a power of two so batches
+    split evenly; None when fewer chips than ``model_axis`` survive."""
+    if n_alive_chips < model_axis:
+        return None
+    data = n_alive_chips // model_axis
+    p2 = 1
+    while p2 * 2 <= data:
+        p2 *= 2
+    return {"mesh_shape": (p2, model_axis), "axes": ("data", "model"),
+            "chips": p2 * model_axis,
+            "batch_advice": f"global_batch must divide by {p2}"}

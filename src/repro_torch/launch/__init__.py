@@ -1,1 +1,2 @@
-"""Launchers (``serve``, ``train``) and their process environment (``env``)."""
+"""Launchers (``serve``, ``train``), their process environment (``env``)
+and the meshes of a launched job (``mesh``)."""

@@ -73,8 +73,8 @@ def warn_if_no_tcmalloc(print_fn: Callable[[str], None] = print) -> bool:
 # Every REPRO_* variable the port reads (``grep -rn environ
 # src/repro_torch``), with its reader's default. The reference's other
 # knobs steer code the port does not have: the Pallas attention dispatch
-# and block autotuner (the port's launch plans are fixed), TP collective
-# compression and the XLA host device count (multi-device, not ported).
+# and block autotuner (the port's launch plans are fixed) and the XLA
+# host device count (the port's ranks are processes: ``--world N``).
 KNOBS: Dict[str, str] = {
     "REPRO_OBS": "0",                 # 0 off | 1 trace+metrics | 2 +numeric
     "REPRO_LUT_DECODE": "",           # posit8 table override ("" = per device)
@@ -82,6 +82,7 @@ KNOBS: Dict[str, str] = {
     "REPRO_FAULT_RATE": "0",          # injected faults per scheduler tick
     "REPRO_FAULT_SEED": "0",          # fault injector PRNG seed
     "REPRO_FAULT_KIND": "nar",        # nar | flip
+    "REPRO_SHARD_COMPRESS": "",       # TP collective compression override
 }
 
 

@@ -7,7 +7,7 @@ device, with checkpointing and preemption handling.
 Runs on ``cuda`` unless ``--device`` names another device. The manual
 data-parallel mode (``--dp-mode manual``), the gradient compression of
 its rings (``--grad-compress``) and multi-host runs (``--coordinator``)
-raise: they come with the multi-device modules (ROADMAP.md section 1
+raise: they come with multi-device training (ROADMAP.md section 1
 item 6).
 """
 

@@ -36,10 +36,11 @@ import torch.nn.functional as F
 
 from repro_torch import formats
 from repro_torch.core.bitops import carrier
+from repro_torch.dist import tp as _tp
 from repro_torch.kernels import ops
 
 __all__ = ["DTYPES", "dense_init", "rmsnorm_init", "rmsnorm", "rope",
-           "attn_init", "attention", "mlp_init", "mlp", "embed_init",
+           "attn_init", "attention", "mlp_init", "mlp", "mlp_tp", "embed_init",
            "embed", "unembed", "padded_vocab", "VOCAB_PAD", "put_words",
            "causal_mask", "gelu", "ATTN_CHUNK_T", "QC", "KC", "CAUSAL_SKIP",
            "token_nll", "xent_loss"]
@@ -284,7 +285,10 @@ def attention(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
                                       window=window,
                                       block=cfg.kv_block or None).to(x.dtype)
     out = out.reshape(x.shape[0], t, h * hd)
-    return out @ params["wo"], new_cache
+    # the TP seam (dist.tp): ``out @ wo`` outside a sharded step; inside
+    # one, the all-gather or all-reduce (the error-feedback residual is
+    # updated in the cache dict, where serve/shard.py put one)
+    return _tp.attn_out(out, params["wo"], new_cache)
 
 
 def mlp_init(gen, d_model, d_ff, activation, dtype=torch.float32,
@@ -309,6 +313,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
     """SwiGLU (silu(x @ wg) * (x @ w1)) @ w2, relu2 relu(x @ w1)^2 @ w2 or
     gelu gelu(x @ w1) @ w2."""
+    return mlp_tp(params, x, activation)[0]
+
+
+def mlp_tp(params, x: torch.Tensor, activation: str, state=None):
+    """:func:`mlp` with its TP seam exposed: ``(out, state)``. ``state`` is
+    the layer's attention-cache dict, passed to ``dist.tp.mlp_out`` so
+    the down-projection's error-feedback residual (``tp_res_m``) lives
+    beside the layer's KV pages; the plain ``hid @ w2`` without an active
+    TP context."""
     if activation == "swiglu":
         hid = F.silu(x @ params["wg"]) * (x @ params["w1"])
     elif activation == "relu2":
@@ -317,7 +330,7 @@ def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
         hid = gelu(x @ params["w1"])
     else:
         raise ValueError(f"unknown activation {activation!r}")
-    return hid @ params["w2"]
+    return _tp.mlp_out(hid, params["w2"], state)
 
 
 def padded_vocab(vocab: int) -> int:
@@ -346,7 +359,9 @@ def unembed(params, x: torch.Tensor, vocab: Optional[int] = None):
     f32 logits without the vocab padding."""
     w = params["unembed"] if "unembed" in params \
         else params["embed_tokens"].T.to(x.dtype)
-    logits = (x @ w).to(torch.float32)
+    # the DP seam (dist.tp): ``x @ w`` outside a sharded step; inside one,
+    # the batch rows shard over the data axis and the logits all-gather
+    logits = _tp.unembed_rows(x, w).to(torch.float32)
     if vocab is not None and logits.shape[-1] != vocab:
         logits = logits[..., :vocab]     # drop the vocab padding
     return logits

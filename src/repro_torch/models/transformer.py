@@ -296,7 +296,10 @@ def _block(p, x, cfg, positions, cache=None, mask=None,
                                    n_experts=cfg.n_experts, top_k=cfg.top_k,
                                    capacity_factor=cfg.capacity_factor)
     else:
-        h = L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x), cfg.activation)
+        # the attention cache dict goes through the MLP's TP seam, so its
+        # error-feedback residual (tp_res_m) lives beside the pages
+        h, cache = L.mlp_tp(p["mlp"], L.rmsnorm(p["ln2"], x),
+                            cfg.activation, cache)
     return x + h, aux, cache
 
 

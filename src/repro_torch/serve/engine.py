@@ -33,8 +33,15 @@ a per-request ``torch.Generator`` (the scheduler) or one generator seeded
 from the engine's ``seed`` at each ``generate_lockstep`` call, and match
 the reference's distribution, not its threefry draws.
 
-Not in this package yet (``NotImplementedError`` where asked for):
-multi-device serving (``shard=``).
+``shard=`` (a :class:`~repro_torch.serve.shard.ShardPlan` of more than
+one rank) serves the model over a ``(data, tensor)`` mesh of
+``torch.distributed`` ranks, one process a rank, each of which builds the
+same engine and is given the same requests (``serve/shard.py``): the
+engine keeps this rank's slice of the weights, its scheduler a pool of
+the rank's KV heads, and both steps run under the plan's TP context. The
+decode step of such a plan runs eagerly (``ShardedSteps.graphable``).
+Every engine, of one rank too, runs its model calls through one
+:class:`~repro_torch.serve.shard.ShardedSteps`.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from repro_torch.obs.metrics import GLOBAL as METRICS
 from repro_torch.serve.graphs import disable_graphs
 from repro_torch.serve.paged import pages_for
 from repro_torch.serve.scheduler import Scheduler, StreamEvent, sample_rows
+from repro_torch.serve.shard import ShardedSteps, ShardPlan, place_params
 
 __all__ = ["ServeEngine", "quantize_weights", "sample_rows", "disable_graphs",
            "CACHE_SLACK"]
@@ -322,22 +330,55 @@ class ServeEngine:
     preempt: bool = True              # preempt low priority under pressure
     now_fn: Optional[Callable[[], float]] = None  # scheduler clock
                                       # (deadlines, watchdog; None: wall)
-    shard: Optional[object] = None    # not ported yet: must stay None
+    shard: Optional[ShardPlan] = None  # None: one rank
     device: Optional[object] = None   # None -> cuda (raises without one)
 
     def __post_init__(self):
-        if self.shard is not None:
-            raise NotImplementedError("multi-device serving is not in the "
-                                      "port yet")
         parse_kv_quant(self.cfg.kv_quant)   # reject typos up front
-        self.device = resolve_device(self.device)
         if self.kv_block:
             self.cfg = dataclasses.replace(self.cfg, kv_block=self.kv_block)
+        # the model's steps under the plan; a multi-rank plan also keeps
+        # this rank's slice of the weights (everything above the steps,
+        # the scheduler, prefix tree, preemption and quarantine, is
+        # unchanged)
+        self._steps = ShardedSteps(self.shard or ShardPlan(), self.cfg)
+        if self._steps.mesh is None:
+            self.device = resolve_device(self.device)
+        else:
+            self.device = self.shard.device_for(self.device)
+            self.params = place_params(self.params, self.shard,
+                                       self._steps.mesh, self.cfg)
         # place and cast once: the forward's own cast is then a no-op
         self.params = cast_params(_to_device(self.params, self.device),
                                   DTYPES[self.cfg.dtype])
         self._sched: Optional[Scheduler] = None
         self._sched_key = None
+
+    # -- the steps (sharded under a multi-rank plan) -----------------------
+
+    @property
+    def run_cfg(self) -> ModelConfig:
+        """The config this rank's model runs: the plan's local view (``H/tp``
+        and ``Hkv/tp`` heads; ``cfg`` itself at one rank)."""
+        return self._steps.local_cfg
+
+    @property
+    def graphable(self) -> bool:
+        """Whether the decode step may be replayed from a CUDA graph: at
+        one rank only."""
+        return self._steps.graphable
+
+    def prefill_chunk(self, tokens: torch.Tensor, cache, *, pos: int,
+                      last_idx: int):
+        """One prompt chunk on a contiguous cache of :attr:`run_cfg`:
+        (logits of row ``last_idx`` [B, V], cache)."""
+        return self._steps.prefill_chunk(self.params, tokens, cache, pos,
+                                         last_idx)
+
+    def decode_step(self, tok: torch.Tensor, cache, *, pos):
+        """One packed decode step over a paged cache of :attr:`run_cfg`:
+        (logits [B, V], cache)."""
+        return self._steps.step_paged(self.params, tok, cache, pos)
 
     def scheduler(self, *, page_size: Optional[int] = None,
                   num_pages: Optional[int] = None,
@@ -485,8 +526,13 @@ class ServeEngine:
         At temperature > 0 tokens are drawn from one ``torch.Generator``
         seeded from ``seed`` at each call: the same distribution as the
         reference's, not its threefry draws (JAX's key schedule has no
-        torch counterpart)."""
-        cfg = self.cfg
+        torch counterpart). Under a multi-rank plan each model call runs
+        under its TP context, on the rank's heads."""
+        with self._steps.active():
+            return self._lockstep(prompts, max_new, media)
+
+    def _lockstep(self, prompts, max_new, media):
+        cfg = self.run_cfg
         dev = self.device
         b = len(prompts)
         plen = max(len(p) for p in prompts)

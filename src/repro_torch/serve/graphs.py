@@ -35,7 +35,9 @@ eagerly.
 
 On the CPU the step runs eagerly; :func:`disable_graphs` (the counterpart
 of ``jax.disable_jit()``) makes the card run it eagerly too, for the
-harnesses that compare the two.
+harnesses that compare the two. Under a shard plan of more than one rank
+(``ServeEngine.graphable`` is false) the step runs eagerly as well
+(``serve/shard.py`` says why).
 """
 
 from __future__ import annotations
@@ -47,7 +49,6 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch.models import model
 from repro_torch.obs.metrics import record_capture
 
 __all__ = ["DecodeStep", "disable_graphs", "graphs_enabled", "COUNTERS"]
@@ -124,8 +125,7 @@ class DecodeStep:
 
     def _step(self, tok: torch.Tensor, pos: torch.Tensor):
         eng = self.engine
-        logits, _ = model.decode_step(eng.params, tok, eng.cfg,
-                                      self.pool.cache, pos=pos)
+        logits, _ = eng.decode_step(tok, self.pool.cache, pos=pos)
         self.pool.cache[0]["pos"].add_(1)    # shared by every layer
         head = torch.stack([torch.argmax(logits, dim=-1),
                             torch.isnan(logits).any(dim=-1).long()])
@@ -137,7 +137,8 @@ class DecodeStep:
         Under replay they are the graph's static outputs, overwritten by
         the next step."""
         dev = self.engine.device
-        if dev.type != "cuda" or not graphs_enabled():
+        if (dev.type != "cuda" or not graphs_enabled()
+                or not self.engine.graphable):
             return self._step(tok.to(dev), pos.to(dev))
         key = tuple(tok.shape) + tuple(self.pool.cache[0]["table"].shape)
         cap = self._graphs.get(key)

@@ -71,11 +71,16 @@ class PagePool:
 
     ``batch`` is the decode-batch width (scheduler slots), ``max_pages``
     the block-table width. With ``alloc_device=False`` no tensors are
-    built and only the allocator and its accounting run."""
+    built and only the allocator and its accounting run. ``cache_cfg``
+    (default ``cfg``) is the config whose KV heads the device tensors
+    hold: a rank's ``Hkv/tp`` under a shard plan, while the accounting
+    (``hbm_bytes``, ``stats``) stays the whole pool's, host-global as
+    in the reference."""
 
     def __init__(self, cfg: ModelConfig, *, batch: int, num_pages: int,
                  page_size: int, max_pages: int, device=None, dtype=None,
-                 alloc_device: bool = True):
+                 alloc_device: bool = True,
+                 cache_cfg: Optional[ModelConfig] = None):
         if num_pages < 2:
             raise ValueError(f"num_pages must be >= 2 (page 0 is the "
                              f"reserved scratch page), got {num_pages}")
@@ -101,8 +106,8 @@ class PagePool:
         self.cache = None
         if alloc_device:
             self.cache = model.init_paged_cache(
-                cfg, batch, num_pages, page_size, max_pages, device=device,
-                dtype=dtype)
+                cache_cfg or cfg, batch, num_pages, page_size, max_pages,
+                device=device, dtype=dtype)
 
     # -- allocator ---------------------------------------------------------
 

@@ -69,6 +69,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.tp import residual_norms
 from repro_torch.ft.watchdog import Heartbeat, Watchdog
 from repro_torch.models import model
 from repro_torch.models.layers import ATTN_CHUNK_T
@@ -221,7 +222,8 @@ class Scheduler:
         self.page_size = page_size
         self.pool = PagePool(engine.cfg, batch=decode_batch,
                              num_pages=num_pages, page_size=page_size,
-                             max_pages=max_pages, device=engine.device)
+                             max_pages=max_pages, device=engine.device,
+                             cache_cfg=engine.run_cfg)
         self.prefix: Optional[PrefixCache] = \
             PrefixCache(self.pool) if prefix_cache else None
         self.step = DecodeStep(engine, self.pool)
@@ -447,7 +449,9 @@ class Scheduler:
     def _obs_sample(self) -> None:
         """Once a tick: the pool, queue and tree state into gauges, and
         every instrument into its ring; at ``REPRO_OBS=2`` also the pool's
-        NaR scan (a device read)."""
+        NaR scan and, under a compressed shard plan, this rank's
+        error-feedback residual norms (``tp.res_norm/<site>``; device
+        reads)."""
         m = self.obs.metrics
         st = self.pool.stats()
         m.gauge("pool.free").set(st.free)
@@ -468,6 +472,8 @@ class Scheduler:
                 m.gauge(f"prefix.{key}").set(val)
         if self.obs.numeric and self.pool.cache is not None:
             m.gauge("pool.nar_words").set(self.pool.scan_nar())
+            for site, norm in residual_norms(self.pool.cache).items():
+                m.gauge(f"tp.res_norm/{site}").set(norm)
         m.sample(self._tick)
 
     def trace_records(self, meta: Optional[dict] = None) -> List[dict]:
@@ -656,7 +662,7 @@ class Scheduler:
         plen = len(req.prefill_tokens)
         # one slack page: the last chunk is right-padded to ps
         width = (pages_for(plen, ps) + 1) * ps
-        contig = model.init_cache(self.engine.cfg, 1, width,
+        contig = model.init_cache(self.engine.run_cfg, 1, width,
                                   device=self.engine.device)
         gather = plan.shared + ((plan.cow_src,)
                                 if plan.cow_src is not None else ())
@@ -719,9 +725,9 @@ class Scheduler:
             if self.obs is not None:
                 self.obs.tracer.begin(req.rid, "chunk",
                                       pos=req._cursor, n=len(chunk))
-            row, req._contig = model.prefill_chunk(
-                eng.params, tokens.to(eng.device), eng.cfg, req._contig,
-                pos=req._cursor, last_idx=len(chunk) - 1)
+            row, req._contig = eng.prefill_chunk(
+                tokens.to(eng.device), req._contig, pos=req._cursor,
+                last_idx=len(chunk) - 1)
             req._cursor += len(chunk)
             if self.obs is not None:
                 self.obs.tracer.end(req.rid, "chunk")

@@ -29,8 +29,8 @@ __all__ = ["make_train_step", "make_train_step_manual", "init_flat_state",
 
 MANUAL_DP_TODO = ("the manual data-parallel step (shard_map ZeRO-1 with "
                   "takum-compressed ring collectives) is not in the port: "
-                  "it comes with the multi-device modules, ROADMAP.md "
-                  "section 1 item 6")
+                  "it comes with multi-device training (the rings are in "
+                  "repro_torch.dist), ROADMAP.md section 1 item 6")
 
 
 def grad_spec_from_quant(name: str) -> Optional[QuantSpec]:

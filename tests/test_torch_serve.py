@@ -266,13 +266,23 @@ def test_quantize_weights_wires_the_projections():
 
 
 def test_engine_refuses_what_is_not_ported(wired):
-    """Multi-device serving (``shard=``) is the one part of the
-    reference's serving API the port refuses; preemption (the default),
-    deadlines and cancellation are served (tests/test_torch_faults.py)."""
+    """Multi-device serving (``shard=``) needs a launched job: a plan of
+    more than one rank without an initialised process group is refused,
+    naming how to launch (tests/test_torch_shard.py serves over gloo
+    ranks), and a family without the TP seams is refused by name; a plan
+    of one rank is the plain engine, as the reference's. Preemption (the
+    default), deadlines and cancellation are served
+    (tests/test_torch_faults.py)."""
+    from repro_torch.serve.shard import ShardPlan
     _, cfg = _cfgs("takum8")
     tp = wired["takum8"][1]
-    with pytest.raises(NotImplementedError):
-        ServeEngine(tp, cfg, max_len=48, device="cpu", shard=object())
+    with pytest.raises(ValueError, match="init_process_group"):
+        ServeEngine(tp, cfg, max_len=48, device="cpu", shard=ShardPlan(tp=2))
+    rwkv = get_arch("rwkv6-1.6b").reduced
+    with pytest.raises(ValueError, match="'rwkv6'"):
+        ServeEngine({}, rwkv, max_len=48, device="cpu", shard=ShardPlan(tp=2))
+    one = ServeEngine(tp, cfg, max_len=48, device="cpu", shard=ShardPlan())
+    assert one.run_cfg is one.cfg and one.graphable
     eng = ServeEngine(tp, cfg, max_len=48, page_size=16, device="cpu")
     assert eng.preempt
     rid = eng.submit([1, 2], 2, deadline_ms=5.0)
