@@ -1,5 +1,5 @@
 """Model configuration: ``ModelConfig``, the arch registry, ``parse_kv_quant``,
-and the training run's ``RuntimeConfig``.
+and the training run's ``RuntimeConfig`` with its ``QuantConfig``.
 
 The port's own copy of the JAX package's config dataclass (same field
 names and defaults, so a config converts field by field). Only the
@@ -12,7 +12,7 @@ import dataclasses
 from typing import Callable, Dict, Tuple
 
 __all__ = ["ModelConfig", "ArchSpec", "register_arch", "get_arch",
-           "list_archs", "parse_kv_quant", "RuntimeConfig"]
+           "list_archs", "parse_kv_quant", "QuantConfig", "RuntimeConfig"]
 
 
 def parse_kv_quant(kv_quant: str) -> Tuple[str, int]:
@@ -71,14 +71,30 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """The wire formats of a run (the reference's fields and defaults);
+    the train step reads ``grad_allreduce``, the gradient compression of
+    the manual data-parallel rings (``train/trainer.py::
+    grad_spec_from_quant``)."""
+    weights: str = "none"      # 'none' | 'takum8' | 'takum16' | 'posit16' ...
+    kv_cache: str = "none"
+    grad_allreduce: str = "none"   # cross-pod gradient compression
+    checkpoint: str = "none"
+
+
+@dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """The single-device train step's options: the reference's
-    ``RuntimeConfig`` without its multi-device fields (``multi_pod``,
-    ``zero1``, ``seq_shard`` and the ``QuantConfig`` of gradient
-    compression), which come with multi-device training (ROADMAP.md
-    section 1 item 6)."""
+    """The train step's options, the reference's fields and defaults. The
+    steps read ``remat`` and ``microbatch``, the launcher ``quant``;
+    ``zero1`` (the manual step always shards its optimizer state over
+    ``data``), ``multi_pod`` and ``seq_shard`` are carried as the
+    reference carries them."""
+    multi_pod: bool = False
     remat: str = "block"       # 'none' | 'block' (per-layer rematerialisation)
+    zero1: bool = True         # shard optimizer state over data axes
     microbatch: int = 0        # 0 = no microbatching
+    seq_shard: bool = True     # sequence/context parallel annotations
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -59,7 +59,8 @@ from repro_torch import formats
 from repro_torch.core import quant
 from repro_torch.kernels import ops
 
-__all__ = ["wire_roundtrip", "encode_hop", "decode_hop", "transport",
+__all__ = ["wire_roundtrip", "encode_hop", "decode_hop", "hop_bytes",
+           "transport",
            "ring_reduce_scatter", "ring_all_gather", "ring_all_reduce",
            "gather_encoded"]
 
@@ -86,11 +87,23 @@ def _wire_format(spec):
     return fmt, (None if spec.scale == "none" else spec)
 
 
-def encode_hop(x: torch.Tensor, spec) -> Tuple[torch.Tensor, torch.Tensor]:
+def hop_bytes(spec, dtype=torch.float32) -> int:
+    """The bytes an element of ``dtype`` takes on the wire under ``spec``:
+    a word of an unscaled format, else the element itself."""
+    codec = _wire_format(spec)
+    if codec is None or codec[1] is not None:
+        return torch.empty((), dtype=dtype).element_size()
+    return codec[0].bytes_per_elem(dtype)
+
+
+def encode_hop(x: torch.Tensor, spec, *, wire: bool = True
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One hop's sender: ``(payload, wire)``. ``wire`` is what every rank
     computes with (``dequant(quant(x))`` in ``x``'s dtype); ``payload``
     is what crosses the link: the words of an unscaled format, else
-    ``wire`` itself (uncompressed, or a scaled QuantSpec)."""
+    ``wire`` itself (uncompressed, or a scaled QuantSpec). ``wire=False``
+    skips the sender's decode of its own words (``wire`` is then None
+    for them): a sender that keeps no residual needs only the payload."""
     codec = _wire_format(spec)
     if codec is None:
         return x, x
@@ -98,6 +111,8 @@ def encode_hop(x: torch.Tensor, spec) -> Tuple[torch.Tensor, torch.Tensor]:
     x32 = x.to(torch.float32)
     if scaled is None:
         words = ops.takum_encode(x32, fmt)
+        if not wire:
+            return words, None
         return words, ops.takum_decode(words, fmt).to(x.dtype)
     k = quant.scale_exponent(x32, scaled)
     words = ops.takum_encode(x32 * quant.exp2i(k).to(x.device), fmt)
@@ -170,34 +185,39 @@ def _rank(group) -> int:
 
 
 def ring_reduce_scatter(x: torch.Tensor, group, size: int, *, spec=None,
-                        mean: bool = False):
+                        mean: bool = False, residual: bool = True):
     """Ring reduce-scatter of ``x [G]`` over ``group`` (G % size == 0).
 
     Chunk c starts at rank c + 1 and travels the ring gathering each
     rank's contribution, complete at rank c after size - 1 hops. Every
     hop's payload goes through the wire (``spec``); the sender's error is
-    kept in the full-shape residual at that chunk's slot."""
+    kept in the full-shape residual at that chunk's slot.
+    ``residual=False`` returns None in its place and neither allocates it
+    nor decodes the sender's own words (the chunk is the same): a caller
+    that drops the residual, as the train step does at the gradients'
+    size, saves a copy of ``x`` and a decode a hop."""
     if x.shape[-1] % size:
         raise ValueError(f"reduce_scatter: {x.shape[-1]} % {size} != 0")
     csize = x.shape[-1] // size
     if size == 1:
         out = x / size if mean else x
-        return out, torch.zeros_like(x)
+        return out, (torch.zeros_like(x) if residual else None)
     chunks = x.reshape(size, csize)
     r = _rank(group)
-    resid = torch.zeros_like(chunks)
-    compressed = _wire_format(spec) is not None
+    resid = torch.zeros_like(chunks) if residual else None
+    compressed = residual and _wire_format(spec) is not None
     # the partial sum in transit starts as this rank's copy of chunk r-1
     acc = chunks[(r - 1) % size]
     for t in range(size - 1):
-        payload, wire = encode_hop(acc, spec)
+        payload, wire = encode_hop(acc, spec, wire=residual)
         if compressed:
             resid[(r - 1 - t) % size] = acc - wire
-        recv = decode_hop(transport(payload, group, size), spec, acc.dtype)
-        acc = recv + chunks[(r - 2 - t) % size]
+        # the received values are this hop's own tensor: the sum takes it
+        acc = decode_hop(transport(payload, group, size), spec, acc.dtype)
+        acc += chunks[(r - 2 - t) % size]
     if mean:
         acc = acc / size
-    return acc, resid.reshape(x.shape)
+    return acc, (resid.reshape(x.shape) if residual else None)
 
 
 def gather_encoded(payload: torch.Tensor, wire: torch.Tensor, spec, group,

@@ -90,14 +90,20 @@ def _strides(sizes: Sequence[int]) -> Tuple[int, ...]:
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     """The mesh of ``shape`` over the job's ranks (row-major), with one
     process group per axis line. Raises, naming how to launch, unless a
-    process group of exactly ``prod(shape)`` ranks is initialised."""
+    process group of exactly ``prod(shape)`` ranks is initialised; a
+    mesh of one rank needs none (every axis has size 1, so every
+    collective over it is the identity)."""
     import torch.distributed as dist
     shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
     if len(shape) != len(axis_names):
         raise ValueError(f"mesh shape {shape} for axes {axis_names}")
     need = math.prod(shape)
     what = f"a mesh of {need} ranks {dict(zip(axis_names, shape))}"
-    if not (dist.is_available() and dist.is_initialized()):
+    initialised = dist.is_available() and dist.is_initialized()
+    if need == 1 and not initialised:
+        return Mesh(axis_names, shape, (0,) * len(shape),
+                    (None,) * len(shape))
+    if not initialised:
         raise ValueError(f"{what} needs an initialised torch.distributed "
                          f"process group, and none is: {LAUNCH_HINT}")
     world = dist.get_world_size()

@@ -4,9 +4,11 @@ The port's copy of the JAX package's ``optim/adamw.py``: the same
 arithmetic in the same order, in f32 (``torch.optim.AdamW`` applies its
 decoupled decay in another order, which rounds differently). The *flat*
 form treats the whole parameter set as one vector: AdamW is elementwise,
-so flattening is exact (the ZeRO-1 step that wants it is not in the
-port yet: ROADMAP.md section 1 item 6). Every update returns new tensors
-and leaves its inputs as they were.
+so flattening is exact; the manual data-parallel step
+(``train/trainer.py::make_train_step_manual``, ZeRO-1) updates each
+rank's slice of the flat vector. Every update returns new tensors and
+leaves its inputs as they were, unless a caller names them as the
+flat update's ``out``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "AdamWState", "init_state", "apply_update",
-           "flatten_like", "unflatten_like", "flat_adamw_update",
+           "flatten_like", "flat_spec", "flat_slice", "unflatten_like",
+           "flat_adamw_update", "FLAT_BLOCK",
            "schedule_lr", "global_norm", "clip_by_global_norm"]
 
 
@@ -122,19 +125,51 @@ def apply_update(params, grads, state: AdamWState, cfg: AdamWConfig
 # Flat (ZeRO-friendly) helpers
 # ---------------------------------------------------------------------------
 
+# the elements a flat elementwise pass takes at a time: its temporaries a
+# block's (256 MB in f32)
+FLAT_BLOCK = 1 << 26
+
+
+def flat_spec(tree, pad_to: int = 1):
+    """:func:`flatten_like`'s unflatten spec, without the vector: (treedef,
+    sizes, shapes, dtypes, pad); the vector's length is ``sum(sizes) +
+    pad``."""
+    leaves, treedef = tree_flatten(tree)
+    sizes = [leaf.numel() for leaf in leaves]
+    pad = (-sum(sizes)) % pad_to
+    return (treedef, sizes, [tuple(leaf.shape) for leaf in leaves],
+            [leaf.dtype for leaf in leaves], pad)
+
 
 def flatten_like(tree, pad_to: int = 1):
     """Concatenate all leaves (f32) into one vector padded to a multiple
     of ``pad_to``. Returns (vector, unflatten spec)."""
-    leaves, treedef = tree_flatten(tree)
-    sizes = [leaf.numel() for leaf in leaves]
-    shapes = [tuple(leaf.shape) for leaf in leaves]
-    dtypes = [leaf.dtype for leaf in leaves]
+    spec = flat_spec(tree, pad_to)
+    leaves = tree_leaves(tree)
     flat = torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in leaves])
-    pad = (-flat.numel()) % pad_to
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    return flat, (treedef, sizes, shapes, dtypes, pad)
+    if spec[4]:
+        flat = torch.cat([flat, flat.new_zeros(spec[4])])
+    return flat, spec
+
+
+def flat_slice(tree, start: int, length: int) -> torch.Tensor:
+    """``flatten_like(tree, pad_to)[0][start:start + length]`` without the
+    whole vector: the leaves' parts in that range (f32), then the padding's
+    zeros, in a new tensor (never a view of a leaf: the ZeRO-1 step
+    updates it in place)."""
+    parts, ofs = [], 0
+    for leaf in tree_leaves(tree):
+        n = leaf.numel()
+        lo, hi = max(start - ofs, 0), min(start + length - ofs, n)
+        if lo < hi:
+            parts.append(leaf.reshape(-1)[lo:hi].to(torch.float32))
+        ofs += n
+    got = sum(p.numel() for p in parts)
+    if got < length:
+        dev = tree_leaves(tree)[0].device
+        parts.append(torch.zeros(length - got, dtype=torch.float32,
+                                 device=dev))
+    return torch.cat(parts)
 
 
 def unflatten_like(flat: torch.Tensor, spec):
@@ -150,13 +185,31 @@ def unflatten_like(flat: torch.Tensor, spec):
 
 
 def flat_adamw_update(flat_p, flat_g, flat_m, flat_v, step,
-                      cfg: AdamWConfig):
+                      cfg: AdamWConfig, out=None):
     """Elementwise AdamW on flat slices: (p, m, v) after step ``step``
-    (the step count after this update, as ``apply_update``'s)."""
+    (the step count after this update, as ``apply_update``'s).
+
+    ``FLAT_BLOCK`` elements at a time: the same operations on each
+    element, so the same bits, with the temporaries bounded by a block
+    (the ZeRO-1 step's slice is half a billion elements at full width).
+    ``out``: three flat tensors to write p, m and v into, which may be
+    the inputs themselves (a block is read before it is written)."""
     step = torch.as_tensor(step)
     lr = schedule_lr(cfg, step)
     bc1, bc2 = _bias_corrections(cfg, step.to(torch.float32))
-    m = cfg.b1 * flat_m + (1 - cfg.b1) * flat_g
-    v = cfg.b2 * flat_v + (1 - cfg.b2) * flat_g * flat_g
-    u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * flat_p
-    return flat_p - lr * u, m, v
+
+    def upd(p, g, m, v):
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p
+        return p - lr * u, m, v
+
+    n = flat_p.numel()
+    if out is None:
+        out = tuple(torch.empty_like(flat_p) for _ in range(3))
+    for lo in range(0, n, FLAT_BLOCK):
+        hi = min(lo + FLAT_BLOCK, n)
+        for dst, src in zip(out, upd(flat_p[lo:hi], flat_g[lo:hi],
+                                     flat_m[lo:hi], flat_v[lo:hi])):
+            dst[lo:hi] = src
+    return out

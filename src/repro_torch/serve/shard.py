@@ -64,6 +64,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import collectives as coll
 from repro_torch.dist import tp as _tp
 from repro_torch.dist.sharding import param_spec
 from repro_torch.kernels.ops import WireMatrix
@@ -221,8 +222,7 @@ class ShardPlan:
         ``(dp-1) * batch * vocab_padded`` elements. Every element is
         ``wire_spec().bytes_per_elem(f32)`` wide (4 uncompressed)."""
         from repro_torch.models.layers import padded_vocab
-        spec = self.wire_spec()
-        per = 4.0 if spec is None else spec.bytes_per_elem(torch.float32)
+        per = coll.hop_bytes(self.wire_spec())
         n_layers = sum(len(pat) * n_rep for pat, n_rep in layer_plan(cfg))
         elems = 0
         if self.tp > 1:

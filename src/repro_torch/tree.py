@@ -58,16 +58,18 @@ def tree_flatten(tree):
 
 def tree_unflatten(treedef, leaves):
     """The tree of :func:`tree_flatten`'s ``treedef`` with ``leaves``."""
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if _is_node(node):
-            return type(node)([build(v) for v in node])
-        return next(it)
 
-    return build(treedef)
+def _build(node, it):
+    # a module function, not a closure over itself: a self-referencing
+    # closure is a reference cycle, which would hold ``leaves`` (a step's
+    # gradients, say) until the cyclic collector ran
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if _is_node(node):
+        return type(node)([_build(v, it) for v in node])
+    return next(it)
 
 
 def path_name(path: Tuple) -> str:

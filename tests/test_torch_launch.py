@@ -8,13 +8,16 @@
 * ``python -m repro_torch.launch.serve`` and ``launch.train`` through
   their ``main(argv)`` on ``--device cpu`` at the reduced config: the
   audit line first, tokens and a Chrome trace from the server (under
-  ``REPRO_OBS=1``), a falling loss from the trainer; ``--dp-mode
-  manual``, ``--grad-compress`` and ``--coordinator`` raise, naming the
-  roadmap item, and ``RuntimeConfig`` takes none of the reference's
-  multi-device fields;
+  ``REPRO_OBS=1``), a falling loss from the trainer; ``--grad-compress``
+  in gspmd mode refused by name; ``RuntimeConfig``'s and
+  ``QuantConfig``'s fields and defaults the reference's;
 * ``python -m repro_torch.launch.train --reduced --steps 2 --device cpu``
   as a subprocess, once per family (see
-  ``test_train_launcher_every_family``).
+  ``test_train_launcher_every_family``);
+* the manual data-parallel mode over two gloo ranks: under torchrun
+  (``python -m torch.distributed.run --nproc-per-node 2``) and started by
+  hand with ``--coordinator localhost:<port>`` and ``RANK`` /
+  ``WORLD_SIZE``: exit 0, the step lines from rank 0 alone.
 """
 
 import torch_cpu  # noqa: F401  (one torch thread a test process)
@@ -29,7 +32,6 @@ from pathlib import Path
 import pytest
 
 from repro.launch import env as jenv
-from repro_torch.configs.base import RuntimeConfig
 from repro_torch.launch import env
 from repro_torch.launch import serve as lserve
 from repro_torch.launch import train as ltrain
@@ -155,21 +157,105 @@ def test_train_launcher_every_family(arch):
                                                         ["step", "1"]]
 
 
-@pytest.mark.parametrize("extra", [["--dp-mode", "manual"],
-                                   ["--grad-compress", "takum8"],
-                                   ["--dp-mode", "manual",
-                                    "--grad-compress", "takum16"],
-                                   ["--coordinator", "localhost:1234"]])
-def test_train_launcher_multi_device_modes_raise(extra):
-    with pytest.raises(NotImplementedError, match="section 1 item 6"):
+@pytest.mark.parametrize("name", ["takum8", "takum16"])
+def test_grad_compress_in_gspmd_mode_is_refused(name, capsys):
+    """One device has no ring to compress (the reference ignores the flag
+    there: ``ROADMAP.md`` section 3)."""
+    with pytest.raises(SystemExit):
         ltrain.main(["--arch", "phi3-medium-14b", "--reduced", "--steps",
-                     "1", "--device", "cpu"] + extra)
+                     "1", "--device", "cpu", "--grad-compress", name])
+    err = capsys.readouterr().err
+    assert f"--grad-compress {name} compresses the manual" in err
+    assert "--dp-mode gspmd runs one device" in err
 
 
-def test_runtime_config_refuses_the_multi_device_fields():
-    for field in ("multi_pod", "zero1", "seq_shard", "quant"):
-        with pytest.raises(TypeError):
-            RuntimeConfig(**{field: None})
+def test_coordinator_needs_the_ranks_environment(monkeypatch):
+    for key in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(ValueError, match="needs RANK and WORLD_SIZE"):
+        ltrain.main(["--arch", "phi3-medium-14b", "--reduced", "--steps",
+                     "1", "--device", "cpu", "--dp-mode", "manual",
+                     "--coordinator", "localhost:1"])
+
+
+@pytest.mark.parametrize("name", ["RuntimeConfig", "QuantConfig"])
+def test_runtime_config_fields_are_the_reference_s(name):
+    import dataclasses
+    from repro.configs import base as jbase
+    from repro_torch.configs import base
+    mine, ref = getattr(base, name), getattr(jbase, name)
+
+    def fields(cls):
+        return [(f.name, f.default if f.default is not dataclasses.MISSING
+                 else f.default_factory()) for f in dataclasses.fields(cls)]
+
+    got, want = fields(mine), fields(ref)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (n, a), (_, b) in zip(got, want):
+        assert (dataclasses.asdict(a) == dataclasses.asdict(b)
+                if dataclasses.is_dataclass(a) else a == b), n
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(**extra):
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent), OMP_NUM_THREADS="1")
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    env.update(extra)
+    return env
+
+
+MANUAL = ["-m", "repro_torch.launch.train", "--arch", "phi3-medium-14b",
+          "--reduced", "--steps", "2", "--seq", "32", "--batch", "4",
+          "--dp-mode", "manual", "--device", "cpu"]
+
+
+def _step_lines(out):
+    return [line.split()[:2] for line in out.splitlines()
+            if line.startswith("step")]
+
+
+def test_manual_data_parallel_under_torchrun():
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-port", str(_free_port())] + MANUAL
+        + ["--grad-compress", "takum16"],
+        cwd=PORT.parents[1], capture_output=True, text=True, timeout=240,
+        env=_rank_env())
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    # rank 0 alone prints: one audit line, one line a step
+    assert lines[0] == env.audit_line(), proc.stdout
+    assert sum(line.startswith("# repro-config") for line in lines) == 1
+    assert _step_lines(proc.stdout) == [["step", "0"], ["step", "1"]]
+
+
+def test_manual_data_parallel_with_a_coordinator():
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable] + MANUAL + ["--coordinator", f"localhost:{port}"],
+        cwd=PORT.parents[1], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=_rank_env(RANK=str(r), WORLD_SIZE="2"))
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240))
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    assert outs[0][0].splitlines()[0] == env.audit_line()
+    assert _step_lines(outs[0][0]) == [["step", "0"], ["step", "1"]]
+    assert outs[1][0] == ""
 
 
 def test_grad_spec_from_quant_reads_every_width():

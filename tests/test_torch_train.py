@@ -19,8 +19,9 @@ by leaf. Checked:
 * microbatch 2 equals the full batch, remat equals no remat, and a run
   saved at step 3, restored and resumed equals the uninterrupted one
   (tests/test_substrate.py's semantics), also through a takum16
-  checkpoint against the same rounding done in memory;
-* the manual data-parallel step raises, naming the roadmap item.
+  checkpoint against the same rounding done in memory. The manual
+  data-parallel step is held to the reference's in
+  tests/test_torch_train_dp.py and tests/test_torch_train_dp_pod.py.
 """
 
 import torch_cpu  # noqa: F401  (one torch thread a test process)
@@ -279,12 +280,3 @@ def test_restart_resume_equivalence(ref_params, cfgs, tmp_path):
         for a, b in zip(tree_leaves(want), tree_leaves(pC)):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=STEP_RTOL,
                                        atol=STEP_ATOL)
-
-
-def test_manual_dp_raises_naming_the_roadmap_item(cfgs):
-    _, cfg = cfgs
-    with pytest.raises(NotImplementedError, match="section 1 item 6"):
-        trainer.make_train_step_manual(cfg, opt.AdamWConfig(),
-                                       RuntimeConfig())
-    with pytest.raises(NotImplementedError, match="section 1 item 6"):
-        trainer.init_flat_state({}, dp=2)
