@@ -314,6 +314,26 @@ Phases, one summary line each; any failure exits non-zero:
     card against CPU (losses within ``LOSS_REL``, every leaf within
     ``PARAM_REL_L2``). The kernels line's codec entry gains
     ``launches_phase39`` and ``grad_chunk``.
+40. the launch-plan autotuner and the dry run against the card: (a) a
+    forced sweep (``REPRO_AUTOTUNE=force``, a temporary local cache, never
+    the repo's tables) of the takum8 wire matmul at 4x5120x17920 and
+    256x5120x17920 and the lns-takum8 matmul at 256x5120x17920
+    (``SWEEPS``), each candidate plan timed by CUDA-graph replays and
+    printed beside the card's name and power limit; then in lookup mode
+    ``resolved_plan`` finds each winner again (one ``autotune.hit``) and
+    the kernel called without a plan is held against its plain version
+    at phases 3 and 8's tolerances; (b) ``dryrun.run_cell`` for
+    phi3-medium-14b on a one-rank mesh at full width (``DRY_OVERRIDES``:
+    ``DRY_LAYERS`` of 40 layers, a decode step of batch 4 over a
+    2048-token takum8 cache, takum8 wire weights) traced on fake CUDA
+    tensors with no launch, then the same step built from real tensors
+    on the card: argument bytes equal exactly, output shapes and dtypes
+    equal, each kernel's launches equal to the trace's calls, the
+    traced temporary peak beside ``max_memory_allocated`` (within
+    ``DRY_PEAK_ABS`` + ``DRY_PEAK_REL`` of the card's). The kernels
+    line's wire and LNS matmul entries gain ``autotune_phase40``; the
+    append, the wire matmul and contiguous attention
+    ``launches_phase40``.
 
 Then the ``kernels`` line (each kernel's launches on its serving path,
 its check, its time, the plain version's time and the bound: bytes over
@@ -5315,6 +5335,219 @@ def dp_phase(torch, dev, card, train):
     return out
 
 
+# phase 40: the launch-plan sweeps (op, format, [M, K, N]) and the dry
+# run's cell held against the card (phi3-medium-14b at full width, a
+# decode step of batch 4 over a 2048-token takum8 cache, takum8 wire
+# weights, DRY_LAYERS of its 40 layers)
+SWEEPS = (("qmatmul", "takum8", (4, 5120, 17920)),
+          ("qmatmul", "takum8", (256, 5120, 17920)),
+          ("lns_qmatmul", "lns-takum8", (256, 5120, 17920)))
+DRY_LAYERS = 8
+DRY_OVERRIDES = {"n_layers": DRY_LAYERS, "global_batch": 4, "seq_len": 2048,
+                 "kv_quant": "takum8", "weight_wire": "takum8"}
+# the traced peak (live fake storages) beside the allocator's: the trace
+# holds no kernel workspace (the decode wire matmul's K-split sums, 16 x
+# 4 x 17920 f32 = 4.6 MB at most), none of the wrappers' casts and no
+# 512-byte rounding of the caching allocator, so the card's peak may
+# exceed it by a few MB (measured: 2,060,688,384 on the card against
+# 2,057,832,464 traced, a gap of 2.86 MB); the bound is that workspace
+# with room to spare, far below a lost layer's temporaries
+DRY_PEAK_ABS = 16 << 20
+DRY_PEAK_REL = 0.01
+
+
+def lns_plan_check(torch, dev, m, k, n):
+    """The LNS matmul (linear) at [m, k] x [k, n] on seeded lns-takum8
+    operands, called without a plan (the resolved one), against its
+    plain version: phase 8's worst-case f32 bound and statistical limit."""
+    from repro_torch import formats
+    from repro_torch.kernels import lns_matmul as klns
+    from repro_torch.kernels import ref, takum_codec
+    spec = formats.get("lns-takum8")
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = takum_codec.encode(torch.randn((m, k), generator=g, device=dev), spec)
+    w = takum_codec.encode(torch.randn((k, n), generator=g, device=dev)
+                           / k ** 0.5, spec)
+    got = klns.lns_matmul(x, w, spec)
+    want = ref.lns_matmul_plain(x, w, spec)
+    xd, wd = ref.decode_ref(x, spec), ref.decode_ref(w, spec)
+    tol = (2 * k + 4) * U32 * (xd.abs() @ wd.abs())
+    stat = C_STAT * k ** 0.5 * U32 * ((xd * xd) @ (wd * wd)).sqrt()
+    err = (got - want).abs()
+    check(bool(torch.isfinite(got).all()) and bool((err <= tol).all()),
+          f"phase 40: lns_matmul {m}x{k}x{n} with the swept plan: error "
+          "over the f32 bound")
+    r = float((err / stat).max())
+    check(r <= 1.0, f"phase 40: lns_matmul {m}x{k}x{n} with the swept plan: "
+          f"error {r:.3g} x the statistical limit")
+    return {"fmt": spec.name, "m": m, "k": k, "n": n,
+            "max_abs_err": float(err.max()),
+            "max_err_over_bound": float((err / tol).max()),
+            "max_err_over_stat_limit": r}
+
+
+def autotune_phase(torch, dev, card):
+    """40 (a): a forced sweep of each ``SWEEPS`` problem into a temporary
+    cache (never the repo's tables), every candidate's CUDA-graph time;
+    then, in lookup mode, the winner found again by ``resolved_plan``
+    (``autotune.hit`` counted) and the kernel called without a plan, held
+    against its plain version at phases 3 and 8's tolerances."""
+    import tempfile
+    from repro_torch import formats
+    from repro_torch.kernels import autotune
+    from repro_torch.obs.metrics import GLOBAL
+    saved = {k: os.environ.get(k) for k in ("REPRO_AUTOTUNE",
+                                             "REPRO_AUTOTUNE_CACHE")}
+    tmp = tempfile.mkdtemp(prefix="autotune")
+    rows = {}
+    try:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "tune.json")
+        os.environ["REPRO_AUTOTUNE"] = "force"
+        autotune.clear()
+        for op, fmt, shape in SWEEPS:
+            log = []
+            t0 = time.perf_counter()
+            plan, us, swept = autotune.sweep_matmul(op, fmt, shape,
+                                                    log=log.append)
+            check(swept, f"phase 40: {op} {fmt} {shape} was not swept")
+            cands = {}
+            for line in log:
+                m = re.match(r"#\s+(\(.*\)): (.*)$", line)
+                if m:
+                    cands[m.group(1)] = m.group(2)
+            rows[f"{op} {fmt} {'x'.join(map(str, shape))}"] = {
+                "op": op, "fmt": fmt, "shape": list(shape),
+                "bucket": autotune.matmul_bucket(*shape),
+                "planner": list(autotune.default_plan(
+                    op, shape, formats.get(fmt).n)[:2]),
+                "winner": list(plan), "winner_us": us,
+                "candidates": cands,
+                "sweep_s": round(time.perf_counter() - t0, 2)}
+        os.environ["REPRO_AUTOTUNE"] = "1"
+        autotune.clear()
+        for key, row in rows.items():
+            op, spec = row["op"], formats.get(row["fmt"])
+            shape = tuple(row["shape"])
+            hits = GLOBAL.counter("autotune.hit").get()
+            got = autotune.resolved_plan(op, spec, shape)
+            want = autotune.fit_plan(op, tuple(row["winner"]), shape, spec.n)
+            check(got == want and GLOBAL.counter("autotune.hit").get()
+                  == hits + 1, f"phase 40: lookup of {key} gave {got}, "
+                  f"the sweep's winner is {want}")
+            row["resolved_plan"] = list(got)
+            if op == "qmatmul":
+                held = wire_matmul_check(torch, dev, spec, *shape)
+            else:
+                held = lns_plan_check(torch, dev, *shape)
+            row["held"] = {k: held[k] for k in (
+                "max_abs_err", "max_err_over_bound",
+                "max_err_over_stat_limit")}
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"sweeps": rows, "card": card, "timer": "CUDA-graph replays, 20 "
+            "calls a candidate (autotune.graph_seconds)",
+            "tolerance": f"phase 3 / 8: within the worst-case f32 bound "
+                         f"and {C_STAT:g}*sqrt(K)*2^-24*sqrt((x*x)@(w*w))"}
+
+
+def _leaf_specs(tree):
+    from repro_torch.launch import dryrun
+    return [(tuple(t.shape), str(t.dtype)) for _, t in dryrun._leaves(tree)
+            if hasattr(t, "shape")]
+
+
+def dryrun_phase(torch, dev, card, wrappers):
+    """40 (b): ``dryrun.run_cell`` for phi3-medium-14b on a one-rank mesh
+    at full width (``DRY_OVERRIDES``), traced on fake CUDA tensors, then
+    the same step built from real tensors on the card and run: argument
+    bytes equal exactly, output shapes and dtypes equal, the traced peak
+    beside ``max_memory_allocated`` within ``DRY_PEAK_ABS`` +
+    ``DRY_PEAK_REL`` of the card's."""
+    from repro_torch.configs import RuntimeConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.serve.engine import quantize_weights
+    t0 = time.perf_counter()
+    launches0 = {k: f.launches for k, f in wrappers.items()}
+    cell = dryrun.run_cell("phi3-medium-14b", "decode_32k", out_dir=None,
+                           mesh_shape=(1,), overrides=DRY_OVERRIDES,
+                           keep=True)
+    check(cell["status"] == "ok", f"phase 40: the dry run's cell failed: "
+          f"{cell.get('error')}")
+    check({k: f.launches for k, f in wrappers.items()} == launches0,
+          "phase 40: the fake trace launched a kernel")
+    trace_s = time.perf_counter() - t0
+    fake_out = _leaf_specs(cell.pop("_trace")["out"])
+    cfg, shape = dryrun._cell_config("phi3-medium-14b", "decode_32k",
+                                     DRY_OVERRIDES)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, cfg, device=dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        params = quantize_weights(params, "takum8", mode="wire", cfg=cfg)
+    b = shape.global_batch
+    batch = specs.dummy_batch(cfg, b, 1, seed=0, kind="decode", device=dev)
+    cache = model.init_cache(cfg, b, shape.seq_len + 64, device=dev)
+    dryrun._set_pos(cache, shape.seq_len)
+    fn, args = dryrun.port_step(cfg, shape, make_mesh((1, 1), ("data",
+                                                                "model")),
+                                params, batch, cache, "gspmd",
+                                RuntimeConfig())
+    del params, batch, cache
+    gc.collect()
+    real_args = dryrun._tensor_bytes(args)
+    check(real_args == cell["port_argument_bytes"],
+          f"phase 40: the card's argument bytes {real_args} != the dry "
+          f"run's {cell['port_argument_bytes']}")
+    for k, f in wrappers.items():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    real_temp = torch.cuda.max_memory_allocated() - base
+    launches = {k: f.launches for k, f in wrappers.items()}
+    check(_leaf_specs(out) == fake_out, "phase 40: the card's outputs' "
+          "shapes and dtypes differ from the dry run's")
+    logits = out[0]
+    check(bool(torch.isfinite(logits).all()), "phase 40: non-finite logits")
+    traced = cell["memory"]["temp_size_in_bytes"]
+    check(abs(real_temp - traced) <= DRY_PEAK_ABS + DRY_PEAK_REL * real_temp,
+          f"phase 40: the traced temporary peak {traced} against the card's "
+          f"{real_temp}")
+    for k in ("kv_append", "attention", "qmatmul"):
+        check(launches[k] == cell["kernels"][k]["calls"],
+              f"phase 40: {k} launched {launches[k]} times, the trace "
+              f"called it {cell['kernels'][k]['calls']} times")
+    del out, args, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cell": {k: cell[k] for k in (
+                "arch", "shape", "mesh", "n_devices", "params", "flops",
+                "bytes_accessed", "kernels", "port_argument_bytes",
+                "memory", "trace_s")},
+            "overrides": DRY_OVERRIDES, "argument_bytes_equal": True,
+            "outputs_equal": True, "fake_trace_s": round(trace_s, 2),
+            "card_temp_bytes": real_temp, "traced_temp_bytes": traced,
+            "temp_ratio": real_temp / max(traced, 1), "launches": launches,
+            "peak_tolerance": f"|card - traced| <= {DRY_PEAK_ABS >> 20} MiB "
+                              f"+ {DRY_PEAK_REL:g} x card: the trace holds "
+                              "no kernel workspace, none of the wrappers' "
+                              "casts, no allocator rounding (the wire "
+                              "matmul's K-split sums: 4.6 MB at most)",
+            "card": card}
+
+
 def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, sort_keys=False))
 
@@ -5326,6 +5559,13 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"src/repro_torch not found beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
+    # the checked-in launch-plan table alone: a local autotune cache that a
+    # sweep left in the working directory is not read, so every plan is
+    # the one the checkout gives
+    import tempfile
+    tune_dir = tempfile.TemporaryDirectory(prefix="autotune")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tune_dir.name,
+                                                      "tune.json")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -6302,6 +6542,26 @@ def main() -> int:
     kernels["takum_codec"]["launches_phase39"] = {
         "decode": path39["takum_decode"], "encode": path39["takum_encode"]}
     kernels["takum_codec"]["grad_chunk"] = dpt["grad_chunk"]
+
+    # -- 40. the launch-plan autotuner and the dry run against the card ----
+    t40 = time.perf_counter()
+    tune = autotune_phase(torch, dev, card)
+    dry = dryrun_phase(torch, dev, card, wrappers)
+    phase(40, "launch-plan sweeps and the dry run held against the card",
+          sweeps={k: {f: r[f] for f in ("planner", "winner", "winner_us",
+                                        "resolved_plan", "candidates",
+                                        "held")}
+                  for k, r in tune["sweeps"].items()},
+          dryrun=dry, seconds=round(time.perf_counter() - t40, 1),
+          card=card, tolerance=tune["tolerance"])
+    detail["phase40"] = {"autotune": tune, "dryrun": dry}
+    for op, kname in (("qmatmul", "qmatmul"), ("lns_qmatmul", "lns_matmul")):
+        kernels[kname]["autotune_phase40"] = {
+            k: {f: r[f] for f in ("bucket", "planner", "winner",
+                                  "winner_us", "candidates")}
+            for k, r in tune["sweeps"].items() if r["op"] == op}
+    for k in ("kv_append", "qmatmul", "attention"):
+        kernels[k]["launches_phase40"] = dry["launches"][k]
 
     # -- the kernels line and the last line --------------------------------
     order = ["takum_codec", "kv_append", "qmatmul", "attention",

@@ -6,8 +6,12 @@ from repro_torch.configs import (granite_moe_3b_a800m,  # noqa: F401
                                   phi3_medium_14b, recurrentgemma_2b,
                                   rwkv6_1_6b, seamless_m4t_large_v2,
                                   starcoder2_15b)
-from repro_torch.configs.base import (ArchSpec, ModelConfig, get_arch,
-                                      list_archs, parse_kv_quant)
+from repro_torch.configs.base import (SHAPES, ArchSpec, ModelConfig,
+                                      QuantConfig, RuntimeConfig,
+                                      ShapeConfig, get_arch, list_archs,
+                                      parse_kv_quant, register_arch,
+                                      shape_applicable)
 
-__all__ = ["ModelConfig", "ArchSpec", "get_arch", "list_archs",
-           "parse_kv_quant"]
+__all__ = ["ModelConfig", "ArchSpec", "QuantConfig", "RuntimeConfig",
+           "ShapeConfig", "SHAPES", "get_arch", "list_archs",
+           "register_arch", "parse_kv_quant", "shape_applicable"]

@@ -1,9 +1,12 @@
 """Model configuration: ``ModelConfig``, the arch registry, ``parse_kv_quant``,
-and the training run's ``RuntimeConfig`` with its ``QuantConfig``.
+the training run's ``RuntimeConfig`` with its ``QuantConfig``, and the
+four input shapes (``ShapeConfig``, ``SHAPES``, ``shape_applicable``).
 
 The port's own copy of the JAX package's config dataclass (same field
-names and defaults, so a config converts field by field). Only the
-architectures this package can serve are registered.
+names and defaults, so a config converts field by field), with its
+parameter counts (``param_count``, ``active_param_count``: the
+reference's formulas, used for 6ND model flops and the dry run's
+report). Only the architectures this package can serve are registered.
 """
 
 from __future__ import annotations
@@ -11,8 +14,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Tuple
 
-__all__ = ["ModelConfig", "ArchSpec", "register_arch", "get_arch",
-           "list_archs", "parse_kv_quant", "QuantConfig", "RuntimeConfig"]
+__all__ = ["ModelConfig", "ShapeConfig", "ArchSpec", "register_arch",
+           "get_arch", "list_archs", "parse_kv_quant", "QuantConfig",
+           "RuntimeConfig", "SHAPES", "shape_applicable"]
 
 
 def parse_kv_quant(kv_quant: str) -> Tuple[str, int]:
@@ -68,6 +72,86 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def param_count(self) -> int:
+        """Total parameter count (used for 6ND model flops): the
+        reference's formula, approximations included (rwkv6's time mix,
+        the RG-LRU's gates)."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab
+        hd = self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        if self.activation == "swiglu":
+            mlp = 3 * d * ff
+        else:
+            mlp = 2 * d * ff
+        if self.family == "moe":
+            mlp = self.n_experts * (3 * d * ff) + d * self.n_experts
+        per_layer = attn + mlp + 2 * d
+        if self.family == "rwkv6":
+            # time-mix ~ 5 d^2-ish projections + decay MLPs, channel-mix 2*d*ff
+            per_layer = 5 * d * d + 2 * d * ff + 2 * d
+        if self.family == "hybrid_rglru":
+            n_attn = sum(1 for i in range(self.n_layers)
+                         if self._block_kind(i) == "attn")
+            n_rec = self.n_layers - n_attn
+            rec = 3 * d * self.lru_width + 2 * self.lru_width * \
+                (self.lru_width // 256 or 1)  # conv/gates approx
+            attn_l = attn + mlp + 2 * d
+            rec_l = rec + mlp + 2 * d
+            total = n_attn * attn_l + n_rec * rec_l
+            total += V * d * (1 if self.tie_embeddings else 2)
+            return total
+        total = self.n_layers * per_layer
+        if self.family == "encdec":
+            total += self.n_enc_layers * per_layer  # + cross-attn below
+            total += self.n_layers * (2 * d * self.n_kv_heads * hd
+                                      + d * self.n_heads * hd)
+        if self.family == "vlm" and self.cross_attn_every:
+            n_cross = self.n_layers // self.cross_attn_every
+            total += n_cross * (attn + mlp + 2 * d)
+        total += V * d * (1 if self.tie_embeddings else 2)
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        dense = self.param_count() - self.n_layers * self.n_experts * 3 * d * ff
+        return dense + self.n_layers * self.top_k * 3 * d * ff
+
+    def _block_kind(self, i: int) -> str:
+        if not self.block_pattern:
+            return "attn"
+        return self.block_pattern[i % len(self.block_pattern)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+# the four input shapes of the dry run's cells, the reference's
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, and the reason when skipped:
+    long_500k needs sub-quadratic sequence mixing, so only the rwkv6 and
+    hybrid families take it."""
+    if shape.name == "long_500k" and cfg.family not in ("rwkv6",
+                                                        "hybrid_rglru"):
+        return False, "long_500k skipped: pure full-attention architecture"
+    return True, ""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -157,7 +157,9 @@ def transport(payload: torch.Tensor, group, size: int) -> torch.Tensor:
     prv = dist.get_global_rank(group, (me - 1) % size)
     raw = payload.contiguous().reshape(-1).view(torch.uint8)
     # gloo has no CUDA send/recv: a CUDA payload goes through host memory
-    stage = payload.is_cuda and dist.get_backend(group) != "nccl"
+    # (as does the dry run's fake one, on cuda or meta)
+    stage = (payload.device.type != "cpu"
+             and dist.get_backend(group) != "nccl")
     if stage:
         raw = raw.cpu()
     got = torch.empty_like(raw)

@@ -15,7 +15,10 @@ tiles. See the source's header comment for the designs.
 ``ref.lns_matmul_plain`` for CPU tensors; ``lns_matmul.launches`` counts
 calls that launched (one per call, however K is split), and
 ``lns_matmul.split_launches`` those that also summed K splits in a second
-launch.
+launch. Without an explicit ``plan`` a linear call takes
+``autotune.resolved_plan`` (the tuned table's entry for its shape
+bucket, else :func:`launch_plan`); gauss always takes its one plan. Fake
+tensors (the dry run's) take the fake branch (``kernels/cost.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from repro_torch.core import lns
 from repro_torch.core.takum import frac_width
 from repro_torch.formats import FormatSpec
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build, cost
 from repro_torch.kernels import ref as kref
 
 __all__ = ["lns_matmul", "launch_plan", "STREAM_M", "KTILE",
@@ -93,13 +96,14 @@ def _lut(wf: int, device) -> torch.Tensor:
 
 def lns_matmul(x_words: torch.Tensor, w_words: torch.Tensor,
                spec: FormatSpec, accum: str = "linear", *,
-               state: bool = False):
+               state: bool = False, plan=None):
     """decode(x_words [M, K]) (x) decode(w_words [K, N]) -> f32 [M, N].
 
     Both operands are ``spec``'s LNS words. With ``state=True`` (gauss
     only) also returns the final integer state ``(ell, flags)``, int32
-    [M, N] each (flags = S | zero << 1 | NaR << 2)."""
-    if not x_words.is_cuda:
+    [M, N] each (flags = S | zero << 1 | NaR << 2). ``plan`` (variant,
+    split, K tiles per split) overrides the resolved one."""
+    if not cost.on_card(x_words):
         return kref.lns_matmul_plain(x_words, w_words, spec, accum,
                                      state=state)
     if accum not in ("linear", "gauss"):
@@ -119,13 +123,27 @@ def lns_matmul(x_words: torch.Tensor, w_words: torch.Tensor,
         raise ValueError(f"lns_matmul: x {tuple(x_words.shape)} (x) w "
                          f"{tuple(w_words.shape)}")
     dev = x_words.device
-    if not w_words.is_cuda or w_words.device != dev:
+    if not cost.on_card(w_words) or w_words.device != dev:
         raise ValueError("x_words and w_words must be on the same CUDA "
                          "device")
+    gauss = accum == "gauss"
+    if cost.is_fake(x_words):
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+        cost.charge("lns_matmul", 2 * m * k * n, cost.nbytes(x_words)
+                    + cost.nbytes(w_words) + cost.nbytes(out))
+        if not state:
+            return out
+        return (out, torch.empty((m, n), dtype=torch.int32, device=dev),
+                torch.empty((m, n), dtype=torch.int32, device=dev))
     x_words, w_words = x_words.contiguous(), w_words.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    variant, split, per = launch_plan(m, k, n, accum, spec.n)
-    gauss = accum == "gauss"
+    if plan is not None:
+        variant, split, per = plan
+    elif gauss:
+        variant, split, per = launch_plan(m, k, n, accum, spec.n)
+    else:
+        variant, split, per = autotune.resolved_plan("lns_qmatmul", spec,
+                                                     (m, k, n))
     work = (torch.empty((split, m, n), dtype=torch.float32, device=dev)
             if split > 1 else out)
     lut = _lut(frac_width(spec.n), dev) if gauss else None

@@ -15,7 +15,8 @@ source's header comment for the design.
 
 ``fake_quant`` launches the kernel for CUDA tensors and runs
 ``ref.fake_quant_ref`` for CPU tensors; ``fake_quant.launches`` counts
-launches.
+launches. Fake tensors (the dry run's) take the fake branch
+(``kernels/cost.py``): the output's shape and dtype, no launch.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.core.quant import exp2i
 from repro_torch.formats import FormatSpec
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels import ref as kref
 
 __all__ = ["fake_quant"]
@@ -56,10 +57,14 @@ def fake_quant(x: torch.Tensor, spec: FormatSpec, *, dtype=torch.float32,
         raise ValueError(f"scale_exp {scale_exp} outside [-127, 127]")
     if scale_exp and spec.kind != "linear":
         raise ValueError(f"{spec.name} fake-quantises unscaled")
-    if not x.is_cuda:
+    if not cost.on_card(x):
         return kref.fake_quant_ref(x, spec, dtype=dtype, scale_exp=scale_exp)
     code = build.format_code(spec, x.device,
                              widths=build.CODEC_WIDTHS)
+    if cost.is_fake(x):
+        out = torch.empty(x.shape, dtype=dtype, device=x.device)
+        cost.charge("fake_quant", 0, cost.nbytes(x) + cost.nbytes(out))
+        return out
     if dtype == torch.float64 and code == build.POSIT8_LUT:
         code = build.KIND_CODES["posit"]   # the table holds float32s
     x = x.to(torch.float32).contiguous()

@@ -29,7 +29,12 @@ Both wrappers take the kernel layout ``q4 [B, Hkv, rows, hd]`` (row
 ``r`` = GQA group ``r // tq`` at position ``pos + r % tq``) and return
 ``[B, Hkv, rows, hd]`` f32. For CUDA tensors they launch the kernel; for
 CPU tensors they run the plain version from ``kernels/ref.py`` on the
-same inputs. ``fn.launches`` counts launches.
+same inputs. ``fn.launches`` counts launches. Contiguous attention's KV
+tile, when the caller names none, is ``autotune.resolved_plan``'s (the
+tuned table's entry for the cache length, else ``DEFAULT_BK``); paged
+attention's partition is fixed at compile time. Fake tensors (the dry
+run's) take the fake branch (``kernels/cost.py``): the output's shape,
+each kernel's bytes and the flops of the keys it visits, no launch.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.formats import FormatSpec
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build, cost
 from repro_torch.kernels import ref as kref
 
 __all__ = ["attention", "paged_attention", "to_rows", "from_rows",
@@ -113,7 +118,7 @@ def _check(q4, kw, vw, spec):
                          f"({spec.name}, float32 words) at head_dim {hd}: "
                          "a bf16 cache or a wire format serves it")
     for t in (kw, vw):
-        if not t.is_cuda or t.device != q4.device:
+        if not cost.on_card(t) or t.device != q4.device:
             raise ValueError("q4 and the KV words must share a CUDA device")
     bits = build.IDENTITY_BITS[str(kw.dtype)] if spec.is_identity else spec.n
     return bits, code
@@ -124,9 +129,10 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
               bk=None, window: int = 0) -> torch.Tensor:
     """Contiguous cache ``kw``/``vw [B, T, Hkv, hd]``; ``pos`` (int) is
     the first query's position, ``start [B]`` the first valid key (None:
-    0), ``bk`` the KV tile (default 256, clamped to T rounded up to 8;
-    keys past ``T`` count as zero words, which the mask excludes)."""
-    if not q4.is_cuda:
+    0), ``bk`` the KV tile (default the resolved plan's, 256 unless
+    tuned; clamped to T rounded up to 8; keys past ``T`` count as zero
+    words, which the mask excludes)."""
+    if not cost.on_card(q4):
         out = kref.attention_ref(from_rows(q4, tq), kw, vw, spec.n, spec,
                                  pos=pos, start=start, window=window)
         return to_rows(out, kw.shape[2])
@@ -137,7 +143,20 @@ def attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
                          f"{tuple(q4.shape)}")
     if rows % tq:
         raise ValueError(f"rows {rows} not a multiple of tq {tq}")
-    bk = min(bk or DEFAULT_BK, -(-kw.shape[1] // 8) * 8)
+    if cost.is_fake(q4):
+        t = kw.shape[1]
+        tile = min(bk or DEFAULT_BK, -(-t // 8) * 8)
+        hi = min(t, ((int(pos) + tq - 1) // tile + 1) * tile)
+        lo = (max(int(pos) - window + 1, 0) // tile * tile) if window else 0
+        keys = max(hi - lo, 0)
+        words = 2 * b * keys * hkv * hd * kw.element_size()
+        out = torch.empty(q4.shape, dtype=torch.float32, device=q4.device)
+        cost.charge("attention", 4 * b * hkv * rows * keys * hd,
+                    2 * cost.nbytes(out) + words)
+        return out
+    bk = min(bk or autotune.resolved_plan("attention", spec,
+                                          (kw.shape[1],))[0],
+             -(-kw.shape[1] // 8) * 8)
     q4 = build.aligned(q4.to(torch.float32))
     kw, vw = build.aligned(kw), build.aligned(vw)
     # rows before start take the average of V (the kernel's scratch)
@@ -229,7 +248,7 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     ``pos``/``start [B]`` per sequence (``start`` None: 0), ``table
     [B, NP]`` page ids (reads clamped to ``NP - 1``). Rows are the G
     query heads of each KV head."""
-    if not q4.is_cuda:
+    if not cost.on_card(q4):
         out = kref.paged_attention_ref(from_rows(q4, 1), kw, vw, table, spec,
                                        pos=pos, start=start, window=window)
         return to_rows(out, kw.shape[2])
@@ -242,6 +261,14 @@ def paged_attention(q4: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
     table = _i32(table, dev)
     if table.shape[0] != b:
         raise ValueError(f"table {tuple(table.shape)} for batch {b}")
+    if cost.is_fake(q4):
+        # pos is on the device: every key the table can reach counts
+        keys = table.shape[1] * kw.shape[1]
+        words = 2 * b * keys * hkv * hd * kw.element_size()
+        out = torch.empty(q4.shape, dtype=torch.float32, device=dev)
+        cost.charge("paged_attention", 4 * b * hkv * rows * keys * hd,
+                    2 * cost.nbytes(out) + words + cost.nbytes(table))
+        return out
     if q4.dtype != torch.float32 or not q4.is_contiguous():
         q4 = q4.to(torch.float32).contiguous()
     kw, vw = build.aligned(kw), build.aligned(vw)

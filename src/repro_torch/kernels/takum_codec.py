@@ -22,7 +22,9 @@ float32, then cast, as the reference's); every width decodes to either.
 ``decode``/``encode``/``kv_append`` launch the kernel for CUDA tensors
 and run the plain versions (``ref.decode_ref``/``ref.encode_ref``/
 ``ref.kv_append_ref``) for CPU tensors; each keeps a plain-integer launch
-counter, ``fn.launches``.
+counter, ``fn.launches``. Fake tensors (the dry run's) take the fake
+branch: outputs of the kernel's shapes, its bytes charged to the cost
+counter (``kernels/cost.py``), no launch.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import ctypes
 import torch
 
 from repro_torch.formats import FormatSpec
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels import ref as kref
 
 __all__ = ["decode", "encode", "kv_append"]
@@ -55,12 +57,17 @@ def decode(words: torch.Tensor, spec: FormatSpec,
     """Wire words (any shape, ``spec.word_dtype``) -> ``dtype``: float32
     and float64 written by the kernel, other float dtypes decoded to
     float32, then cast."""
-    if not words.is_cuda:
+    if not cost.on_card(words):
         return kref.decode_ref(words, spec, dtype=dtype)
     if dtype not in (torch.float32, torch.float64):
         return decode(words, spec).to(dtype)
     code = build.format_code(spec, words.device,
                              widths=build.CODEC_WIDTHS)
+    if cost.is_fake(words):
+        _check_words(words, spec)
+        out = torch.empty(words.shape, dtype=dtype, device=words.device)
+        cost.charge("takum_decode", 0, cost.nbytes(words) + cost.nbytes(out))
+        return out
     f64 = dtype == torch.float64
     if f64 and code == build.POSIT8_LUT:
         code = build.KIND_CODES["posit"]   # the table holds float32s
@@ -77,10 +84,14 @@ def decode(words: torch.Tensor, spec: FormatSpec,
 
 def encode(x: torch.Tensor, spec: FormatSpec) -> torch.Tensor:
     """float32 (any shape; other float dtypes are cast) -> wire words."""
-    if not x.is_cuda:
+    if not cost.on_card(x):
         return kref.encode_ref(x, spec)
     code = build.format_code(spec, x.device,
                              widths=build.CODEC_WIDTHS)
+    if cost.is_fake(x):
+        out = torch.empty(x.shape, dtype=spec.word_dtype, device=x.device)
+        cost.charge("takum_encode", 0, cost.nbytes(x) + cost.nbytes(out))
+        return out
     x = build.aligned(x.to(torch.float32))
     out = torch.empty(x.shape, dtype=spec.word_dtype, device=x.device)
     err = _lib().takum_encode(spec.n, code, x.data_ptr(), out.data_ptr(),
@@ -107,7 +118,7 @@ def kv_append(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
     For CPU tensors the plain version encodes through this module's
     :func:`encode` (the plain codec there), K then V, so a caller that
     wraps ``takum_codec.encode`` sees every K/V encode in model order."""
-    if not k.is_cuda:
+    if not cost.on_card(k):
         kref.kv_append_ref(k, v, k_cache, v_cache, spec, pos=pos,
                            table=table, encode=encode)
         return
@@ -127,6 +138,10 @@ def kv_append(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"cache {tuple(k_cache.shape)} does not take k "
                          f"{tuple(k.shape)} (and hd must be a multiple "
                          "of 4)")
+    if cost.is_fake(k):
+        words = 2 * k.numel() * k_cache.element_size()
+        cost.charge("kv_append", 0, cost.nbytes(k) + cost.nbytes(v) + words)
+        return
     for c in (k_cache, v_cache):
         if (not c.is_cuda or c.device != k.device or not c.is_contiguous()
                 or c.data_ptr() % 16):

@@ -11,7 +11,10 @@ the source's header comment for the designs.
 ``qmatmul`` launches a kernel for CUDA tensors (ragged M, K and N are
 masked in the kernels) and runs ``ref.qmatmul_ref`` for CPU tensors;
 ``qmatmul.launches`` counts calls that launched (one per call, whatever
-the regime and however K is split).
+the regime and however K is split). Without an explicit ``plan`` a call
+takes ``autotune.resolved_plan`` (the tuned table's entry for its shape
+bucket, else :func:`launch_plan`). Fake tensors (the dry run's) take the
+fake branch (``kernels/cost.py``): the output's shape, no launch.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.formats import FormatSpec
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build, cost
 from repro_torch.kernels import ref as kref
 
 __all__ = ["qmatmul", "launch_plan", "STREAM_M", "KTILE", "STREAM_BLOCKS",
@@ -69,9 +72,10 @@ def launch_plan(m: int, k: int, n: int, bits: int = 8):
 
 
 def qmatmul(x: torch.Tensor, w_words: torch.Tensor,
-            spec: FormatSpec) -> torch.Tensor:
-    """x [M, K] float @ decode(w_words [K, N]) -> f32 [M, N]."""
-    if not x.is_cuda:
+            spec: FormatSpec, *, plan=None) -> torch.Tensor:
+    """x [M, K] float @ decode(w_words [K, N]) -> f32 [M, N]; ``plan``
+    (variant, split, K tiles per split) overrides the resolved one."""
+    if not cost.on_card(x):
         return kref.qmatmul_ref(x, w_words, spec)
     m, k = x.shape
     k2, n = w_words.shape
@@ -82,13 +86,20 @@ def qmatmul(x: torch.Tensor, w_words: torch.Tensor,
             or w_words.dtype != spec.word_dtype):
         raise TypeError(f"qmatmul takes takum8/16 or posit8/16 words, got "
                         f"{spec.name} {w_words.dtype}")
-    if not w_words.is_cuda or w_words.device != x.device:
+    if not cost.on_card(w_words) or w_words.device != x.device:
         raise ValueError("x and w_words must be on the same CUDA device")
     code = build.format_code(spec, x.device, kinds=("linear", "posit"))
+    if cost.is_fake(x):
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        cost.charge("qmatmul", 2 * m * k * n, cost.nbytes(x)
+                    + cost.nbytes(w_words) + cost.nbytes(out))
+        return out
     x = x.to(torch.float32).contiguous()
     w_words = w_words.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    variant, split, per = launch_plan(m, k, n, spec.n)
+    variant, split, per = (plan if plan is not None else
+                           autotune.resolved_plan("qmatmul", spec,
+                                                  (m, k, n)))
     work = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
             if split > 1 else out)
     err = _lib().takum_qmatmul(spec.n, code, variant, x.data_ptr(),

@@ -73,9 +73,12 @@ def warn_if_no_tcmalloc(print_fn: Callable[[str], None] = print) -> bool:
 # Every REPRO_* variable the port reads (``grep -rn environ
 # src/repro_torch``), with its reader's default. The reference's other
 # knobs steer code the port does not have: the Pallas attention dispatch
-# and block autotuner (the port's launch plans are fixed) and the XLA
-# host device count (the port's ranks are processes: ``--world N``).
+# and the XLA host device count (the port's ranks are processes:
+# ``--world N``). The autotuner's pair picks the kernels' launch plans
+# (``kernels/autotune.py``), as the reference's picks its Pallas blocks.
 KNOBS: Dict[str, str] = {
+    "REPRO_AUTOTUNE": "1",            # launch-plan autotuner (0/1/force)
+    "REPRO_AUTOTUNE_CACHE": "",       # sweep cache path ("" = ./.repro_autotune.json)
     "REPRO_OBS": "0",                 # 0 off | 1 trace+metrics | 2 +numeric
     "REPRO_LUT_DECODE": "",           # posit8 table override ("" = per device)
     "REPRO_CAUSAL_SKIP": "0",         # skip fully-masked KV blocks

@@ -22,6 +22,13 @@ launched job, whose process group the caller initialised
 (``torch.distributed.init_process_group(backend, init_method=
 "tcp://localhost:<port>", world_size=N, rank=r)``). The data-parallel
 axes are the reference's ``pod`` and ``data`` (:func:`dp_axes`).
+
+:func:`make_production_mesh` is the reference's deployment plan: a
+``(data, model)`` mesh of 16 x 16 ranks, or ``(pod, data, model)`` of
+2 x 16 x 16, the ``pod`` axis carrying data parallelism only (the slow
+cross-pod links the compressed collectives target). It needs a job of
+256 or 512 ranks; the dry run (``launch/dryrun.py``) gives it a fake
+one in-process.
 """
 
 from __future__ import annotations
@@ -31,8 +38,13 @@ import datetime
 import math
 from typing import Dict, Sequence, Tuple
 
-__all__ = ["Mesh", "make_mesh", "dp_axes", "batch_spec_axes",
-           "LAUNCH_HINT", "RANK_TIMEOUT"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "dp_axes",
+           "batch_spec_axes", "LAUNCH_HINT", "RANK_TIMEOUT",
+           "PRODUCTION_MESHES"]
+
+# the reference's production meshes: (shape, axis names) by multi_pod
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
 
 # how long a rank of the selftests and chip_smoke.py's job waits on a
 # hop before it fails (gloo's default is 30 minutes): a rank that dies
@@ -129,6 +141,13 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
                 mine = g
         groups.append(mine)
     return Mesh(axis_names, shape, coords, tuple(groups))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """This rank's place on the reference's production mesh: (16, 16)
+    over ``("data", "model")`` (256 ranks), or with ``multi_pod`` (2, 16,
+    16) over ``("pod", "data", "model")`` (512 ranks)."""
+    return make_mesh(*PRODUCTION_MESHES[bool(multi_pod)])
 
 
 def dp_axes(mesh) -> tuple:

@@ -38,6 +38,7 @@ from repro_torch import formats
 from repro_torch.core.bitops import carrier
 from repro_torch.dist import tp as _tp
 from repro_torch.kernels import ops
+from repro_torch.kernels.cost import in_fake_mode
 
 __all__ = ["DTYPES", "dense_init", "rmsnorm_init", "rmsnorm", "rope",
            "attn_init", "attention", "mlp_init", "mlp", "mlp_tp", "embed_init",
@@ -82,13 +83,17 @@ def _rope_freqs(half: int, base: float, dev) -> torch.Tensor:
     base, device) by the same device ops at every call (so the bits stay
     the same), and reused, so that a captured step makes no host copy."""
     key = (half, float(base), str(dev))
-    freqs = _FREQS.get(key)
+    # a fake tensor (the dry run's) is never kept: a real step on the
+    # same device later must not find it
+    fake = in_fake_mode()
+    freqs = None if fake else _FREQS.get(key)
     if freqs is None:
         log_base = torch.log(torch.tensor(base, dtype=torch.float32,
                                           device=dev))
         freqs = torch.exp(-log_base * torch.arange(
             half, dtype=torch.float32, device=dev) / half)
-        _FREQS[key] = freqs
+        if not fake:
+            _FREQS[key] = freqs
     return freqs
 
 

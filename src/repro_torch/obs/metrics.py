@@ -23,8 +23,9 @@ capture is a steady-state recompile, counted in
 ``steady_state_recompiles`` and ``graph.recompiles_steady_state``. A
 serving loop past its warm-up must keep that at zero: preemption,
 cancellation and quarantine change slots through the page tables in
-place and never re-capture. The JAX package's ``autotune`` cache-hit
-counter has no counterpart: the port's launch plans are fixed.
+place and never re-capture. ``autotune.hit`` / ``autotune.miss`` in
+:data:`GLOBAL` count the launch-plan table's lookups
+(``kernels/autotune.py``), as the JAX package's count its block table's.
 
 There is also a process-wide :data:`GLOBAL` registry for counters that
 belong to no serving loop (fake-quant saturation at weight-load time);

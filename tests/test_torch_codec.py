@@ -35,6 +35,11 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/kernels/autotune.py",
+            "src/repro_torch/kernels/cost.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/specs.py"} <= names
     bad = []
     for f in files:
         for m in _FORBIDDEN.finditer(f.read_text()):

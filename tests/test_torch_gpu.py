@@ -13,6 +13,7 @@ This file imports no JAX: the card's host has none.
 import torch_cpu  # noqa: F401  (one torch thread a test process)
 import contextlib
 import dataclasses
+import os
 import sys
 from pathlib import Path
 
@@ -24,7 +25,7 @@ from repro_torch import formats
 from repro_torch.configs import get_arch
 from repro_torch.core import posit, quant, takum
 from repro_torch.core.bitops import carrier
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels import lns_matmul as klns
 from repro_torch.kernels import (ops, quantize, ref, takum_attention,
                                  takum_codec, takum_matmul)
@@ -45,12 +46,23 @@ LUT = ["0", "1"]
 
 
 @pytest.fixture(scope="module")
-def dev():
+def dev(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the port's kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    # the checked-in launch-plan table alone: a local autotune cache left
+    # in the working directory by a sweep is not read
+    saved = os.environ.get("REPRO_AUTOTUNE_CACHE")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(
+        tmp_path_factory.mktemp("autotune") / "tune.json")
+    autotune.clear()
+    yield torch.device("cuda")
+    if saved is None:
+        os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+    else:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = saved
+    autotune.clear()
 
 
 def _words(spec):
@@ -1911,3 +1923,39 @@ def test_manual_data_parallel_card_matches_cpu(dev, tmp_path):
                              device=d, names=names)
     dst.check(got["cuda"], dst.one_rank(params, "cuda"))
     dst.against(got["cuda"], got["cpu"])
+
+
+def test_wrappers_launch_the_resolved_plan(dev, tmp_path, monkeypatch):
+    """A wire matmul called without a plan launches the local cache's
+    entry for its bucket, fitted to its shape (kernels/autotune.py)."""
+    import json
+    cache = tmp_path / "tune.json"
+    be = autotune.backend()
+    cache.write_text(json.dumps({"schema": 1, "entries": {
+        f"qmatmul|takum8|m256k8192n32768|{be}": {"plan": [1, 4]}}}))
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(cache))
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    autotune.clear()
+    spec = formats.get("takum8")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((256, 5120), generator=gen, device=dev)
+    w = takum_codec.encode(torch.randn((5120, 17920), generator=gen,
+                                       device=dev) / 72, spec)
+    seen = []
+    lib = takum_matmul._lib()
+    real = lib.takum_qmatmul
+
+    def spy(*args):
+        seen.append(args[10:12])
+        return real(*args)
+    monkeypatch.setattr(lib, "takum_qmatmul", spy)
+    try:
+        out = takum_matmul.qmatmul(x, w, spec)
+        mine = takum_matmul.qmatmul(x, w, spec, plan=(1, 4, 40))
+    finally:
+        autotune.clear()
+    assert seen == [(4, 40), (4, 40)]
+    assert torch.equal(out.view(torch.int32), mine.view(torch.int32))
+    want = ref.qmatmul_ref(x, w, spec)
+    err = (out - want).norm() / want.norm()
+    assert bool(torch.isfinite(out).all()) and float(err) < 1e-3, err

@@ -2,7 +2,8 @@
 build-time choices of its kernels, on one CUDA card.
 
     python3 tools/torch_kernel_times.py [--src DIR] [--attention] [--lns]
-        [--append] [--paged] [--serve N [--eager]] [--lockstep N] [--step-trace]
+        [--append] [--paged] [--serve N [--eager]] [--plan-lookup]
+        [--lockstep N] [--step-trace]
         [--moe-trace] [--variants] [--codec] [--codec-widths]
         [--against CSRC] [--sass] [--no-matmul] [--out F]
 
@@ -40,6 +41,12 @@ step is replayed from a CUDA graph where the tree does so; ``--eager``
 serves under its ``disable_graphs()`` instead (a tree without graphs
 always serves eagerly), so that an older tree, this tree eager and this
 tree replayed compare under one harness.
+
+``--plan-lookup`` also times, on the host, what a wire matmul call
+spends choosing its launch plan at phase 5's decode shape (4 x 5120 x
+17920, takum8), once resolved: ``cost.is_fake`` of its input and
+``autotune.resolved_plan``, in microseconds a call over 10^5 calls, on
+the ``--src`` tree (None for a tree without the autotuner).
 
 ``--lockstep N`` also serves ``chip_smoke.py`` phase 20's lockstep batch
 (phi3-medium-14b at full width, phase 5's prompts left-padded into one
@@ -340,6 +347,27 @@ def serve_times(torch, dev, max_new, eager=False):
                                  wrappers=wrappers, eager=eager)
         out[name] = {k: serve[k] for k in keep}
     return out
+
+
+def plan_lookup_us(torch, dev, calls=100_000):
+    """Host microseconds a call of ``cost.is_fake`` on a card tensor plus
+    ``autotune.resolved_plan`` at phase 5's decode matmul (see
+    ``--plan-lookup``), or None where the tree has no autotuner."""
+    import time
+    try:
+        from repro_torch.kernels import autotune, cost
+    except ImportError:
+        return None
+    from repro_torch import formats
+    spec = formats.get("takum8")
+    x = torch.zeros((4, 5120), device=dev)
+    shape = (4, 5120, 17920)
+    autotune.resolved_plan("qmatmul", spec, shape)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        cost.is_fake(x)
+        autotune.resolved_plan("qmatmul", spec, shape)
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 # kernel name fragments -> the group a trace sums them into
@@ -959,6 +987,7 @@ def main() -> int:
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--serve", type=int, default=0, metavar="N")
     ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--plan-lookup", action="store_true")
     ap.add_argument("--lockstep", type=int, default=0, metavar="N")
     ap.add_argument("--step-trace", action="store_true")
     ap.add_argument("--moe-trace", action="store_true")
@@ -1009,6 +1038,8 @@ def main() -> int:
         res["paged_ms"] = paged_times(torch, dev)
     if args.serve:
         res["serve"] = serve_times(torch, dev, args.serve, args.eager)
+    if args.plan_lookup:
+        res["plan_lookup_us"] = plan_lookup_us(torch, dev)
     if args.lockstep:
         res["lockstep"] = lockstep_times(torch, dev, args.lockstep)
     if args.step_trace:
